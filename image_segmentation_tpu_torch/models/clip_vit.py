@@ -1,0 +1,183 @@
+"""CLIP ViT vision encoder (frozen feature extractor), eval forward.
+
+Counterpart of image_segmentation_tpu/models/clip_vit.py, with HF
+`CLIPVisionModel` parameter names (`embeddings.patch_embedding.weight`,
+`encoder.layers.{i}.self_attn.q_proj.weight`, `pre_layrnorm` — sic, HF's
+spelling), so converted HF weights load without renaming. Patch-embed
+conv (k = s = patch, no bias), class + position embeddings, pre-layernorm,
+pre-norm blocks (quick-GELU MLP), and the list of hidden states:
+[0] is the pre-layernorm output and [i] the output of block i.
+
+With `use_kernels`, each block's attention runs K3 (`fused_attention`)
+and its MLP half K4 (`fused_mlp`) when hidden and MLP widths are
+multiples of 128 (the rule of clip_vit.py:161); otherwise the plain
+versions of the same functions run. On CPU tensors the wrappers run the
+plain versions themselves.
+
+Parameters are float32; the compute dtype is the dtype of the pixels the
+ClipViT is given (the ClipUNet casts them).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from image_segmentation_tpu_torch.models.layers import lecun_normal_
+from image_segmentation_tpu_torch.ops.kernels.attention import (
+    attention_reference,
+    fused_attention,
+)
+from image_segmentation_tpu_torch.ops.kernels.mlp import fused_mlp, mlp_reference
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipViTConfig:
+    image_size: int = 224
+    patch_size: int = 16
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    mlp_dim: int = 3072
+    layer_norm_eps: float = 1e-5
+
+    @property
+    def grid_size(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid_size**2
+
+
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """LayerNorm with f32 statistics, result in x's dtype."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+                        ln.eps).to(x.dtype)
+
+
+def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """nn.Linear computed in x's dtype."""
+    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+
+
+class MultiHeadAttention(nn.Module):
+    """q/k/v/out projections with bias around softmax(QKᵀ/√d)·V."""
+
+    def __init__(self, cfg: ClipViTConfig, use_kernels: bool):
+        super().__init__()
+        self.cfg = cfg
+        self.use_kernels = use_kernels
+        h = cfg.hidden_size
+        self.q_proj, self.k_proj, self.v_proj, self.out_proj = (
+            nn.Linear(h, h) for _ in range(4))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        n, s, _ = x.shape
+        split = lambda t: t.view(n, s, c.num_heads, c.hidden_size // c.num_heads)
+        q, k, v = (split(linear(x, p)) for p in (self.q_proj, self.k_proj, self.v_proj))
+        attend = fused_attention if self.use_kernels else attention_reference
+        out = attend(q, k, v).reshape(n, s, c.hidden_size)
+        return linear(out, self.out_proj)
+
+
+class ClipMLP(nn.Module):
+    def __init__(self, cfg: ClipViTConfig):
+        super().__init__()
+        self.fc1 = nn.Linear(cfg.hidden_size, cfg.mlp_dim)
+        self.fc2 = nn.Linear(cfg.mlp_dim, cfg.hidden_size)
+
+
+class TransformerBlock(nn.Module):
+    """Pre-norm block: x + attn(ln1(x)); x + mlp(ln2(x))."""
+
+    def __init__(self, cfg: ClipViTConfig, use_kernels: bool):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(cfg, use_kernels)
+        self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.mlp = ClipMLP(cfg)
+        self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.fuse_mlp = (use_kernels and cfg.hidden_size % 128 == 0
+                         and cfg.mlp_dim % 128 == 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.self_attn(layer_norm(x, self.layer_norm1))
+        ln, fc1, fc2 = self.layer_norm2, self.mlp.fc1, self.mlp.fc2
+        run_mlp = fused_mlp if self.fuse_mlp else mlp_reference
+        return run_mlp(x, ln.weight, ln.bias, fc1.weight.to(x.dtype), fc1.bias,
+                       fc2.weight.to(x.dtype), fc2.bias, ln.eps)
+
+
+class ClipEncoder(nn.Module):
+    def __init__(self, cfg: ClipViTConfig, use_kernels: bool):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerBlock(cfg, use_kernels) for _ in range(cfg.num_layers))
+
+
+class ClipEmbeddings(nn.Module):
+    def __init__(self, cfg: ClipViTConfig):
+        super().__init__()
+        self.class_embedding = nn.Parameter(torch.zeros(cfg.hidden_size))
+        self.patch_embedding = nn.Conv2d(3, cfg.hidden_size, cfg.patch_size,
+                                         stride=cfg.patch_size, bias=False)
+        self.position_embedding = nn.Embedding(cfg.num_patches + 1, cfg.hidden_size)
+
+
+class ClipViT(nn.Module):
+    """forward(pixels (N, S, S, 3)) → (last_hidden (N, 1+P, H), hidden_states)."""
+
+    def __init__(self, cfg: ClipViTConfig = ClipViTConfig(), use_kernels: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.embeddings = ClipEmbeddings(cfg)
+        self.pre_layrnorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.encoder = ClipEncoder(cfg, use_kernels)
+
+    def forward(self, pixels: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        c = self.cfg
+        n = pixels.shape[0]
+        if pixels.shape[1] != c.image_size or pixels.shape[2] != c.image_size:
+            raise ValueError(
+                f"ClipViT expects {c.image_size}px inputs, got "
+                f"{pixels.shape[1]}x{pixels.shape[2]}")
+        emb = self.embeddings
+        x = pixels.permute(0, 3, 1, 2)  # NHWC → NCHW view
+        patches = F.conv2d(x, emb.patch_embedding.weight.to(x.dtype), stride=c.patch_size)
+        patches = patches.flatten(2).transpose(1, 2)  # (N, P, H), row-major grid
+        cls = emb.class_embedding.to(x.dtype).expand(n, 1, c.hidden_size)
+        seq = torch.cat([cls, patches], dim=1) + emb.position_embedding.weight.to(x.dtype)
+        seq = layer_norm(seq, self.pre_layrnorm)
+        hidden_states = [seq]
+        for block in self.encoder.layers:
+            seq = block(seq)
+            hidden_states.append(seq)
+        return seq, hidden_states
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """flax's initialisers: LeCun-normal kernels, zero biases, unit
+        LayerNorms, N(0, 0.02) class and position embeddings."""
+        emb = self.embeddings
+        emb.class_embedding.normal_(0.0, 0.02, generator=generator)
+        emb.position_embedding.weight.normal_(0.0, 0.02, generator=generator)
+        lecun_normal_(emb.patch_embedding.weight, emb.patch_embedding.weight[0].numel(),
+                      generator)
+        for m in self.encoder.modules():
+            if isinstance(m, nn.Linear):
+                lecun_normal_(m.weight, m.in_features, generator)
+                m.bias.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        self.pre_layrnorm.weight.fill_(1.0)
+        self.pre_layrnorm.bias.zero_()
+
+
+def tokens_to_grid(tokens: torch.Tensor, grid: int) -> torch.Tensor:
+    """(N, 1+G², H) → (N, G, G, H): drop CLS, reshape to the grid."""
+    return tokens[:, 1:, :].reshape(tokens.shape[0], grid, grid, tokens.shape[-1])
