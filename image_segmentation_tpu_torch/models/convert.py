@@ -1,8 +1,8 @@
 """JAX (flax) variables → the port's state_dict, in numpy and torch only.
 
 `from_jax_variables` takes the flax `{'params', 'batch_stats'}` tree of a
-ClipUNet, or the `{'params'}` tree of a bare ClipViT, as nested dicts of
-numpy arrays, and returns the state_dict of the port's module:
+ClipUNet or a UNet, or the `{'params'}` tree of a bare ClipViT, as nested
+dicts of numpy arrays, and returns the state_dict of the port's module:
 
   Dense          kernel (in, out)        → weight (out, in)
   Conv           kernel HWIO             → weight OIHW
@@ -76,9 +76,35 @@ def _conv_bn_relu(p, stats) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _double_conv(p, stats) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for i in (0, 1):
+        name = f"ConvBNRelu_{i}"
+        sd.update({f"conv{i + 1}.{k}": v
+                   for k, v in _conv_bn_relu(p[name], stats[name]).items()})
+    return sd
+
+
+def _unet(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
+    """DoubleConv_0 → down1, Down_k → down{k+2}, Up_k → up{k+1}, Conv_0 → output."""
+    parts = {"down1": _double_conv(params["DoubleConv_0"], stats["DoubleConv_0"]),
+             "output": _conv(params["Conv_0"])}
+    for k in range(4):
+        d = f"Down_{k}"
+        parts[f"down{k + 2}.conv"] = _double_conv(params[d]["DoubleConv_0"],
+                                                  stats[d]["DoubleConv_0"])
+        u = f"Up_{k}"
+        parts[f"up{k + 1}.up.up"] = _conv_transpose(params[u]["UpConv_0"]["ConvTranspose_0"])
+        parts[f"up{k + 1}.conv"] = _double_conv(params[u]["DoubleConv_0"],
+                                                stats[u]["DoubleConv_0"])
+    return {f"{name}.{k}": v for name, tensors in parts.items() for k, v in tensors.items()}
+
+
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's state_dict for a JAX ClipUNet (or bare ClipViT) tree."""
+    """The port's state_dict for a JAX ClipUNet, UNet or bare ClipViT tree."""
     params = variables["params"]
+    if "DoubleConv_0" in params:
+        return _unet(params, variables["batch_stats"])
     if "encoder" not in params:
         return _vit(params)
     stats = variables["batch_stats"]

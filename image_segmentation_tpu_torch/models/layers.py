@@ -1,6 +1,7 @@
 """Shared conv building blocks and initialisers (eval-mode forward).
 
-Counterpart of image_segmentation_tpu/models/layers.py. Modules take
+Counterpart of image_segmentation_tpu/models/layers.py (ConvBNRelu,
+DoubleConv, Down, UpConv, Up; `init_weights` on each). Modules take
 NCHW tensors (callers keep them in channels_last memory, which is the
 JAX package's NHWC) and compute in the dtype of their input: parameters
 stay float32 and are cast per call, as flax does with `dtype=bfloat16`.
@@ -86,6 +87,53 @@ class UpConv(nn.Module):
         w = self.up.weight  # (in, out, kH, kW); flax's fan_in is kH·kW·in
         conv_kernel_init_(w, w.shape[0] * w.shape[2] * w.shape[3], generator)
         nn.init.zeros_(self.up.bias)
+
+
+class DoubleConv(nn.Module):
+    """[Conv3×3 → BN → ReLU] × 2 (reference unet/unet.py:4-25)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.conv1 = ConvBNRelu(in_features, features)
+        self.conv2 = ConvBNRelu(features, features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(self.conv1(x))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.conv1.init_weights(generator)
+        self.conv2.init_weights(generator)
+
+
+class Down(nn.Module):
+    """MaxPool 2×2 then DoubleConv (reference unet/unet.py:28-45)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.conv = DoubleConv(in_features, features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.max_pool2d(x, 2))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.conv.init_weights(generator)
+
+
+class Up(nn.Module):
+    """Transpose conv ×2 to `features` channels, concat [skip, up] (skip
+    first, reference unet/unet.py:63), DoubleConv."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.up = UpConv(in_features, features)
+        self.conv = DoubleConv(2 * features, features)
+
+    def forward(self, skip: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(torch.cat([skip, self.up(x)], dim=1))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.up.init_weights(generator)
+        self.conv.init_weights(generator)
 
 
 def conv1x1(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:

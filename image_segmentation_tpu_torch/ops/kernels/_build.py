@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-The sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes, at the first CUDA call (never at import,
+Each source compiles with its own nvcc, all started together, and the
+objects link into one shared library with a plain C interface, loaded
+with ctypes, at the first CUDA call (never at import,
 so machines without nvcc import every module). The library lands in
 `build/torch_kernels/` beside the package and is rebuilt when a source
 is newer than it (the rule of image_segmentation_tpu/ops/native_codec.py).
@@ -22,12 +23,12 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libistpu_kernels.so")
-SOURCES = ("attention.cu", "mlp.cu")
+SOURCES = ("attention.cu", "mlp.cu", "double_conv.cu")
 HEADERS = ("common.cuh",)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -59,20 +60,32 @@ def _stale() -> bool:
 
 def build() -> str:
     """Compile csrc/*.cu into LIB_PATH; returns nvcc's output (stderr).
+    One nvcc per source runs in parallel, then one links the objects.
     Writes to a temporary file first, so a concurrent loader never maps
     a half-written library."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, f) for f in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs = [os.path.join(objdir, f + ".o") for f in SOURCES]
+        procs = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                   text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, f)]
+                        for f, obj in zip(SOURCES, objs))
+        ]
+        results = [(cmd, p, p.communicate()[1]) for cmd, p in procs]
+        for cmd, p, err in results:
+            if p.returncode != 0:
+                raise KernelBuildError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}")
+        log = "".join(err for _, _, err in results)
+        tmp = os.path.join(objdir, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, LIB_PATH)
+    return log + proc.stderr
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -84,6 +97,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.istpu_attention_max_seq.restype = i32
     lib.istpu_mlp_bf16.argtypes = [vp] * 9 + [i32] * 5 + [f32, i32, vp]
     lib.istpu_mlp_bf16.restype = i32
+    lib.istpu_conv3x3_bf16.argtypes = [vp] * 6 + [i32] * 8 + [vp]
+    lib.istpu_conv3x3_bf16.restype = i32
     lib.istpu_error_string.argtypes = [i32]
     lib.istpu_error_string.restype = ctypes.c_char_p
 

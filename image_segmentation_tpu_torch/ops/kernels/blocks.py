@@ -1,0 +1,54 @@
+"""K2: the UNet's down and up blocks around K1 (inference mode), NHWC.
+
+Counterpart of image_segmentation_tpu/ops/pallas/blocks.py:
+  down block = 2×2 max pool → fused double conv;
+  up block   = 2×2 stride-2 transpose conv + bias → concat [skip, up] →
+               fused double conv.
+As in the JAX package, the pre-stages are not in the kernel: the pool,
+the transpose conv and the concat are torch ops, and the double conv is
+K1 (`double_conv.fused_double_conv`), which counts the launches. The
+concat puts the skip FIRST (blocks.py:71, reference unet/unet.py:63).
+
+Transpose-conv weights are in torch's ConvTranspose2d layout
+(Cin, Cout, 2, 2), already flipped from flax's by models/convert.py.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from image_segmentation_tpu_torch.ops.kernels.double_conv import fused_double_conv
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)  # NHWC → NCHW view (channels_last memory)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """NHWC 2×2 stride-2 max pool (VALID)."""
+    return _nhwc(F.max_pool2d(_nchw(x), 2))
+
+
+def transpose_conv_2x2(x: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor | None = None) -> torch.Tensor:
+    """NHWC transpose conv, kernel 2 stride 2, in x's dtype; exactly 2H × 2W."""
+    b = None if bias is None else bias.to(x.dtype)
+    return _nhwc(F.conv_transpose2d(_nchw(x), weight.to(x.dtype), b, stride=2))
+
+
+def fused_down_block(x, w1, scale1, bias1, w2, scale2, bias2) -> torch.Tensor:
+    """max pool 2×2, then the fused double conv (reference Down block)."""
+    return fused_double_conv(max_pool_2x2(x), w1, scale1, bias1, w2, scale2, bias2)
+
+
+def fused_up_block(skip, x, up_weight, up_bias, w1, scale1, bias1, w2, scale2,
+                   bias2) -> torch.Tensor:
+    """transpose conv ×2 (halving channels), concat [skip, up], fused double
+    conv (reference Up block)."""
+    up = transpose_conv_2x2(x, up_weight, up_bias)
+    return fused_double_conv(torch.cat([skip, up], dim=-1), w1, scale1, bias1,
+                             w2, scale2, bias2)

@@ -1,14 +1,17 @@
 """HTTP serving app for the port (stdlib http.server).
 
-Counterpart of image_segmentation_tpu/serve/app.py, for the clip family:
+Counterpart of image_segmentation_tpu/serve/app.py, for the clip and
+unet families:
   GET  /models   — registry listing
   POST /segment  — JSON {image: b64, model: name, [label: b64]} →
                    {output_mask: b64 PNG, [output_label: b64 PNG], class_names}
 
-Uploads decode and masks encode with PIL. `--demo` serves a random-weight
-ClipUNet at reduced widths (hidden 128, MLP 256, so on CUDA both kernels
-run); on CUDA it computes in bfloat16 with the hand-written kernels, on
-the CPU in float32 with their plain versions. The interactive frontend,
+Uploads decode and masks encode with PIL. `--demo` serves random-weight
+models at reduced widths, as the JAX package's `demo_model_specs` does:
+a ClipUNet (hidden 128, MLP 256, so on CUDA K3 and K4 run) and a UNet
+(base 8, so on CUDA K1 runs at C = 8 … 128); both at 64 px. On CUDA they
+compute in bfloat16 with the hand-written kernels, on the CPU in float32
+with their plain versions. The interactive frontend, the autoencoder and
 prompt families, checkpoints and AOT artifacts come with later slices.
 
 Run: python -m image_segmentation_tpu_torch.serve.app --demo [--port 8000]
@@ -24,7 +27,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from image_segmentation_tpu_torch.config import CLIPUNET, build_model
+from image_segmentation_tpu_torch.config import CLIPUNET, UNET_NOAUG, build_model
 from image_segmentation_tpu_torch.data.dataset import normalize_image_channels
 from image_segmentation_tpu_torch.data.labels import colorize_mask, target_remap
 from image_segmentation_tpu_torch.models.clip_vit import ClipViTConfig
@@ -66,12 +69,14 @@ def encode_png_base64(arr: np.ndarray) -> str:
 
 
 def build_demo_engine(device="cpu", seed: int = 0) -> InferenceEngine:
-    """A registry with one random-weight, reduced-width clip family."""
-    model = build_model(
+    """A registry with the random-weight, reduced-width clip and unet families."""
+    clip = build_model(
         CLIPUNET, device, torch.Generator().manual_seed(seed), vit=DEMO_VIT,
         skip_indices=(0, 1, 2, 3), decoder_channels=(64, 32, 16, 8, 8))
+    unet = build_model(UNET_NOAUG, device, torch.Generator().manual_seed(seed), base=8)
     eng = InferenceEngine(device=device)
-    eng.register("clip", model, DEMO_TARGET)
+    eng.register("clip", clip, DEMO_TARGET)
+    eng.register("unet", unet, DEMO_TARGET)
     return eng
 
 
@@ -148,8 +153,8 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--demo", action="store_true",
-                   help="random-weight reduced-width clip family (the only "
-                        "registry this slice has)")
+                   help="random-weight reduced-width clip and unet families "
+                        "(the only registry ported so far)")
     args = p.parse_args(argv)
     if not args.demo:
         raise SystemExit("only --demo is ported so far (checkpoints come later)")

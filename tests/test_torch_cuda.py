@@ -10,11 +10,14 @@ Tolerance: two bf16 steps of the output's largest magnitude. Kernel and
 plain version round at the same points and sum in another order, so an
 output, or an intermediate it depends on, can land one step apart.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from image_segmentation_tpu_torch.ops.kernels import attention as K3
+from image_segmentation_tpu_torch.ops.kernels import double_conv as K1
 from image_segmentation_tpu_torch.ops.kernels import mlp as K4
 
 pytestmark = pytest.mark.cuda
@@ -102,8 +105,6 @@ def test_small_clip_unet_runs_both_kernels(cuda):
     """A reduced ClipUNet built as the config builds it on CUDA (bf16,
     kernels on): one launch of each kernel per block, finite logits close
     to the same weights through the plain versions."""
-    import dataclasses
-
     from image_segmentation_tpu_torch.config import CLIPUNET, build_model
     from image_segmentation_tpu_torch.serve.app import DEMO_VIT
 
@@ -117,5 +118,69 @@ def test_small_clip_unet_runs_both_kernels(cuda):
         got, want = model(x), plain(x)
     assert (K3.LAUNCHES - a, K4.LAUNCHES - m) == (DEMO_VIT.num_layers,) * 2
     assert got.shape == (2, 64, 64, 4) and torch.isfinite(got).all()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    assert agree > 0.9, agree
+
+
+def _k1_args(xshape, c, bias1_offset, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g).to(device)
+    cin = xshape[-1]
+    return (rnd(*xshape).bfloat16(), (rnd(3, 3, cin, c) * (2 / (9 * cin)) ** 0.5).bfloat16(),
+            1 + 0.1 * rnd(c), 0.1 * rnd(c) + bias1_offset,
+            (rnd(3, 3, c, c) * (2 / (9 * c)) ** 0.5).bfloat16(), 1 + 0.1 * rnd(c), 0.1 * rnd(c))
+
+
+# The UNet-64 levels chip_smoke.py checks, a ragged shape (W not a
+# multiple of the 16-column tile, two images, C not a multiple of the 64
+# channel block) and the deepest demo level; bias1 = +1 shows at every
+# edge whether conv2 sees zero padding or relu(bias1) outside the image.
+@pytest.mark.parametrize("xshape,c,bias1_offset", [
+    ((1, 256, 256, 3), 64, 0.0), ((1, 128, 128, 64), 128, 0.0),
+    ((1, 16, 16, 512), 1024, 0.0), ((1, 32, 32, 1024), 512, 0.0),
+    ((1, 256, 256, 128), 64, 0.0), ((2, 37, 45, 24), 72, 1.0), ((1, 4, 4, 64), 128, 1.0),
+    ((1, 20, 40, 8), 16, 1.0)])
+def test_double_conv_kernel(cuda, xshape, c, bias1_offset):
+    args = _k1_args(xshape, c, bias1_offset, cuda)
+    before = K1.LAUNCHES
+    got = K1.fused_double_conv(*args)
+    torch.cuda.synchronize()
+    assert K1.LAUNCHES == before + 1 and got.dtype == torch.bfloat16
+    assert got.shape == xshape[:3] + (c,)
+    _close(got, K1.double_conv_reference(*args))
+
+
+def test_double_conv_refuses_what_the_kernel_does_not_take(cuda):
+    x, w1, s1, b1, w2, s2, b2 = _k1_args((1, 8, 8, 16), 16, 0.0, cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        K1.fused_double_conv(x.float(), w1, s1, b1, w2, s2, b2)
+    with pytest.raises(TypeError, match="float32"):
+        K1.fused_double_conv(x, w1, s1.bfloat16(), b1, w2, s2, b2)
+    with pytest.raises(ValueError, match="is on"):
+        K1.fused_double_conv(x, w1.cpu(), s1, b1, w2, s2, b2)
+    nchw_memory = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        K1.fused_double_conv(nchw_memory, w1, s1, b1, w2, s2, b2)
+    x, w1, s1, b1, w2, s2, b2 = _k1_args((1, 8, 8, 16), 12, 0.0, cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K1.fused_double_conv(x, w1, s1, b1, w2, s2, b2)
+
+
+def test_small_unet_runs_k1_nine_times(cuda):
+    """The demo UNet (base 8) built as the config builds it on CUDA (bf16,
+    kernels on): nine K1 launches a forward, finite logits close to the
+    same weights through the module path (cuDNN, bf16)."""
+    from image_segmentation_tpu_torch.config import UNET_NOAUG, build_model
+
+    model = build_model(UNET_NOAUG, cuda, torch.Generator().manual_seed(0), base=8)
+    plain = build_model(dataclasses.replace(UNET_NOAUG, use_kernels=False), cuda,
+                        torch.Generator().manual_seed(0), base=8)
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = K1.LAUNCHES
+    with torch.inference_mode():
+        got, want = model(x), plain(x)
+    assert K1.LAUNCHES - before == 9
+    assert got.shape == (2, 64, 64, 4) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
     assert agree > 0.9, agree

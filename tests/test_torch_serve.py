@@ -17,14 +17,17 @@ import numpy as np
 import pytest
 import torch
 
+from image_segmentation_tpu.models import UNet as JaxUNet
 from image_segmentation_tpu.models.clip_unet import ClipUNet as JaxClipUNet
 from image_segmentation_tpu.models.clip_vit import ClipViTConfig as JaxViTConfig
 from image_segmentation_tpu.serve import engine as jax_engine
 from image_segmentation_tpu.ops import geometry as JG
+from image_segmentation_tpu_torch.config import UNET_NOAUG, build_model
 from image_segmentation_tpu_torch.data.labels import COLOR_MAP, colorize_mask
 from image_segmentation_tpu_torch.models.clip_unet import ClipUNet
 from image_segmentation_tpu_torch.models.clip_vit import ClipViTConfig
 from image_segmentation_tpu_torch.models.convert import from_jax_variables
+from image_segmentation_tpu_torch.models.unet import UNet
 from image_segmentation_tpu_torch.serve import app, engine as port_engine
 
 torch.set_num_threads(1)
@@ -54,6 +57,25 @@ def weights():
     return model, v, port.to(memory_format=torch.channels_last).eval()
 
 
+@pytest.fixture(scope="module")
+def unet_weights():
+    """A JAX UNet(base=8) (f32, as the JAX demo registry builds it) and the
+    port's UNet on its fused path (plain K1 on the CPU) carrying the same
+    weights and perturbed running stats."""
+    model = JaxUNet(num_classes=4, base=8)
+    v = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)))
+    v = jax.tree_util.tree_map(np.asarray, v)
+    rng = np.random.default_rng(1)
+    v = {"params": jax.tree_util.tree_map(
+             lambda a: (a + 0.05 * rng.normal(size=a.shape)).astype(np.float32), v["params"]),
+         "batch_stats": jax.tree_util.tree_map(
+             lambda a: (a + rng.uniform(0.0, 0.5, a.shape)).astype(np.float32),
+             v["batch_stats"])}
+    port = UNet(base=8, use_kernels=True)
+    port.load_state_dict(from_jax_variables(v), strict=True)
+    return model, v, port.to(memory_format=torch.channels_last).eval()
+
+
 def _png_b64(arr):
     from PIL import Image
 
@@ -69,24 +91,26 @@ def _decode_png_b64(data):
         return np.asarray(im)
 
 
+@pytest.mark.parametrize("family", ["clip", "unet"])
 @pytest.mark.parametrize("fast_transfer", [True, False])
 @pytest.mark.parametrize("hw", [(50, 70), (400, 1)])
-def test_segment_matches_jax_engine(weights, fast_transfer, hw):
+def test_segment_matches_jax_engine(request, family, fast_transfer, hw):
     """Masks agree except at near-ties of the JAX engine's restored scores:
     a top-two gap below 1e-4 with f32 transfer, below one bf16 step of
     the scores with bf16 transfer (both engines round scores to bf16)."""
-    model, variables, port = weights
+    model, variables, port = request.getfixturevalue(
+        "weights" if family == "clip" else "unet_weights")
     j_eng = jax_engine.InferenceEngine(fast_transfer=fast_transfer)
-    j_eng.register("clip", model, variables, 64)
+    j_eng.register(family, model, variables, 64)
     p_eng = port_engine.InferenceEngine(device="cpu", fast_transfer=fast_transfer)
-    p_eng.register("clip", port, 64)
+    p_eng.register(family, port, 64)
     img = np.random.default_rng(sum(hw)).uniform(0, 1, hw + (3,)).astype(np.float32)
 
-    got = p_eng.segment(img, "clip")
-    want = j_eng.segment(img, "clip")
+    got = p_eng.segment(img, family)
+    want = j_eng.segment(img, family)
     assert got["mask"].shape == hw and got["class_names"] == want["class_names"]
 
-    entry = j_eng.models["clip"]
+    entry = j_eng.models[family]
     inputs, meta = jax_engine.stage_request(img, entry, None, fast_transfer)
     scores = np.asarray(entry.forward(*[x[None] for x in inputs]), np.float32)[0]
     restored = np.sort(JG.invert_resize_padding_np(scores, meta), axis=-1)
@@ -94,7 +118,7 @@ def test_segment_matches_jax_engine(weights, fast_transfer, hw):
     tol = 2.0**-7 * np.abs(scores).max() if fast_transfer else 1e-4
     differ = got["mask"] != want["mask"]
     near_ties = int((gap < tol).sum())
-    print(f"{hw} fast_transfer={fast_transfer}: {int(differ.sum())} differing "
+    print(f"{family} {hw} fast_transfer={fast_transfer}: {int(differ.sum())} differing "
           f"pixels, {near_ties} near-ties of {differ.size}")
     assert not np.any(differ & (gap >= tol))
 
@@ -138,20 +162,36 @@ def test_demo_server_over_http():
     try:
         base = f"http://127.0.0.1:{server.server_address[1]}"
         with urllib.request.urlopen(base + "/models", timeout=30) as r:
-            assert json.load(r) == {"models": ["clip"]}
+            assert json.load(r) == {"models": ["clip", "unet"]}
         img = np.random.default_rng(3).integers(0, 255, (30, 20, 3), dtype=np.uint8)
-        req = urllib.request.Request(
-            base + "/segment", method="POST",
-            data=json.dumps({"model": "clip", "image": _png_b64(img)}).encode(),
-            headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=60) as r:
-            out = json.load(r)
-        assert _decode_png_b64(out["output_mask"]).shape == (30, 20, 3)
+        for family in ("clip", "unet"):
+            req = urllib.request.Request(
+                base + "/segment", method="POST",
+                data=json.dumps({"model": family, "image": _png_b64(img)}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                out = json.load(r)
+            assert _decode_png_b64(out["output_mask"]).shape == (30, 20, 3)
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+def test_demo_registry_unet_is_the_jax_demo_unet():
+    """The demo's unet family is the JAX demo registry's (app.py:120):
+    UNet(base=8), 4 classes, target 64, seeded weights, f32 with the plain
+    versions on the CPU; masks come back at the upload's resolution."""
+    eng = app.build_demo_engine("cpu")
+    assert eng.available() == ["clip", "unet"] and eng.models["unet"].target_size == 64
+    ref = port_engine.InferenceEngine(device="cpu")
+    ref.register("unet", build_model(UNET_NOAUG, "cpu", torch.Generator().manual_seed(0),
+                                     base=8), 64)
+    img = np.random.default_rng(4).uniform(0, 1, (48, 80, 3))
+    out = eng.segment(img, "unet")
+    assert out["mask"].shape == (48, 80) and out["mask"].max() <= 3
+    np.testing.assert_array_equal(out["mask"], ref.segment(img, "unet")["mask"])
 
 
 def test_port_imports_no_jax():
