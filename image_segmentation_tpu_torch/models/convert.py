@@ -1,8 +1,9 @@
 """JAX (flax) variables → the port's state_dict, in numpy and torch only.
 
 `from_jax_variables` takes the flax `{'params', 'batch_stats'}` tree of a
-ClipUNet or a UNet, or the `{'params'}` tree of a bare ClipViT, as nested
-dicts of numpy arrays, and returns the state_dict of the port's module:
+ClipUNet, a UNet, a SegmentationAutoencoder or a PromptModel, or the
+`{'params'}` tree of a bare ClipViT, as nested dicts of numpy arrays, and
+returns the state_dict of the port's module:
 
   Dense          kernel (in, out)        → weight (out, in)
   Conv           kernel HWIO             → weight OIHW
@@ -100,17 +101,14 @@ def _unet(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
     return {f"{name}.{k}": v for name, tensors in parts.items() for k, v in tensors.items()}
 
 
-def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's state_dict for a JAX ClipUNet, UNet or bare ClipViT tree."""
-    params = variables["params"]
-    if "DoubleConv_0" in params:
-        return _unet(params, variables["batch_stats"])
-    if "encoder" not in params:
-        return _vit(params)
-    stats = variables["batch_stats"]
-    sd = {f"vision_model.{k}": v for k, v in _vit(params["encoder"]).items()}
+def _prefixed(prefix: str, sd: Mapping) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.{k}": v for k, v in sd.items()}
+
+
+def _clip_unet(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
+    sd = _prefixed("vision_model", _vit(params["encoder"]))
     for name in ("init_conv", "head"):
-        sd.update({f"{name}.{k}": v for k, v in _conv(params[name]).items()})
+        sd.update(_prefixed(name, _conv(params[name])))
     n_blocks = sum(1 for k in params if k.startswith("dec_"))
     for i in range(n_blocks):
         p, s, pre = params[f"dec_{i}"], stats[f"dec_{i}"], f"dec.{i}."
@@ -123,3 +121,46 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         for name, tensors in parts.items():
             sd.update({f"{pre}{name}.{k}": v for k, v in tensors.items()})
     return sd
+
+
+def _autoencoder(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
+    """encoder/EncoderBlock_k → encoder.encoderPart{k+1},
+    DecoderBlockWithSkips_k → decoder.decoderBlock{k+1}, Conv_0 → finalConv;
+    inside them ConvBNRelu_{0,1} → conv{1,2} and UpConv_0 → up."""
+    sd = _prefixed("finalConv", _conv(params["Conv_0"]))
+    for k in range(3):
+        e, d = f"EncoderBlock_{k}", f"DecoderBlockWithSkips_{k}"
+        for pre, p, s in ((f"encoder.encoderPart{k + 1}", params["encoder"][e],
+                           stats["encoder"][e]),
+                          (f"decoder.decoderBlock{k + 1}", params[d], stats[d])):
+            for i in (0, 1):
+                name = f"ConvBNRelu_{i}"
+                sd.update(_prefixed(f"{pre}.conv{i + 1}", _conv_bn_relu(p[name], s[name])))
+        sd.update(_prefixed(f"decoder.decoderBlock{k + 1}.up.up",
+                            _conv_transpose(params[d]["UpConv_0"]["ConvTranspose_0"])))
+    return sd
+
+
+def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's state_dict for a JAX ClipUNet, UNet, SegmentationAutoencoder,
+    PromptModel or bare ClipViT tree, told apart by what the tree holds:
+    a ClipUNet has `encoder/class_embedding`, an autoencoder
+    `encoder/EncoderBlock_0`, a PromptModel `clip` and `mask`, a UNet
+    `DoubleConv_0`, a bare ClipViT `class_embedding`. Any other tree raises."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    encoder = params.get("encoder", {})
+    if "clip" in params and "mask" in params:
+        return {**_prefixed("clip", _clip_unet(params["clip"], stats["clip"])),
+                **_prefixed("mask", _unet(params["mask"], stats["mask"]))}
+    if "DoubleConv_0" in params:
+        return _unet(params, stats)
+    if "class_embedding" in encoder:
+        return _clip_unet(params, stats)
+    if "EncoderBlock_0" in encoder:
+        return _autoencoder(params, stats)
+    if "class_embedding" in params:
+        return _vit(params)
+    raise ValueError(
+        f"unknown JAX variables tree (top-level params {sorted(params)}): not a "
+        f"ClipUNet, UNet, SegmentationAutoencoder, PromptModel or ClipViT")

@@ -38,7 +38,8 @@ def _dc_args(dc: "DoubleConv", dtype: torch.dtype) -> tuple:
 
 
 def fused_unet_forward(unet: "UNet", x: torch.Tensor) -> torch.Tensor:
-    """x (N, H, W, 3) → f32 logits (N, H, W, classes), both NHWC."""
+    """x (N, H, W, Cin) → f32 logits (N, H, W, classes), both NHWC. K1's
+    wrapper pads a stem of Cin = 3 or 4 to 8 channels."""
     dt = unet.dtype
     feats = [fused_double_conv(x.to(dt).contiguous(), *_dc_args(unet.down1, dt))]
     for down in (unet.down2, unet.down3, unet.down4, unet.down5):

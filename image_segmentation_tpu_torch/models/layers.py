@@ -136,6 +136,19 @@ class Up(nn.Module):
         self.conv.init_weights(generator)
 
 
+def center_crop_to(x: torch.Tensor, target_hw) -> torch.Tensor:
+    """Centre-crop the spatial dims of an NCHW `x` down to (H, W): the
+    skip/upsample reconciliation of the autoencoder decoder
+    (image_segmentation_tpu/models/layers.py:127, reference
+    autoencoder/autoencoder.py:82-88)."""
+    h, w = x.shape[2], x.shape[3]
+    th, tw = int(target_hw[0]), int(target_hw[1])
+    dy, dx = h - th, w - tw
+    if dy < 0 or dx < 0:
+        raise ValueError("Upsampled larger than skip")
+    return x[:, :, dy // 2:dy // 2 + th, dx // 2:dx // 2 + tw]
+
+
 def conv1x1(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     """A 1×1 conv computed in x's dtype."""
     return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype))

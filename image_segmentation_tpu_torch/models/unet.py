@@ -6,7 +6,9 @@ channels base·{1, 2, 4, 8, 16}, 4 up blocks (transpose conv halving the
 channels, concat [skip, up], DoubleConv) and a 1×1 head to `num_classes`
 logits. `base=64` is the reference's 64→1024 schedule (~31 M parameters
 at 3 in, 4 out). Submodules take the reference's top-level names
-(`down1`..`down5`, `up1`..`up4`, `output`).
+(`down1`..`down5`, `up1`..`up4`, `output`). `in_channels` is the input
+width, which flax infers: 3 for an image, 4 for the prompt model's
+selection network (image + heatmap, models/prompt.py:71-73).
 
 Input: NHWC float in [0, 1]; output: NHWC float32 logits. With
 `use_kernels` the forward is `fused_unet_forward` (K1 nine times, BN
@@ -30,12 +32,13 @@ from image_segmentation_tpu_torch.models.layers import (
 
 class UNet(nn.Module):
     def __init__(self, num_classes: int = 4, base: int = 64,
-                 dtype: torch.dtype = torch.float32, use_kernels: bool = False):
+                 dtype: torch.dtype = torch.float32, use_kernels: bool = False,
+                 in_channels: int = 3):
         super().__init__()
         self.dtype = dtype
         self.use_kernels = use_kernels
         b = base
-        self.down1 = DoubleConv(3, b)
+        self.down1 = DoubleConv(in_channels, b)
         self.down2 = Down(b, 2 * b)
         self.down3 = Down(2 * b, 4 * b)
         self.down4 = Down(4 * b, 8 * b)

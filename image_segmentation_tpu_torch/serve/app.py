@@ -1,20 +1,31 @@
 """HTTP serving app for the port (stdlib http.server).
 
-Counterpart of image_segmentation_tpu/serve/app.py, for the clip and
-unet families:
+Counterpart of image_segmentation_tpu/serve/app.py:
   GET  /models   — registry listing
-  POST /segment  — JSON {image: b64, model: name, [label: b64]} →
+  POST /segment  — JSON {image: b64, model: name, [prompt_type,
+                   prompt_data], [label: b64]} →
                    {output_mask: b64 PNG, [output_label: b64 PNG], class_names}
 
-Uploads decode and masks encode with PIL. `--demo` serves random-weight
-models at reduced widths, as the JAX package's `demo_model_specs` does:
-a ClipUNet (hidden 128, MLP 256, so on CUDA K3 and K4 run) and a UNet
-(base 8, so on CUDA K1 runs at C = 8 … 128); both at 64 px. On CUDA they
-compute in bfloat16 with the hand-written kernels, on the CPU in float32
-with their plain versions. The interactive frontend, the autoencoder and
-prompt families, checkpoints and AOT artifacts come with later slices.
+Prompt models take `prompt_type` ("points" by default, "bbox",
+"scribble", "text") and `prompt_data` (a list of {x, y}; {x, y, width,
+height}; a base64 PNG of the strokes); malformed prompt data is the
+client's error (400). Uploads decode and masks encode with PIL.
 
-Run: python -m image_segmentation_tpu_torch.serve.app --demo [--port 8000]
+`--demo` serves the JAX package's four random-weight families at its
+demo widths where the kernels allow (`demo_model_specs`): unet and
+autoencoder at base 8; clip and prompt_model with a ViT of hidden 128,
+MLP 256 and 2 heads (head dim 64, so on CUDA K3 and K4 run), the prompt
+model's selection UNet at base 8; all at 64 px. The prompt family is
+always composed (`InferenceEngine.register_prompt_composed`). On CUDA
+the models compute in bfloat16 with the hand-written kernels, on the CPU
+in float32 with their plain versions. `--device` is explicit: cuda by
+default, and the server refuses to start when there is none. With
+`--max-batch N` requests are micro-batched (`serve/batching.py`) after a
+warm-up of every batch size. The interactive frontend, checkpoints
+(`--models-dir`), AOT artifacts and `--mesh` come with later slices.
+
+Run: python -m image_segmentation_tpu_torch.serve.app --demo
+     [--device cpu] [--max-batch 4] [--port 8000]
 """
 from __future__ import annotations
 
@@ -22,16 +33,24 @@ import argparse
 import base64
 import io
 import json
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
 
-from image_segmentation_tpu_torch.config import CLIPUNET, UNET_NOAUG, build_model
+from image_segmentation_tpu_torch.config import (
+    AUTOENCODER,
+    CLIPUNET,
+    PROMPT,
+    UNET_NOAUG,
+    build_model,
+)
 from image_segmentation_tpu_torch.data.dataset import normalize_image_channels
 from image_segmentation_tpu_torch.data.labels import colorize_mask, target_remap
 from image_segmentation_tpu_torch.models.clip_vit import ClipViTConfig
 from image_segmentation_tpu_torch.serve.engine import InferenceEngine
+from image_segmentation_tpu_torch.serve.render import create_prompt_mask
 
 DEMO_VIT = ClipViTConfig(image_size=64, patch_size=16, hidden_size=128,
                          num_layers=3, num_heads=2, mlp_dim=256)
@@ -68,20 +87,41 @@ def encode_png_base64(arr: np.ndarray) -> str:
     return base64.b64encode(buf.getvalue()).decode("ascii")
 
 
+def demo_model_specs(device, seed: int = 0):
+    """(name, model, target_size, needs_prompt) for the random-weight,
+    reduced-width families of the JAX demo registry (app.py:99-143), each
+    seeded from `seed`, in eval mode on `device`."""
+    clip_kw = dict(vit=DEMO_VIT, skip_indices=(0, 1, 2, 3), decoder_channels=(64, 32, 16, 8, 8))
+    builders = {
+        "unet": (UNET_NOAUG, dict(base=8), False),
+        "autoencoder": (AUTOENCODER, dict(base=8), False),
+        "clip": (CLIPUNET, clip_kw, False),
+        "prompt_model": (PROMPT, dict(clip_kw, unet_base=8), True),
+    }
+    for name, (cfg, kw, needs_prompt) in builders.items():
+        model = build_model(cfg, device, torch.Generator().manual_seed(seed), **kw)
+        yield name, model, DEMO_TARGET, needs_prompt
+
+
+def register_families(eng: InferenceEngine, families) -> None:
+    """Register (name, model, target_size, needs_prompt) specs; prompt
+    models always go through `register_prompt_composed`."""
+    for name, model, tsize, needs_prompt in families:
+        if needs_prompt:
+            eng.register_prompt_composed(name, model, tsize)
+        else:
+            eng.register(name, model, tsize)
+
+
 def build_demo_engine(device="cpu", seed: int = 0) -> InferenceEngine:
-    """A registry with the random-weight, reduced-width clip and unet families."""
-    clip = build_model(
-        CLIPUNET, device, torch.Generator().manual_seed(seed), vit=DEMO_VIT,
-        skip_indices=(0, 1, 2, 3), decoder_channels=(64, 32, 16, 8, 8))
-    unet = build_model(UNET_NOAUG, device, torch.Generator().manual_seed(seed), base=8)
+    """A registry of the four random-weight, reduced-width families."""
     eng = InferenceEngine(device=device)
-    eng.register("clip", clip, DEMO_TARGET)
-    eng.register("unet", unet, DEMO_TARGET)
+    register_families(eng, demo_model_specs(device, seed))
     return eng
 
 
-def handle_segment(engine: InferenceEngine, payload: dict) -> dict:
-    """Core of POST /segment."""
+def handle_segment(engine, payload: dict) -> dict:
+    """Core of POST /segment, for an InferenceEngine or a BatchingEngine."""
     model_name = payload.get("model")
     if not model_name:
         return {"error": "missing 'model'"}
@@ -95,7 +135,21 @@ def handle_segment(engine: InferenceEngine, payload: dict) -> dict:
     except Exception as e:  # any undecodable upload is the client's error
         return {"error": f"could not decode image: {e}"}
 
-    result = engine.segment(image, model_name)
+    prompt_mask = None
+    if engine.models[model_name].needs_prompt:
+        ptype = payload.get("prompt_type", "points")
+        pdata = payload.get("prompt_data")
+        if ptype == "scribble" and isinstance(pdata, str):
+            try:
+                pdata = decode_base64_gray(pdata)
+            except Exception as e:  # an undecodable scribble is the client's error
+                return {"error": f"could not decode scribble: {e}"}
+        try:
+            prompt_mask = create_prompt_mask(ptype, pdata, image.shape[:2])
+        except (TypeError, KeyError, ValueError, IndexError) as e:
+            return {"error": f"invalid prompt_data for {ptype!r}: {e}"}
+
+    result = engine.segment(image, model_name, prompt_mask)
     out = {
         "output_mask": encode_png_base64(result["color_mask"]),
         "class_names": result["class_names"],
@@ -153,13 +207,30 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--demo", action="store_true",
-                   help="random-weight reduced-width clip and unet families "
+                   help="random-weight reduced-width registry of the four families "
                         "(the only registry ported so far)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to serve on (default cuda; cpu runs the plain "
+                        "versions of the kernels)")
+    p.add_argument("--max-batch", type=int, default=0,
+                   help="micro-batch concurrent requests up to this size "
+                        "(serve/batching.py); 0 = one forward per request")
     args = p.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device is available "
+                         f"(pass --device cpu to serve on the CPU)")
     if not args.demo:
         raise SystemExit("only --demo is ported so far (checkpoints come later)")
-    device = "cuda" if torch.cuda.is_available() else "cpu"
     engine = build_demo_engine(device)
+    if args.max_batch > 1:
+        from image_segmentation_tpu_torch.serve.batching import BatchingEngine
+
+        engine = BatchingEngine(engine, max_batch=args.max_batch)
+        t0 = time.time()
+        engine.warmup()
+        print(f"[serve] request batching on (max_batch={args.max_batch}); warm-up of "
+              f"every batch size took {time.time() - t0:.1f} s")
     server = ThreadingHTTPServer((args.host, args.port), make_handler(engine))
     print(f"[serve] listening on http://{args.host}:{args.port} "
           f"models={engine.available()} device={device}")

@@ -135,11 +135,16 @@ def _k1_args(xshape, c, bias1_offset, device, seed=0):
 # multiple of the 16-column tile, two images, C not a multiple of the 64
 # channel block) and the deepest demo level; bias1 = +1 shows at every
 # edge whether conv2 sees zero padding or relu(bias1) outside the image.
+# Then the shapes batching and the prompt model's selection UNet bring:
+# the Cin = 4 stem at 224 px, N = 8 (no split), N = 2 at 16² (split-K
+# across two images) and the 14² deepest level of a 224 px UNet.
 @pytest.mark.parametrize("xshape,c,bias1_offset", [
     ((1, 256, 256, 3), 64, 0.0), ((1, 128, 128, 64), 128, 0.0),
     ((1, 16, 16, 512), 1024, 0.0), ((1, 32, 32, 1024), 512, 0.0),
     ((1, 256, 256, 128), 64, 0.0), ((2, 37, 45, 24), 72, 1.0), ((1, 4, 4, 64), 128, 1.0),
-    ((1, 20, 40, 8), 16, 1.0)])
+    ((1, 20, 40, 8), 16, 1.0),
+    ((1, 224, 224, 4), 64, 1.0), ((8, 64, 64, 4), 64, 0.0), ((8, 16, 16, 512), 1024, 0.0),
+    ((2, 16, 16, 512), 1024, 1.0), ((4, 14, 14, 512), 1024, 1.0), ((8, 28, 28, 1024), 512, 0.0)])
 def test_double_conv_kernel(cuda, xshape, c, bias1_offset):
     args = _k1_args(xshape, c, bias1_offset, cuda)
     before = K1.LAUNCHES
@@ -184,3 +189,81 @@ def test_small_unet_runs_k1_nine_times(cuda):
     assert torch.isfinite(got).all()
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
     assert agree > 0.9, agree
+
+
+def _demo_families(cuda, fast_transfer=True):
+    from image_segmentation_tpu_torch.serve import app
+    from image_segmentation_tpu_torch.serve.engine import InferenceEngine
+
+    eng = InferenceEngine(device=cuda, fast_transfer=fast_transfer)
+    app.register_families(eng, app.demo_model_specs(cuda))
+    return eng
+
+
+def test_prompt_cache_launch_counts(cuda):
+    """The demo prompt family on the card: the first click on an image runs
+    the clip branch (one K3 and one K4 launch per ViT block) and the
+    selection UNet (nine K1 launches); later clicks hit the cache and
+    launch K1 nine times only."""
+    from image_segmentation_tpu_torch.serve.app import DEMO_VIT
+    from image_segmentation_tpu_torch.serve.render import render_points
+
+    eng = _demo_families(cuda)
+    cache = eng.models["prompt_model"].score_cache
+    img = np.random.default_rng(0).uniform(0, 1, (75, 100, 3)).astype(np.float32)
+    deltas = []
+    for x in (10, 50, 90):
+        before = (K3.LAUNCHES, K4.LAUNCHES, K1.LAUNCHES)
+        out = eng.segment(img, "prompt_model", render_points([{"x": x, "y": 40}], (75, 100)))
+        deltas.append(tuple(a - b for a, b in zip((K3.LAUNCHES, K4.LAUNCHES, K1.LAUNCHES),
+                                                   before)))
+        assert out["mask"].shape == (75, 100) and out["mask"].max() <= 3
+    n = DEMO_VIT.num_layers
+    assert deltas == [(n, n, 9), (0, 0, 9), (0, 0, 9)]
+    assert (cache.misses, cache.hits) == (1, 2)
+
+
+def test_batching_engine_on_the_card(cuda):
+    """16 concurrent requests over the four demo families through the
+    BatchingEngine on the engine's CUDA stream agree with direct segment()
+    on at least 0.99 of the pixels of every request (batch composition
+    changes K1's split-K and cuDNN's algorithm, so a bf16 tie may flip),
+    and at least one batch holds more than one request."""
+    import threading
+
+    from image_segmentation_tpu_torch.serve.batching import BatchingEngine
+    from image_segmentation_tpu_torch.serve.render import render_bbox
+
+    eng = _demo_families(cuda)
+    names = eng.available()
+    rng = np.random.default_rng(1)
+    imgs = [rng.uniform(0, 1, (60 + i, 80, 3)).astype(np.float32) for i in range(16)]
+    prompts = [render_bbox({"x": 10, "y": 10, "width": 40, "height": 30}, im.shape[:2])
+               if names[i % 4] == "prompt_model" else None for i, im in enumerate(imgs)]
+    want = [eng.segment(im, names[i % 4], prompts[i])["mask"] for i, im in enumerate(imgs)]
+    sizes = []
+    for entry in eng.models.values():
+        def counted(*inputs, dispatch=entry.dispatch):
+            sizes.append(inputs[0].shape[0])
+            return dispatch(*inputs)
+        entry.dispatch = counted
+    be = BatchingEngine(eng, max_batch=8, max_wait_ms=5)
+    got = [None] * len(imgs)
+    try:
+        be.warmup()
+        sizes.clear()
+
+        def run(i):
+            got[i] = be.segment(imgs[i], names[i % 4], prompts[i], timeout=120)["mask"]
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(imgs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        be.close()
+    agree = min(float((g == w).mean()) for g, w in zip(got, want))
+    assert agree >= 0.99, agree
+    assert max(sizes) > 1, sizes

@@ -37,6 +37,7 @@ VIT = dict(image_size=64, patch_size=16, hidden_size=128, num_layers=3,
            num_heads=2, mlp_dim=256)
 UNET = dict(num_classes=4, skip_indices=(0, 1, 2, 3),
             decoder_channels=(64, 32, 16, 8, 8))
+FAMILIES = ["autoencoder", "clip", "prompt_model", "unet"]
 
 
 @pytest.fixture(scope="module")
@@ -162,12 +163,14 @@ def test_demo_server_over_http():
     try:
         base = f"http://127.0.0.1:{server.server_address[1]}"
         with urllib.request.urlopen(base + "/models", timeout=30) as r:
-            assert json.load(r) == {"models": ["clip", "unet"]}
+            assert json.load(r) == {"models": FAMILIES}
         img = np.random.default_rng(3).integers(0, 255, (30, 20, 3), dtype=np.uint8)
-        for family in ("clip", "unet"):
+        for family in FAMILIES:
+            body = {"model": family, "image": _png_b64(img)}
+            if family == "prompt_model":
+                body.update(prompt_type="points", prompt_data=[{"x": 10, "y": 12}])
             req = urllib.request.Request(
-                base + "/segment", method="POST",
-                data=json.dumps({"model": family, "image": _png_b64(img)}).encode(),
+                base + "/segment", method="POST", data=json.dumps(body).encode(),
                 headers={"Content-Type": "application/json"})
             with urllib.request.urlopen(req, timeout=60) as r:
                 out = json.load(r)
@@ -184,7 +187,7 @@ def test_demo_registry_unet_is_the_jax_demo_unet():
     UNet(base=8), 4 classes, target 64, seeded weights, f32 with the plain
     versions on the CPU; masks come back at the upload's resolution."""
     eng = app.build_demo_engine("cpu")
-    assert eng.available() == ["clip", "unet"] and eng.models["unet"].target_size == 64
+    assert eng.available() == FAMILIES and eng.models["unet"].target_size == 64
     ref = port_engine.InferenceEngine(device="cpu")
     ref.register("unet", build_model(UNET_NOAUG, "cpu", torch.Generator().manual_seed(0),
                                      base=8), 64)
@@ -192,6 +195,113 @@ def test_demo_registry_unet_is_the_jax_demo_unet():
     out = eng.segment(img, "unet")
     assert out["mask"].shape == (48, 80) and out["mask"].max() <= 3
     np.testing.assert_array_equal(out["mask"], ref.segment(img, "unet")["mask"])
+
+
+def test_demo_registry_is_the_jax_demo_registry():
+    """The port's --demo serves the JAX demo registry's four families
+    (app.py:99-168), each at 64 px, the prompt family composed."""
+    from image_segmentation_tpu.serve.app import demo_model_specs as jax_demo_specs
+
+    jax_specs = {name: (tsize, needs_prompt)
+                 for name, _, _, tsize, needs_prompt in jax_demo_specs()}
+    eng = app.build_demo_engine("cpu")
+    assert eng.available() == sorted(jax_specs) == FAMILIES
+    for name, (tsize, needs_prompt) in jax_specs.items():
+        entry = eng.models[name]
+        assert (entry.target_size, entry.needs_prompt) == (tsize, needs_prompt)
+    assert eng.models["prompt_model"].score_cache is not None
+
+
+@pytest.fixture(scope="module")
+def demo_engine():
+    return app.build_demo_engine("cpu")
+
+
+def _scribble_data_url():
+    strokes = np.zeros((64, 64), np.uint8)
+    strokes[20:26, 8:56] = 255
+    return "data:image/png;base64," + _png_b64(strokes)
+
+
+@pytest.mark.parametrize("ptype,pdata", [
+    ("points", [{"x": 30, "y": 30}, {"x": 5, "y": 60}]),
+    ("bbox", {"x": 10, "y": 12, "width": 30, "height": 24}),
+    ("scribble", "scribble"),
+    ("text", "a cat"),
+])
+def test_handle_segment_with_prompts(demo_engine, ptype, pdata):
+    """Each prompt type, as the frontend sends it, gives the mask that
+    segment() gives with the heatmap the renderer makes of it."""
+    from image_segmentation_tpu_torch.serve.render import create_prompt_mask
+
+    arr = np.random.default_rng(5).integers(0, 255, (64, 64, 3), dtype=np.uint8)
+    if pdata == "scribble":
+        pdata = _scribble_data_url()
+    out = app.handle_segment(demo_engine, {"model": "prompt_model", "image": _png_b64(arr),
+                                           "prompt_type": ptype, "prompt_data": pdata})
+    assert out["class_names"] == ["deactivated", "background", "cat", "dog"]
+    data = app.decode_base64_gray(pdata) if ptype == "scribble" else pdata
+    img = arr.astype(np.float32) / 255.0
+    want = demo_engine.segment(img, "prompt_model", create_prompt_mask(ptype, data, (64, 64)))
+    np.testing.assert_array_equal(_decode_png_b64(out["output_mask"]), want["color_mask"])
+
+
+def test_malformed_prompt_data_is_a_client_error(demo_engine):
+    """A bbox without prompt_data, a bbox without its fields and an
+    undecodable scribble are validation errors (400), not server faults."""
+    img = _png_b64(np.zeros((16, 16, 3), np.uint8))
+    for ptype, pdata in (("bbox", None), ("bbox", {"x": 1}), ("points", [{"y": 2}])):
+        out = app.handle_segment(demo_engine, {"model": "prompt_model", "image": img,
+                                               "prompt_type": ptype, "prompt_data": pdata})
+        assert "error" in out and "prompt_data" in out["error"], out
+    out = app.handle_segment(demo_engine, {"model": "prompt_model", "image": img,
+                                           "prompt_type": "scribble", "prompt_data": "!!"})
+    assert "could not decode scribble" in out["error"]
+
+
+class _NoServer:
+    """Stands in for the HTTP server: main() must never start serving."""
+
+    def __init__(self, address, handler):
+        self.address = address
+
+    def serve_forever(self):
+        raise AssertionError("main() started serving")
+
+
+def test_main_without_cuda_exits_non_zero(monkeypatch):
+    """--device defaults to cuda; with no CUDA device the server refuses to
+    start (no quiet CPU fallback) and says how to choose the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(app, "ThreadingHTTPServer", _NoServer)
+    for argv in (["--demo"], ["--demo", "--device", "cuda:0", "--max-batch", "4"]):
+        with pytest.raises(SystemExit) as e:
+            app.main(argv)
+        assert e.value.code not in (0, None) and "--device cpu" in str(e.value.code)
+
+
+def test_main_on_the_cpu_builds_a_warm_batching_engine(monkeypatch):
+    """--device cpu --max-batch 2: the four families behind a warmed-up
+    BatchingEngine, handed to the HTTP handler."""
+    from image_segmentation_tpu_torch.serve.batching import BatchingEngine
+
+    served = []
+
+    class _Server(_NoServer):
+        def serve_forever(self):
+            served.append(self.address)
+
+    engines = []
+    monkeypatch.setattr(app, "ThreadingHTTPServer", _Server)
+    monkeypatch.setattr(app, "make_handler", lambda eng: engines.append(eng))
+    app.main(["--demo", "--device", "cpu", "--max-batch", "2", "--port", "0"])
+    (eng,) = engines
+    try:
+        assert isinstance(eng, BatchingEngine) and eng.max_batch == 2
+        assert eng.available() == FAMILIES and served == [("127.0.0.1", 0)]
+        assert eng.engine.device == torch.device("cpu")
+    finally:
+        eng.close()
 
 
 def test_port_imports_no_jax():
