@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch port's serving paths on one CUDA card.
+"""Smoke run of the PyTorch port's serving and training paths on one
+CUDA card.
 
 Phases (each prints its lines; any failure ends the run non-zero):
   1. device: requires CUDA, prints the card's name and power limit and
@@ -36,9 +37,18 @@ Phases (each prints its lines; any failure ends the run non-zero):
      pixels, some batch holds more than one request, and the launches
      match the dispatched batches. Prints requests/s, each family's
      single-stream p50 and the peak device memory;
-  8. the last line is {"ok": true, "device": {...}}.
+  8. training (unet_noaug): `run.main` fits a full-width UNet (base 64,
+     256 px, micro 8 x accum 8) for 3 epochs on 512 synthetic images,
+     validating on 128 with the device protocol (K1 nine times per eval
+     batch), then resumes for a 4th; the train loss must be finite and
+     fall, the checkpoints exist, the launches match the eval batches.
+     One step at narrow width in bf16 on the card against f32 on the CPU
+     (loss, gradient cosines, running statistics); the trained state's
+     eval through K1 against the module path; the train step's
+     images/s, device busy share and peak memory;
+  9. the last line is {"ok": true, "device": {...}}.
 
-The launch counts of phases 4-7 are each set to 0 just before the path
+The launch counts of phases 4-8 are each set to 0 just before the path
 is driven and read just after; the kernels line sums them.
 
 Run from the repository root: python3 chip_smoke.py
@@ -605,6 +615,248 @@ def phase_batched(K, eng, n_layers: int, launches: dict, card: str) -> None:
         be.close()
 
 
+def _eval_batches(n_val: int, seed: int, batch: int = 8) -> int:
+    """The eval batches of one device-protocol epoch over run.py's
+    synthetic val set: its canvas-size buckets, each cut into batches."""
+    from image_segmentation_tpu_torch.run import _synthetic_items
+    from image_segmentation_tpu_torch.train.fast_eval import plan_size_buckets
+
+    labels = [lab for _, lab in _synthetic_items(n_val, seed)]
+    plan = plan_size_buckets(labels) if n_val >= 16 else [range(n_val)]
+    return sum(-(-len(b) // batch) for b in plan)
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+
+
+# A conv bias that feeds a train-mode BatchNorm has gradient 0 in exact
+# arithmetic (BN subtracts the batch mean): its computed gradient is
+# rounding noise in any precision, and a cosine between two noises means
+# nothing, so those parameters are left out of the gradient checks.
+BN_FED_BIAS = ("conv1.conv.bias", "conv2.conv.bias")
+STEP_RUNS = (("cpu", torch.float32), ("cpu", torch.bfloat16), ("cuda", torch.float32),
+             ("cuda", torch.bfloat16))
+
+
+def cross_check_step(base: int, side: int, micro: int, accum: int, seed: int = 0) -> dict:
+    """One train step of the unet_noaug recipe, from the same weights and
+    batch, on the CPU and on the card, each in f32 and in bf16 compute (f32
+    parameters, BN statistics and loss). Against the CPU's f32 step, for
+    each other run: the loss, every gradient's cosine, the whole gradient's
+    relative L2 error, and the largest running-statistic difference scaled
+    by max(1, |CPU value|)."""
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.train.state import TrainState
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    cfg = C.UNET_NOAUG
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(0, 1, (micro * accum, side, side, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 4, (micro * accum, side, side))).long()
+    runs = {}
+    for device, dtype in STEP_RUNS:
+        model = C.build_model(cfg, device, torch.Generator().manual_seed(seed), base=base)
+        model.dtype = dtype
+        st = TrainState(model, *C.build_optimizer(cfg, model))
+        loss = float(train_step(st, C.build_loss(cfg), x.to(device), y.to(device), accum))
+        grads = {n: p.grad.double().cpu() for n, p in model.named_parameters()
+                 if not n.endswith(BN_FED_BIAS)}
+        stats = {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}
+        runs[device, dtype] = (loss, grads, stats)
+    loss0, g0, s0 = runs["cpu", torch.float32]
+    flat0 = torch.cat([g.flatten() for g in g0.values()])
+    out = {}
+    for key, (loss, g, s) in runs.items():
+        if key == ("cpu", torch.float32):
+            continue
+        cos = {n: float(g[n].flatten() @ g0[n].flatten() / (g[n].norm() * g0[n].norm()))
+               for n in g0}
+        flat = torch.cat([g[n].flatten() for n in g0])
+        worst = min(cos, key=cos.get)
+        out[f"{key[0]} {str(key[1])[6:]}"] = {
+            "loss_rel": abs(loss - loss0) / abs(loss0), "min_cos": cos[worst],
+            "min_cos_param": worst,
+            "grad_rel": float((flat - flat0).norm() / flat0.norm()),
+            "stat_err": max(float((s[k] - v).abs().max() / max(1.0, float(v.abs().max())))
+                            for k, v in s0.items())}
+    return out
+
+
+# Tolerances of the cross-check, against the CPU's f32 step:
+# - f32 on the card (cuDNN, TF32 off): every gradient's cosine >= 0.99, the
+#   loss within 1e-4 relative, the statistics within 1e-4: f32 sums in
+#   another order.
+# - bf16 on the card: the bf16 forward rounds inputs, weights and each
+#   activation at 2^-9 relative, about 1% of the logits after 19 layers;
+#   the loss averages smooth functions of them: 2% relative. A running
+#   statistic is 0.9 of the old one plus 0.1 of a batch statistic of bf16
+#   conv outputs (a few 2^-9 off): 0.1 · 2^-5 of its scale per update, two
+#   updates. Per-gradient cosines do not hold 0.99 in bf16 on any device:
+#   the gradients of a randomly initialised train-mode-BN UNet are sums
+#   that cancel (each BN backward subtracts the mean of its incoming
+#   gradient), so 2^-9 roundings of the summands leave BN affine and deep
+#   conv gradients 0.74-0.86 cosine to f32 even on the CPU. The bf16
+#   gradient, taken whole, must be as close to f32 as the CPU's bf16
+#   step's is: its relative L2 error at most 1.5 times that one.
+F32_MIN_COS, F32_LOSS_RTOL, F32_STAT_TOL = 0.99, 1e-4, 1e-4
+BF16_LOSS_RTOL, BF16_STAT_TOL, BF16_GRAD_RATIO = 2e-2, 2 * 0.1 * 2.0**-5, 1.5
+
+
+def check_cross_step(xc: dict) -> None:
+    """Raise unless `cross_check_step`'s result holds the tolerances above."""
+    f32, bf16, cpu_bf16 = xc["cuda float32"], xc["cuda bfloat16"], xc["cpu bfloat16"]
+    if not (f32["min_cos"] >= F32_MIN_COS and f32["loss_rel"] <= F32_LOSS_RTOL
+            and f32["stat_err"] <= F32_STAT_TOL):
+        raise AssertionError(f"the card's f32 step disagrees with the CPU's: {f32}")
+    if not (bf16["loss_rel"] <= BF16_LOSS_RTOL and bf16["stat_err"] <= BF16_STAT_TOL
+            and bf16["grad_rel"] <= BF16_GRAD_RATIO * cpu_bf16["grad_rel"]):
+        raise AssertionError(f"the card's bf16 step disagrees with the CPU's f32 step beyond "
+                             f"bf16's own reach: {bf16}, CPU bf16 {cpu_bf16}")
+
+
+# Device kernels of a train step by kind, matched on their names in order.
+STEP_KERNEL_KINDS = (("batch norm", ("batch_norm",)), ("reductions", ("reduce_kernel",)),
+                     ("conv (cuDNN)", ("xmma", "gemm", "conv", "wgrad", "dgrad", "cudnn",
+                                       "cutlass", "sm90")),
+                     ("elementwise", ("elementwise", "vectorized")), ("copies", ("Memcpy",
+                                                                             "Memset")))
+
+
+def phase_training(K, launches: dict, card: str) -> None:
+    """unet_noaug training on the card: the full-width fit through run.py
+    and a resume, a bf16-vs-f32 step at narrow width, the trainer's eval
+    through K1 against the module path, and the train step's throughput."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch import run as R
+    from image_segmentation_tpu_torch.metrics import MetricsHistory
+    from image_segmentation_tpu_torch.ops.kernels import double_conv as D
+    from image_segmentation_tpu_torch.train.loop import evaluate
+    from image_segmentation_tpu_torch.train.state import TrainState
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    cfg = C.UNET_NOAUG
+    n_train, n_val = 512, 128  # run.py: --synthetic N gives N train and N // 4 val
+    per_epoch = 9 * _eval_batches(n_val, cfg.seed + 1, cfg.batch_size)
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--config", "unet_noaug", "--synthetic", str(n_train), "--save-dir", tmp,
+                "--device", "cuda"]
+        # 1. the full-width fit (micro 8 × accum 8), then a resume
+        _zero(K)
+        t0 = time.time()
+        res = R.main(argv + ["--epochs", "3"])
+        fit_s = time.time() - t0
+        counts = _counts(K)
+        _add(launches, K)
+        losses = res.history["train_loss"]
+        print(f"[train] fit 3 epochs, {n_train} train / {n_val} val synthetic images at "
+              f"{cfg.target_size} px, micro {cfg.batch_size} x accum {cfg.accum_steps}: "
+              f"{fit_s:.1f} s; train loss {losses}; val mIoU {res.history['val_iou']}; "
+              f"launches (attention, mlp, double_conv) {counts}, want (0, 0, {3 * per_epoch}) "
+              f"= 9 per eval batch x {per_epoch // 9} eval batches x 3 epochs ({card})")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train losses {losses}: not finite or not falling")
+        if counts != (0, 0, 3 * per_epoch):
+            raise AssertionError(f"fit launches {counts}, want (0, 0, {3 * per_epoch})")
+        for d in ("unet_noaug", "unet_noaug_last", "MO_unet_noaug"):
+            if not os.path.isdir(os.path.join(tmp, d)):
+                raise AssertionError(f"fit wrote no {d}")
+        _zero(K)
+        t0 = time.time()
+        res = R.main(argv + ["--epochs", "4", "--resume"])
+        counts = _counts(K)
+        _add(launches, K)
+        hist = res.history["train_loss"]
+        print(f"[train] resume to 4 epochs: {time.time() - t0:.1f} s; history {hist}; "
+              f"launches {counts} ({card})")
+        if len(hist) != 4 or hist[:3] != losses or counts != (0, 0, per_epoch):
+            raise AssertionError(f"resumed history {hist} from {losses}, launches {counts}")
+        state = res.state
+
+    # 2. one step at narrow width on the card against the same step in f32
+    # on the CPU, in f32 and in bf16 (and the CPU's own bf16 step beside)
+    xc = cross_check_step(base=16, side=64, micro=4, accum=2)
+    for run, r in xc.items():
+        print(f"[train] one step, UNet base 16, 64 px, micro 4 x accum 2, {run} against cpu "
+              f"float32: loss rel {r['loss_rel']:.2e}, lowest gradient cosine "
+              f"{r['min_cos']:.6f} ({r['min_cos_param']}), whole-gradient rel L2 "
+              f"{r['grad_rel']:.3e}, running statistics max scaled diff {r['stat_err']:.3e}")
+    print(f"[train] tolerances: f32 cosine >= {F32_MIN_COS}, loss {F32_LOSS_RTOL}, stats "
+          f"{F32_STAT_TOL}; bf16 loss {BF16_LOSS_RTOL}, stats {BF16_STAT_TOL:.3e}, whole "
+          f"gradient <= {BF16_GRAD_RATIO} x the CPU's bf16 error (BN-fed conv biases left "
+          f"out: exact gradient 0)")
+    check_cross_step(xc)
+
+    # 3. the trained state's eval through K1 against the module path
+    val = R.synthetic_materialized(n_val, cfg.target_size, cfg.seed + 1, keep_orig_labels=True)
+    out = {}
+    for kernels in (True, False):
+        state.model.use_kernels = kernels
+        agg = MetricsHistory(cfg.num_classes, ignore_index=cfg.eval_ignore_index)
+        before = D.LAUNCHES
+        out[kernels] = (evaluate(state, val, loss_cfg=C.build_val_loss(cfg), agg=agg,
+                                 verbose=False), agg.confusion.copy(), D.LAUNCHES - before)
+    state.model.use_kernels = True
+    (k_res, k_conf, k_n), (m_res, m_conf, m_n) = out[True], out[False]
+    moved = np.abs(k_conf - m_conf).sum() / 2 / k_conf.sum()
+    print(f"[train] eval of the trained state, device protocol, {n_val} images: mIoU K1 "
+          f"{k_res['iou']:.6f} vs module path {m_res['iou']:.6f}; confusion cells moved "
+          f"{moved:.6f} of {int(k_conf.sum())} pixels; K1 launches {k_n} and {m_n}")
+    if abs(k_res["iou"] - m_res["iou"]) > 0.01 or moved > 0.01 or k_n != per_epoch or m_n:
+        raise AssertionError(f"K1 eval vs module eval: {k_res['iou']} vs {m_res['iou']}, "
+                             f"moved {moved}, launches {k_n}/{m_n}")
+
+    # 4. train-step throughput at full width, step batch 64, as bench.py's
+    # bench_step: a fresh seeded model, one random batch, CUDA events
+    model = C.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
+    st = TrainState(model, *C.build_optimizer(cfg, model))
+    rng = np.random.default_rng(0)
+    batch = cfg.batch_size * cfg.accum_steps
+    x = torch.from_numpy(rng.uniform(0, 1, (batch, 256, 256, 3)).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 4, (batch, 256, 256))).cuda()
+    loss_fn = C.build_loss(cfg)
+    step = lambda: train_step(st, loss_fn, x, y, cfg.accum_steps)  # noqa: E731
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _cuda_ms(step, iters=12, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(2):
+            loss = step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    groups = {}
+    for e in rows:
+        kind = next((k for k, words in STEP_KERNEL_KINDS if any(w in e.key for w in words)),
+                    "other")
+        groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 2e3
+    print(f"[train] train step, UNet base 64, 256 px, batch {batch} (micro {cfg.batch_size} x "
+          f"accum {cfg.accum_steps}), bf16: median {step_ms:.3f} ms over 12 steps (CUDA "
+          f"events), {batch / step_ms * 1e3:.1f} images/s; peak device memory {peak} bytes; "
+          f"loss {float(loss):.4f} ({card})")
+    print(f"[train] 2 steps under torch.profiler: device kernels and copies {device_ms:.1f} ms "
+          f"in {wall_ms:.1f} ms of wall, busy {100 * device_ms / wall_ms:.1f}% (the profiler "
+          f"slows the host); device ms per step against the unprofiled step: "
+          f"{device_ms / 2:.1f} of {step_ms:.1f} ms, {50 * device_ms / step_ms:.1f}%")
+    print(f"[train] device ms per step by kind: "
+          f"{ {k: round(v, 3) for k, v in sorted(groups.items(), key=lambda kv: -kv[1])} }")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[train]   {e.key[:72]:72s} {e.self_device_time_total / 1e3:9.3f} ms x{e.count}")
+    if not np.isfinite(float(loss)):
+        raise AssertionError("the full-width train step's loss is not finite")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -638,6 +890,8 @@ def main() -> int:
     K = (A, M, D)
     eng4 = phase_four_families(K, clip, unet, launches, card)
     phase_batched(K, eng4, clip.vit.num_layers, launches, card)
+    del eng, eng4, clip, unet
+    phase_training(K, launches, card)
     print(f"[done] every phase passed in {time.time() - start:.1f} s from the build on")
 
     sources = {"fused_attention": ("attention.cu", "image_segmentation_tpu/ops/pallas/attention.py:99"),

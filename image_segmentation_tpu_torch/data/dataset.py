@@ -1,11 +1,40 @@
-"""Image channel rules shared by every decode path (numpy).
+"""Datasets: directory-backed and in-memory image/label pairs (numpy).
 
-Counterpart of image_segmentation_tpu/data/dataset.py:normalize_image_channels.
-The file datasets come with the training slices.
+Counterpart of image_segmentation_tpu/data/dataset.py
+(`normalize_image_channels`, `list_stems`, `SegmentationDataset`,
+`ArrayDataset`, `U8ArrayDataset`). Items are keyed by sorted file stems;
+images decode to [0, 1] float, labels are raw class-id PNGs, and an
+optional target_transform (the 255 → 3 boundary remap) applies to labels
+(reference utils/dataset.py:6-103). The training path materialises a
+dataset once into fixed-shape arrays (data/loader.py).
+
+PIL is imported only when a file is decoded: the card's machine has no
+PIL, and the in-memory datasets need none.
 """
 from __future__ import annotations
 
+import os
+from typing import Callable, List, Optional, Sequence, Tuple
+
 import numpy as np
+
+
+def _decode_image(path: str) -> np.ndarray:
+    """Decode to (H, W, C) uint8 (RGB kept as it is; palettes expanded)."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            f"decoding {path} needs PIL (Pillow), which is not installed; "
+            "file datasets need it, in-memory ones (ArrayDataset, --synthetic) do not"
+        ) from e
+    with Image.open(path) as im:
+        if im.mode == "P":
+            im = im.convert("RGB")
+        arr = np.asarray(im)
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    return arr
 
 
 def normalize_image_channels(arr: np.ndarray) -> np.ndarray:
@@ -20,3 +49,84 @@ def normalize_image_channels(arr: np.ndarray) -> np.ndarray:
     if arr.shape[2] == 1:
         arr = np.repeat(arr, 3, axis=2)
     return arr
+
+
+def list_stems(directory: str) -> List[str]:
+    """Sorted extension-less file stems (reference utils/dataset.py:20)."""
+    return sorted(os.path.splitext(f)[0] for f in os.listdir(directory))
+
+
+class SegmentationDataset:
+    """{img_dir}/{stem}.jpg + {label_dir}/{stem}.png
+    (reference utils/dataset.py:6-51)."""
+
+    def __init__(
+        self,
+        img_dir: str,
+        label_dir: str,
+        transform: Optional[Callable] = None,
+        target_transform: Optional[Callable] = None,
+        img_ext: str = ".jpg",
+        label_ext: str = ".png",
+    ):
+        self.img_dir = img_dir
+        self.label_dir = label_dir
+        self.stems = list_stems(img_dir)
+        self.transform = transform
+        self.target_transform = target_transform
+        self.img_ext = img_ext
+        self.label_ext = label_ext
+
+    def __len__(self) -> int:
+        return len(self.stems)
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        stem = self.stems[idx]
+        img = _decode_image(os.path.join(self.img_dir, stem + self.img_ext))
+        img = normalize_image_channels(img).astype(np.float32) / 255.0
+        label = _decode_image(os.path.join(self.label_dir, stem + self.label_ext))
+        label = label[:, :, 0].astype(np.int32)
+        if self.transform:
+            img = self.transform(img)
+        if self.target_transform:
+            label = self.target_transform(label)
+        return img, label
+
+
+class ArrayDataset:
+    """In-memory dataset of pre-decoded items (synthetic data, tests):
+    (img, label) or (img, heatmap, label) tuples of numpy arrays."""
+
+    def __init__(self, items: Sequence[tuple]):
+        self.items = list(items)
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def __getitem__(self, idx: int):
+        return self.items[idx]
+
+    def map_labels(self, fn) -> "ArrayDataset":
+        """Apply `fn` to every item's label (the last tuple element) in
+        place and return self: a remapped copy would double host memory."""
+        self.items = [(*item[:-1], fn(np.asarray(item[-1]))) for item in self.items]
+        return self
+
+
+class U8ArrayDataset(ArrayDataset):
+    """ArrayDataset storing [0, 1] float images (and heatmaps) quantised to
+    uint8, dequantised on access: the sources are 8-bit, so this loses
+    nothing the decode had not, and holds 4× less. Labels are stored as
+    they are."""
+
+    def __init__(self, items: Sequence[tuple]):
+        super().__init__(
+            (*(np.clip(np.round(np.asarray(a, np.float32) * 255.0),
+                       0, 255).astype(np.uint8) for a in item[:-1]),
+             item[-1])
+            for item in items
+        )
+
+    def __getitem__(self, idx: int):
+        item = self.items[idx]
+        return (*(a.astype(np.float32) / 255.0 for a in item[:-1]), item[-1])

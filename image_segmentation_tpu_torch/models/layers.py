@@ -1,4 +1,4 @@
-"""Shared conv building blocks and initialisers (eval-mode forward).
+"""Shared conv building blocks and initialisers.
 
 Counterpart of image_segmentation_tpu/models/layers.py (ConvBNRelu,
 DoubleConv, Down, UpConv, Up; `init_weights` on each). Modules take
@@ -6,8 +6,12 @@ NCHW tensors (callers keep them in channels_last memory, which is the
 JAX package's NHWC) and compute in the dtype of their input: parameters
 stay float32 and are cast per call, as flax does with `dtype=bfloat16`.
 
-BatchNorm runs on its running statistics (serving is inference only);
-eps 1e-5, normalisation in f32, as flax's BatchNorm. Initialisers match
+BatchNorm follows flax's `nn.BatchNorm(momentum=0.9, epsilon=1e-5)`: in
+eval mode it normalises with the running statistics; in train mode with
+the batch's mean and biased variance, computed in f32, and it updates
+the running statistics as `ra = 0.9·ra + 0.1·batch` with the biased
+variance (torch's own BatchNorm2d would use the unbiased one). The
+normalisation is in f32 either way. Initialisers match
 the JAX package's distributions (not its random bits): decoder convs
 are Kaiming-uniform over fan_in (`conv_kernel_init`), dense kernels are
 LeCun-normal (flax's default).
@@ -21,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax's: the weight of the old running statistic
 
 
 def conv_kernel_init_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -37,7 +42,8 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> N
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over dim 1 with nn.BatchNorm2d's parameter names."""
+    """BatchNorm over dim 1 with nn.BatchNorm2d's parameter names and
+    flax's semantics (module docstring)."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -47,6 +53,17 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            # one fused pass: normalise with the batch statistics (f32
+            # accumulation, output in x's dtype) and return the f32 mean and
+            # 1/sqrt(biased var + eps), from which the running update follows
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, BN_EPS)
+            with torch.no_grad():
+                var = invstd.pow(-2) - BN_EPS
+                self.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
+                self.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+            return y
         shape = (1, -1, 1, 1)
         mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
         y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)

@@ -1,4 +1,4 @@
-"""U-Net (reference unet/unet.py:67-105), eval-mode forward.
+"""U-Net (reference unet/unet.py:67-105).
 
 Counterpart of image_segmentation_tpu/models/unet.py: a 5-level encoder
 (the stem is a DoubleConv, levels 2-5 max pool + DoubleConv) with
@@ -10,10 +10,15 @@ at 3 in, 4 out). Submodules take the reference's top-level names
 width, which flax infers: 3 for an image, 4 for the prompt model's
 selection network (image + heatmap, models/prompt.py:71-73).
 
-Input: NHWC float in [0, 1]; output: NHWC float32 logits. With
-`use_kernels` the forward is `fused_unet_forward` (K1 nine times, BN
-folded); without it the module path runs conv → BN → ReLU layer by layer
-(cuDNN on a card), in `dtype` with float32 parameters, as flax does.
+Input: NHWC float in [0, 1]; output: NHWC float32 logits. The module
+path runs conv → BN → ReLU layer by layer (cuDNN on a card), in `dtype`
+with float32 parameters, as flax does; in train mode its BatchNorms use
+and update the batch statistics. With `use_kernels`, an eval-mode
+forward without autograd (under `no_grad` or `inference_mode`) is
+`fused_unet_forward` instead: K1 nine times with BN folded from the
+current running statistics. K1 has no backward and folds eval-mode BN,
+so a train-mode forward, or one that records gradients, always takes
+the module path.
 """
 from __future__ import annotations
 
@@ -50,7 +55,7 @@ class UNet(nn.Module):
         self.output = nn.Conv2d(b, num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.use_kernels:
+        if self.use_kernels and not self.training and not torch.is_grad_enabled():
             return fused_unet_forward(self, x)
         x1 = self.down1(x.to(self.dtype).permute(0, 3, 1, 2))  # channels_last NCHW
         x2 = self.down2(x1)

@@ -11,12 +11,35 @@ The resampling weights are the triangle-kernel matrices of
 jax.image.resize(method='linear') (`_triangle_weight_matrix_np`), which
 the models' skip resize uses as well. Layout is HWC. The C++ resampler
 of the JAX package comes to the port later; this is its numpy path.
+
+`ResizeMeta` holds a dataset's or a batch's metas as columns of arrays
+(data/loader.py, train/fast_eval.py), as the JAX package's does.
 """
 from __future__ import annotations
 
 import functools
+from typing import List, NamedTuple
 
 import numpy as np
+
+
+class ResizeMeta(NamedTuple):
+    """Per-image geometry, each field an int32 array of shape (N,) (scale
+    float32), or one image's scalars (reference utils/utils.py:43-48)."""
+
+    orig_h: np.ndarray
+    orig_w: np.ndarray
+    new_h: np.ndarray
+    new_w: np.ndarray
+    pad_top: np.ndarray
+    pad_left: np.ndarray
+    scale: np.ndarray
+
+
+def metas_to_list(metas: ResizeMeta) -> List[ResizeMeta]:
+    """Split a batched ResizeMeta into one ResizeMeta of scalars per image."""
+    n = int(np.asarray(metas.orig_h).shape[0])
+    return [ResizeMeta(*(np.asarray(f)[i] for f in metas)) for i in range(n)]
 
 
 @functools.lru_cache(maxsize=4096)
@@ -87,13 +110,19 @@ def resize_with_padding_np(img: np.ndarray, target: int, method: str = "linear",
     return out, meta
 
 
-def invert_resize_padding_np(out_tt: np.ndarray, meta: dict,
+def invert_resize_padding_np(out_tt: np.ndarray, meta,
                              method: str = "linear") -> np.ndarray:
     """Inverse geometry: crop the padding, resize to the original size
-    (float32 bilinear without antialias, or legacy nearest)."""
-    pad_left, pad_top, _, _ = meta["pad"]
-    new_h, new_w = meta["new_size"]
-    orig_h, orig_w = meta["original_size"]
+    (float32 bilinear without antialias, or legacy nearest). `meta` is a
+    dict from resize_with_padding_np or a ResizeMeta of scalars."""
+    if isinstance(meta, ResizeMeta):
+        pad_top, pad_left = int(meta.pad_top), int(meta.pad_left)
+        new_h, new_w = int(meta.new_h), int(meta.new_w)
+        orig_h, orig_w = int(meta.orig_h), int(meta.orig_w)
+    else:
+        pad_left, pad_top, _, _ = meta["pad"]
+        new_h, new_w = meta["new_size"]
+        orig_h, orig_w = meta["original_size"]
     crop = out_tt[pad_top:pad_top + new_h, pad_left:pad_left + new_w]
     if method == "linear":
         return resize_linear_np(crop, (orig_h, orig_w), antialias=False,

@@ -267,3 +267,109 @@ def test_batching_engine_on_the_card(cuda):
     agree = min(float((g == w).mean()) for g, w in zip(got, want))
     assert agree >= 0.99, agree
     assert max(sizes) > 1, sizes
+
+
+# Training (unet_noaug) on the card.
+
+
+def test_train_step_on_the_card_matches_the_cpu_step(cuda):
+    """One step of the recipe at base 8, 32 px, micro 2 × accum 2, on the
+    card in f32 and in bf16 against f32 on the CPU from the same weights
+    and batch, with chip_smoke.py's stated tolerances (its phase 8 runs
+    base 16)."""
+    from chip_smoke import check_cross_step, cross_check_step
+
+    check_cross_step(cross_check_step(base=8, side=32, micro=2, accum=2))
+
+
+def test_full_width_train_step_has_a_finite_loss(cuda):
+    """UNet base 64 at 256 px, micro 8 × accum 2, bf16: one optimizer step,
+    a finite loss, every parameter moved, no K1 launch (train mode)."""
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.train.state import TrainState
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    cfg = C.UNET_NOAUG
+    model = C.build_model(cfg, cuda, torch.Generator().manual_seed(0))
+    st = TrainState(model, *C.build_optimizer(cfg, model))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand(16, 256, 256, 3, generator=g, device=cuda)
+    y = torch.randint(0, 4, (16, 256, 256), generator=g, device=cuda)
+    k1 = K1.LAUNCHES
+    loss = train_step(st, C.build_loss(cfg), x, y, accum_steps=2)
+    assert torch.isfinite(loss) and st.step == 1 and K1.LAUNCHES == k1
+    for n, p in model.named_parameters():
+        assert not torch.equal(p.detach(), before[n]), n
+
+
+def test_k1_eval_inside_evaluate_matches_the_module_path(cuda):
+    """The trainer's device-protocol eval with K1 (eval mode, no autograd)
+    against the same weights on the module path: mIoU within 0.01 and the
+    confusion within 1% of the pixels; nine K1 launches per eval batch."""
+    from chip_smoke import _perturb_batchnorm_
+
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.metrics import MetricsHistory
+    from image_segmentation_tpu_torch.run import synthetic_materialized
+    from image_segmentation_tpu_torch.train.loop import evaluate
+    from image_segmentation_tpu_torch.train.state import TrainState
+
+    cfg = C.UNET_NOAUG
+    model = C.build_model(cfg, cuda, torch.Generator().manual_seed(0), base=16)
+    _perturb_batchnorm_(model, 1)
+    model.train()  # as the trainer leaves it; evaluate must still run K1
+    state = TrainState(model)
+    val = synthetic_materialized(12, 64, seed=1, keep_orig_labels=True)
+    out = []
+    for kernels in (True, False):
+        model.use_kernels = kernels
+        agg = MetricsHistory(4, ignore_index=3)
+        before = K1.LAUNCHES
+        res = evaluate(state, val, loss_cfg=C.build_val_loss(cfg), agg=agg, verbose=False,
+                       batch_size=8)
+        out.append((res, agg.confusion.copy(), K1.LAUNCHES - before))
+    (k_res, k_conf, k_n), (m_res, m_conf, m_n) = out
+    assert (k_n, m_n) == (9 * 2, 0) and model.training
+    assert abs(k_res["iou"] - m_res["iou"]) <= 0.01
+    assert np.abs(k_conf - m_conf).sum() / 2 <= 0.01 * k_conf.sum()
+
+
+def test_write_behind_checkpoint_holds_the_state_of_its_epoch(cuda, tmp_path):
+    """A save submitted after a step, then another step at once (in-place
+    parameter and moment updates on the same stream): the files hold the
+    first step's state exactly, and restore it."""
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.train import checkpoint as ckpt
+    from image_segmentation_tpu_torch.train.state import TrainState
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    cfg = C.UNET_NOAUG
+
+    def fresh():
+        model = C.build_model(cfg, cuda, torch.Generator().manual_seed(0), base=8)
+        return TrainState(model, *C.build_optimizer(cfg, model))
+
+    st = fresh()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand(4, 64, 64, 3, generator=g, device=cuda)
+    y = torch.randint(0, 4, (4, 64, 64), generator=g, device=cuda)
+    train_step(st, C.build_loss(cfg), x, y, accum_steps=2)
+    want = {k: v.detach().cpu().clone() for k, v in st.model.state_dict().items()}
+    want_opt = [(s["exp_avg"].cpu().clone(), s["exp_avg_sq"].cpu().clone())
+                for s in st.optimizer.state.values()]
+    writer = ckpt.CheckpointWriter()
+    ckpt.save_checkpoint_async(writer, str(tmp_path / "c"), st, epoch=0,
+                               params_only_path=str(tmp_path / "MO_c"))
+    train_step(st, C.build_loss(cfg), x, y, accum_steps=2)
+    writer.wait()
+    restored = fresh()
+    ckpt.restore_checkpoint(str(tmp_path / "c"), restored)
+    assert restored.step == 1
+    for k, v in restored.model.state_dict().items():
+        assert torch.equal(v.cpu(), want[k]), k
+    got_opt = [(s["exp_avg"].cpu(), s["exp_avg_sq"].cpu()) for s in restored.optimizer.state.values()]
+    assert all(torch.equal(a, c) and torch.equal(b, d)
+               for (a, b), (c, d) in zip(got_opt, want_opt))
+    mo = ckpt.load_model_state(str(tmp_path / "MO_c"))
+    assert all(torch.equal(mo[k], want[k]) for k in want)

@@ -87,3 +87,96 @@ def test_build_model_unet_is_seeded_and_uses_jax_distributions():
         m = sa[key].abs().max().item()
         assert 0.9 * bound < m <= bound, (key, m, bound)
     assert sa["up1.conv.conv1.conv.bias"].abs().max().item() == 0.0
+
+
+# Train mode. Tolerances: the running statistics are means over batch and
+# pixels of f32 conv outputs, sums in another order: 1e-5 absolute (flax's
+# update, ra = 0.9·ra + 0.1·batch, biased variance, on both sides). The
+# train-mode logits: each BN divides by its batch std, and the deepest
+# level has 32 samples a channel (2 images of 4×4 px), which amplifies the
+# f32 rounding of the conv sums (another order in each package; flax also
+# takes the variance as E[x²] − E[x]²): 2e-4, the largest seen 9.0e-5.
+STATS_ATOL = 1e-5
+TRAIN_ATOL = 2e-4
+
+
+def test_batchnorm_train_mode_matches_flax():
+    """The port's BatchNorm in train mode normalises with the batch's mean
+    and biased variance and moves the running statistics as flax does."""
+    import flax.linen as fnn
+
+    from image_segmentation_tpu_torch.models.layers import BatchNorm
+
+    x = np.random.default_rng(2).normal(1.5, 2.0, (3, 5, 6, 7)).astype(np.float32)  # NHWC
+    bn = fnn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5)
+    v = bn.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    v = {"params": {"scale": jnp.linspace(0.5, 1.5, 7), "bias": jnp.linspace(-1, 1, 7)},
+         "batch_stats": {"mean": jnp.full((7,), 0.3), "var": jnp.full((7,), 2.0)}}
+    want, mut = bn.apply(v, jnp.asarray(x), mutable=["batch_stats"])
+    port = BatchNorm(7)
+    with torch.no_grad():
+        port.weight.copy_(torch.linspace(0.5, 1.5, 7))
+        port.bias.copy_(torch.linspace(-1, 1, 7))
+        port.running_mean.fill_(0.3)
+        port.running_var.fill_(2.0)
+    got = port.train()(torch.from_numpy(x).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(got.detach().permute(0, 2, 3, 1).numpy(), np.asarray(want),
+                               atol=ATOL)
+    biased = x.reshape(-1, 7).var(axis=0)  # numpy's default ddof=0
+    np.testing.assert_allclose(port.running_var.numpy(), 0.9 * 2.0 + 0.1 * biased,
+                               atol=STATS_ATOL)
+    np.testing.assert_allclose(port.running_var.numpy(),
+                               np.asarray(mut["batch_stats"]["var"]), atol=STATS_ATOL)
+    np.testing.assert_allclose(port.running_mean.numpy(),
+                               np.asarray(mut["batch_stats"]["mean"]), atol=STATS_ATOL)
+
+
+def test_train_mode_unet_matches_jax(jax_unet):
+    """Logits and every updated running mean and (biased) variance against
+    `apply(train=True, mutable=['batch_stats'])`."""
+    model, variables = jax_unet
+    x = _pixels(seed=3)
+    want, mut = model.apply(variables, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    port = _port(variables).train()
+    got = port(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=TRAIN_ATOL)
+    want_sd = from_jax_variables({"params": variables["params"],
+                                  "batch_stats": jax.tree_util.tree_map(np.asarray,
+                                                                        mut["batch_stats"])})
+    sd = port.state_dict()
+    keys = [k for k in sd if k.endswith(("running_mean", "running_var"))]
+    assert len(keys) == 36  # 18 BatchNorms
+    for k in keys:
+        np.testing.assert_allclose(sd[k].numpy(), want_sd[k].numpy(), atol=STATS_ATOL,
+                                   err_msg=k)
+
+
+def test_kernel_unet_trains_on_the_module_path(jax_unet, monkeypatch):
+    """A UNet built with kernels takes the module path in train mode and
+    whenever autograd records, and gets the module path's gradients and
+    statistics; K1's forward runs only in eval mode without autograd."""
+    from image_segmentation_tpu_torch.models import unet as unet_module
+
+    calls = []
+    real = unet_module.fused_unet_forward
+    monkeypatch.setattr(unet_module, "fused_unet_forward",
+                        lambda m, x: calls.append(1) or real(m, x))
+    _, variables = jax_unet
+    x = torch.from_numpy(_pixels(seed=4))
+    a, b = _port(variables, use_kernels=True).train(), _port(variables).train()
+    out_a, out_b = a(x), b(x)
+    torch.testing.assert_close(out_a, out_b, rtol=0, atol=0)
+    out_a.square().mean().backward()
+    out_b.square().mean().backward()
+    for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
+        assert pa.grad is not None, name
+        torch.testing.assert_close(pa.grad, pb.grad, rtol=0, atol=0)
+    for (name, ta), tb in zip(a.named_buffers(), b.buffers()):
+        torch.testing.assert_close(ta, tb, rtol=0, atol=0)
+    assert not calls
+    a.eval()
+    a(x).sum().backward()  # eval mode with autograd: still the module path
+    assert not calls
+    with torch.no_grad():
+        a(x)
+    assert calls == [1]
