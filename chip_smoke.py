@@ -8,15 +8,25 @@ Phases (each prints its lines; any failure ends the run non-zero):
      process per source, all started together;
   3. kernels: K3 (attention), K4 (MLP) and K1 (double conv) against
      their plain PyTorch versions in bf16 at every shape the serving
-     paths give them, with median times (K1 also beside the same double
-     conv through cuDNN): K3 and K4 at batch 1, 2, 4 and 8; K1 at the nine
-     levels of the unet family (256 px) and of the prompt model's
-     selection UNet (224 px, a Cin = 4 stem), each at N = 1, 2, 4 and 8;
+     paths give them: K3 and K4 at batch 1, 2, 4 and 8 (and ragged
+     shapes); K1 at the nine levels of the unet family (256 px) and of the
+     prompt model's selection UNet (224 px, a Cin = 4 stem), each at
+     N = 1, 2, 4 and 8. Each shape prints the kernel's device time
+     (`_device_ms`: torch.profiler's CUDA rows over 20 calls) and its time
+     from Python (CUDA events around one call: the host's enqueue for a
+     short kernel), the plain version's, the bound (bytes or operations at
+     the H100's published peaks) and a yardstick: K3 beside one
+     F.scaled_dot_product_attention call, K4 beside the LayerNorm ->
+     linear -> quick-GELU -> linear chain (no single call computes it),
+     K1 (UNet-64 levels) beside the same double conv through cuDNN. It
+     also prints how far the kernels' SFU exp and division put K3's P and
+     K4's G from IEEE exp and division (`fastmath_gap`);
   4. serving, clip family: a full-width ClipUNet (ViT-B/16 widths, seeded
      random weights, bf16, kernels on) registered in the port's
      InferenceEngine serves host images of several sizes; the launch
      counters must show 12 launches of K3 and K4 per request; the same
-     requests through the plain versions must agree;
+     requests through the plain versions must agree; the forward's device
+     time at batch 1 and 8;
   5. serving, unet family: a full-width UNet (base 64, 256 px, seeded
      random weights and BN statistics, bf16, K1 on), registered as
      `unet` beside `clip` in the same engine, serves the same images
@@ -51,7 +61,7 @@ Phases (each prints its lines; any failure ends the run non-zero):
 The launch counts of phases 4-8 are each set to 0 just before the path
 is driven and read just after; the kernels line sums them.
 
-Run from the repository root: python3 chip_smoke.py
+Run from the repository root: python3 chip_smoke.py (no arguments).
 """
 from __future__ import annotations
 
@@ -74,7 +84,10 @@ TOL_REASON = ("2 bf16 steps (2^-6 x max|plain|): same cast points, "
 
 
 def _cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of fn() on the current stream (CUDA events)."""
+    """Median milliseconds of fn() from Python: a pair of CUDA events around
+    one call. For a kernel of tens of microseconds this is the host's
+    enqueue (argument checks, allocation, the ctypes call), not the
+    device's time; `_device_ms` gives that."""
     for _ in range(warmup):
         fn()
     times = []
@@ -89,6 +102,76 @@ def _cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _device_profile(fn, iters: int = 20, warmup: int = 3) -> dict:
+    """Device milliseconds of one fn() call by kernel: `iters` calls under
+    torch.profiler, the key_averages() rows whose device_type is CUDA
+    (every kernel, copy and memset the calls ran) divided by `iters`.
+    Warm L2: the same inputs every call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    # A profiler session now and then delivers no device rows at all (its
+    # activity buffers come back empty); such a session is read again.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+                if e.device_type.name == "CUDA"}
+        if sum(rows.values()) > 0:
+            return rows
+    raise RuntimeError("torch.profiler recorded no device time in three sessions")
+
+
+def _device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device milliseconds of one fn() call, all its kernels summed."""
+    return sum(_device_profile(fn, iters, warmup).values())
+
+
+def _short(kernel: str) -> str:
+    """A kernel's name without its namespace and arguments."""
+    import re
+
+    m = re.search(r"::(\w+(?:<[^>]*>)?)\(", kernel)
+    return m.group(1) if m else kernel[:40]
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the
+# bounds below are the larger of bytes over the memory rate and bf16
+# operations over the tensor-core rate, each input read once and each
+# output written once.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+
+
+def _bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by) of a call that moves nbytes and does flops."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def attention_bound(b: int, s: int, h: int, d: int):
+    """q, k, v read and out written in bf16; QKᵀ and P·V."""
+    return _bound(4 * b * s * h * d * 2, 4 * b * h * s * s * d)
+
+
+def mlp_bound(m: int, hdim: int, fdim: int):
+    """x read and out written in bf16, both weights in bf16, LN params and
+    biases in f32; fc1 and fc2."""
+    return _bound(2 * m * hdim * 2 + 2 * fdim * hdim * 2 + (3 * hdim + fdim) * 4,
+                  4 * m * hdim * fdim)
+
+
+def double_conv_bound(n: int, h: int, w: int, cin: int, c: int):
+    """x read and out written in bf16, both HWIO weights in bf16, four f32
+    vectors; two 3x3 convs."""
+    return _bound(n * h * w * (cin + c) * 2 + 9 * (cin * c + c * c) * 2 + 4 * c * 4,
+                  2 * n * h * w * 9 * (cin * c + c * c))
+
+
 def _compare(name, got, want):
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
@@ -101,31 +184,56 @@ def _compare(name, got, want):
     return err
 
 
-def phase_kernels(A, M, card: str) -> dict:
+# K3 at every batch the serving paths give it (BatchingEngine buckets 1, 2,
+# 4, 8 of ViT-B/16), then ragged sequences: S = 130 with V offset by +10
+# (mass leaking onto padded keys would show), and the longest admitted.
+ATTENTION_CASES = [((b, 197, 12, 64), 0.0) for b in (1, 2, 4, 8)] + [
+    ((1, 130, 2, 64), 10.0), ((2, 256, 12, 64), 0.0)]
+# K4 at the same batches (197 tokens a request), then a ragged token count.
+MLP_TOKENS = [b * 197 for b in (1, 2, 4, 8)] + [333]
+
+
+def phase_attention(A, card: str) -> dict:
+    import torch.nn.functional as F
+
     g = torch.Generator(device="cuda").manual_seed(0)
     rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
-    res = {}
-
-    # K3 and K4 at every batch the serving paths give them (BatchingEngine
-    # buckets 1, 2, 4, 8), then a ragged case.
-    errs = []
-    for shape, v_offset in [((b, 197, 12, 64), 0.0) for b in BATCHES] + [((1, 130, 2, 64), 10.0)]:
+    errs, rows = [], {}
+    for shape, v_offset in ATTENTION_CASES:
         q, k = rnd(*shape).bfloat16(), rnd(*shape).bfloat16()
         v = (rnd(*shape) + v_offset).bfloat16()
         got = A.fused_attention(q, k, v)
         torch.cuda.synchronize()
         errs.append(_compare(f"attention {shape} v+{v_offset}", got,
                              A.attention_reference(q, k, v)))
-        ms = _cuda_ms(lambda: A.fused_attention(q, k, v))
-        plain_ms = _cuda_ms(lambda: A.attention_reference(q, k, v))
-        print(f"[kernels] attention {shape}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms (median of 20, warm L2; {card})")
-        if shape == (1, 197, 12, 64):
-            res["fused_attention"] = {"ms": ms, "plain_ms": plain_ms}
-    res["fused_attention"]["max_abs_err"] = max(errs)
+        kernel = lambda: A.fused_attention(q, k, v)  # noqa: E731
+        plain = lambda: A.attention_reference(q, k, v)  # noqa: E731
+        # the yardstick: one PyTorch call on the same (B, H, S, D) views
+        views = [t.transpose(1, 2) for t in (q, k, v)]
+        sdpa = lambda: F.scaled_dot_product_attention(*views)  # noqa: E731
+        bound_ms, bound_by = attention_bound(*shape)
+        row = {"device_ms": _device_ms(kernel), "ms": _cuda_ms(kernel),
+               "plain_ms": _cuda_ms(plain), "plain_device_ms": _device_ms(plain),
+               "library_ms": _device_ms(sdpa), "bound_ms": bound_ms, "bound_by": bound_by}
+        rows[shape] = row
+        print(f"[kernels] attention {shape}: device {row['device_ms']:.4f} ms, from Python "
+              f"{row['ms']:.4f} ms; plain device {row['plain_device_ms']:.4f} ms, from Python "
+              f"{row['plain_ms']:.4f} ms; SDPA device {row['library_ms']:.4f} ms; bound "
+              f"{bound_ms:.5f} ms ({bound_by}); device / bound {row['device_ms'] / bound_ms:.1f}, "
+              f"device / SDPA {row['device_ms'] / row['library_ms']:.2f} (20 calls, warm L2; "
+              f"{card})")
+    out = dict(rows[(1, 197, 12, 64)], at="(1, 197, 12, 64) bf16", max_abs_err=max(errs))
+    out["device_ms_b8"] = rows[(8, 197, 12, 64)]["device_ms"]
+    return out
 
-    errs = []
-    for m in [b * 197 for b in BATCHES] + [333]:
+
+def phase_mlp(M, card: str) -> dict:
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
+    errs, rows = [], {}
+    for m in MLP_TOKENS:
         x = (0.5 * rnd(1, m, 768)).bfloat16()
         ln_w, ln_b = 1.0 + 0.1 * rnd(768), 0.1 * rnd(768)
         w1, b1 = (0.03 * rnd(3072, 768)).bfloat16(), 0.1 * rnd(3072)
@@ -134,15 +242,89 @@ def phase_kernels(A, M, card: str) -> dict:
         got = M.fused_mlp(*args)
         torch.cuda.synchronize()
         errs.append(_compare(f"mlp tokens={m} 768->3072->768", got, M.mlp_reference(*args)))
-        ms = _cuda_ms(lambda: M.fused_mlp(*args))
-        plain_ms = _cuda_ms(lambda: M.mlp_reference(*args))
-        print(f"[kernels] mlp tokens={m}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms (median of 20, warm L2; {card})")
-        if m == 197:
-            res["fused_mlp"] = {"ms": ms, "plain_ms": plain_ms}
-    res["fused_mlp"]["max_abs_err"] = max(errs)
-    res["fused_double_conv"] = phase_double_conv(card)
-    return res
+        kernel = lambda: M.fused_mlp(*args)  # noqa: E731
+        plain = lambda: M.mlp_reference(*args)  # noqa: E731
+        # No single PyTorch call computes K4; the nearest chain, for reference:
+        # LayerNorm -> linear -> quick-GELU -> linear -> residual, all bf16.
+        lw, lb, bb1, bb2 = (t.bfloat16() for t in (ln_w, ln_b, b1, b2))
+
+        def chain():
+            h = F.linear(F.layer_norm(x, (768,), lw, lb, 1e-5), w1, bb1)
+            return x + F.linear(h * torch.sigmoid(1.702 * h), w2, bb2)
+
+        bound_ms, bound_by = mlp_bound(m, 768, 3072)
+        split = _device_profile(kernel)
+        row = {"device_ms": sum(split.values()), "ms": _cuda_ms(kernel),
+               "plain_ms": _cuda_ms(plain), "plain_device_ms": _device_ms(plain),
+               "chain_ms": _device_ms(chain), "bound_ms": bound_ms, "bound_by": bound_by}
+        rows[m] = row
+        print(f"[kernels] mlp tokens={m}: device {row['device_ms']:.4f} ms, from Python "
+              f"{row['ms']:.4f} ms; plain device {row['plain_device_ms']:.4f} ms, from Python "
+              f"{row['plain_ms']:.4f} ms; LN-linear-GELU-linear chain device "
+              f"{row['chain_ms']:.4f} ms (not a single call); bound {bound_ms:.5f} ms "
+              f"({bound_by}); device / bound {row['device_ms'] / bound_ms:.1f} (20 calls, warm "
+              f"L2; {card}); by kernel "
+              f"{ {_short(k): round(v, 4) for k, v in split.items()} }")
+    out = dict(rows[197], at="197 tokens, 768->3072->768 bf16", library_ms=None,
+               max_abs_err=max(errs))
+    out["device_ms_1576"] = rows[1576]["device_ms"]
+    return out
+
+
+def fastmath_gap(card: str) -> dict:
+    """How far K3's P and K4's G, with exp and the division on the SFU as
+    the kernels compute them (__expf, __fdividef), lie from IEEE exp and
+    division, on the inputs phase 3 gives K3 at (1, 197, 12, 64) and K4 at
+    197 tokens: the largest gap in f32 (absolute, and in f32 ulps of the
+    IEEE value) and after the bf16 rounding both get (elements that differ,
+    largest gap in bf16 steps). The SFU side runs the kernels' expressions
+    through NVRTC (torch.cuda.jiterator), the IEEE side torch's own ops."""
+    from torch.cuda import jiterator
+
+    fast_exp = jiterator._create_jit_fn(
+        "template <typename T> T fast_exp(T x) { return __expf(x); }")
+    fast_div = jiterator._create_jit_fn(
+        "template <typename T> T fast_div(T a, T b) { return __fdividef(a, b); }")
+    fast_gelu = jiterator._create_jit_fn(
+        "template <typename T> T fast_gelu(T h) "
+        "{ return h * __fdividef(1.f, 1.f + __expf(-1.702f * h)); }")
+
+    def gap(fast, ieee):
+        _, e = torch.frexp(ieee)
+        ulps = (fast - ieee).abs() / torch.ldexp(torch.ones_like(ieee), e - 24)
+        fb, ib = fast.bfloat16().float(), ieee.bfloat16().float()
+        _, eb = torch.frexp(ib)
+        steps = (fb - ib).abs() / torch.ldexp(torch.ones_like(ib), eb - 8)
+        return {"max_abs": (fast - ieee).abs().max().item(),
+                "max_f32_ulps": ulps[ieee != 0].max().item(),
+                "bf16_differ": int((fb != ib).sum().item()), "of": ieee.numel(),
+                "max_bf16_steps": steps[ib != 0].max().item()}
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    q, k = rnd(1, 197, 12, 64).bfloat16(), rnd(1, 197, 12, 64).bfloat16()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * 0.125
+    x = logits - logits.amax(-1, keepdim=True)
+    e_fast, e_ieee = fast_exp(x), torch.exp(x)
+    p_fast = fast_div(e_fast, e_fast.sum(-1, keepdim=True).expand_as(e_fast))
+    out = {"P (1, 197, 12, 64)": gap(p_fast, e_ieee / e_ieee.sum(-1, keepdim=True))}
+
+    g.manual_seed(0)
+    xm = (0.5 * rnd(1, 197, 768)).bfloat16()
+    ln_w, ln_b = 1.0 + 0.1 * rnd(768), 0.1 * rnd(768)
+    w1, b1 = (0.03 * rnd(3072, 768)).bfloat16(), 0.1 * rnd(3072)
+    ln = torch.nn.functional.layer_norm(xm.float(), (768,), ln_w, ln_b, 1e-5).bfloat16()
+    h = ln.float() @ w1.float().t() + b1
+    out["G 197 tokens"] = gap(fast_gelu(h), h * (1.0 / (1.0 + torch.exp(-1.702 * h))))
+    for name, row in out.items():
+        print(f"[kernels] SFU exp/division against IEEE, {name}: {row} ({card})")
+    return out
+
+
+def phase_kernels(A, M, card: str) -> dict:
+    fastmath_gap(card)
+    return {"fused_attention": phase_attention(A, card), "fused_mlp": phase_mlp(M, card),
+            "fused_double_conv": phase_double_conv(card)}
 
 
 # The batch sizes the serving paths run: one request, and the
@@ -176,7 +358,8 @@ def phase_double_conv(card: str) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(1)
     rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
-    errs, total = [], {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0}
+    keys = ("ms", "plain_ms", "cudnn_ms", "device_ms", "cudnn_device_ms", "bound_ms")
+    errs, total = [], dict.fromkeys(keys, 0.0)
     for xshape, c, b1_offset in K1_CASES:
         cin = xshape[-1]
         x = rnd(*xshape).bfloat16()
@@ -188,23 +371,52 @@ def phase_double_conv(card: str) -> dict:
         torch.cuda.synchronize()
         name = f"double_conv {xshape}->{c} bias1+{b1_offset}"
         errs.append(_compare(name, got, D.double_conv_reference(*args)))
-        ms = _cuda_ms(lambda: D.fused_double_conv(*args))
-        plain_ms = _cuda_ms(lambda: D.double_conv_reference(*args))
+        kernel = lambda: D.fused_double_conv(*args)  # noqa: E731
+        row = {"ms": _cuda_ms(kernel), "plain_ms": _cuda_ms(lambda: D.double_conv_reference(*args))}
         # the module path's double conv: cuDNN conv, BN, ReLU, twice, bf16
         cudnn = nn.Sequential(ConvBNRelu(cin, c), ConvBNRelu(c, c)).to(
             device="cuda", memory_format=torch.channels_last).eval()
         xc = x.permute(0, 3, 1, 2)
         with torch.inference_mode():
-            cudnn_ms = _cuda_ms(lambda: cudnn(xc))
-        print(f"[kernels] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"cuDNN ConvBNRelu x2 bf16 {cudnn_ms:.4f} ms (median of 20, warm L2; {card})")
+            row["cudnn_ms"] = _cuda_ms(lambda: cudnn(xc))
+        line = (f"[kernels] {name}: from Python kernel {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f} ms, cuDNN ConvBNRelu x2 bf16 {row['cudnn_ms']:.4f} ms")
         if (xshape, c, b1_offset) in UNET64_CASES:
-            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("cudnn_ms", cudnn_ms)):
-                total[key] += v
+            row["device_ms"] = _device_ms(kernel)
+            with torch.inference_mode():
+                row["cudnn_device_ms"] = _device_ms(lambda: cudnn(xc))
+            row["bound_ms"] = double_conv_bound(*xshape, c)[0]
+            line += (f"; device kernel {row['device_ms']:.4f} ms, cuDNN ConvBNRelu x2 "
+                     f"{row['cudnn_device_ms']:.4f} ms; bound {row['bound_ms']:.5f} ms")
+            for key in keys:
+                total[key] += row[key]
+        print(f"{line} (median of 20, warm L2; {card})")
     print(f"[kernels] double_conv, the nine UNet-64 levels of one request summed: "
-          f"kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
-          f"cuDNN {total['cudnn_ms']:.4f} ms ({card})")
-    return {"ms": total["ms"], "plain_ms": total["plain_ms"], "max_abs_err": max(errs)}
+          f"device kernel {total['device_ms']:.4f} ms, cuDNN ConvBNRelu x2 "
+          f"{total['cudnn_device_ms']:.4f} ms, bound {total['bound_ms']:.5f} ms; from Python "
+          f"kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, cuDNN "
+          f"{total['cudnn_ms']:.4f} ms ({card})")
+    sides = {"bytes": 0.0, "operations": 0.0}  # the side that sets most of the summed bound
+    for xs, c, _ in UNET64_CASES:
+        ms, side = double_conv_bound(*xs, c)
+        sides[side] += ms
+    bound_by = max(sides, key=sides.get)
+    return {"ms": total["ms"], "device_ms": total["device_ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"], "bound_by": bound_by,
+            "library_ms": None,
+            "at": "the nine levels of one 256 px UNet-64 request, summed",
+            "max_abs_err": max(errs)}
+
+
+def clip_forward_device_ms(model, x1: torch.Tensor, batches=(1, 8)) -> dict:
+    """Device ms of one full-width ClipUNet forward at each batch size:
+    x1 (1, 224, 224, 3) repeated to the batch."""
+    out = {}
+    with torch.inference_mode():
+        for b in batches:
+            xb = x1.expand(b, *x1.shape[1:]).contiguous()
+            out[b] = _device_ms(lambda: model(xb), iters=5)
+    return out
 
 
 def _images():
@@ -290,6 +502,9 @@ def phase_serving(A, M, card: str):
           f"{statistics.median(lat):.3f} ms, min {min(lat):.3f} ms (10 requests, host clock); "
           f"model forward {fwd_ms:.3f} ms with kernels, {plain_fwd_ms:.3f} ms plain "
           f"(CUDA events); {card}")
+    dev = clip_forward_device_ms(model, x)
+    print(f"[serve] full-width ClipUNet forward, device time (torch.profiler, 5 calls): "
+          f"batch 1 {dev[1]:.4f} ms, batch 8 {dev[8]:.4f} ms ({card})")
     return launches, eng, model
 
 
@@ -857,6 +1072,19 @@ def phase_training(K, launches: dict, card: str) -> None:
         raise AssertionError("the full-width train step's loss is not finite")
 
 
+def print_ptxas_report(log: str) -> None:
+    """One line per kernel from ptxas's -v report: registers, spills."""
+    import re
+
+    name = None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1)
+        elif name and ("spill" in line or "Used" in line):
+            print(f"[build] ptxas {name[:90]}: {line.split(':', 1)[-1].strip()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -879,10 +1107,11 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     start = t0 = time.time()
-    _build.build()
+    log = _build.build()
     _build.load()
     print(f"[build] nvcc built {_build.LIB_PATH} from {_build.SOURCES} "
           f"in {time.time() - t0:.2f} s")
+    print_ptxas_report(log)
 
     timing = phase_kernels(A, M, card)
     launches, eng, clip = phase_serving(A, M, card)

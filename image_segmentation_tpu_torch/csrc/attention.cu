@@ -2,186 +2,210 @@
 //
 // Replaces image_segmentation_tpu/ops/pallas/attention.py:_attention_kernel
 // (fused_attention -> _fused_attention_impl), the kernel every CLIP ViT
-// block runs. Semantics are the Pallas kernel's, cast for cast:
-//   logits = (q . k) accumulated in f32, THEN times the scale;
-//   softmax in f32 over the S true keys (no padding, so no -inf mask);
-//   probabilities rounded to bf16 before P . V; P . V accumulated in f32;
-//   output written in q's dtype (bf16).
+// block runs. The arithmetic is the Pallas kernel's (attention.py:41-60):
+//   logits = (q . k) accumulated in f32, THEN times 1/sqrt(D);
+//   keys >= S masked to -inf; row max, exp and sum in f32;
+//   P = e / sum rounded to bf16 BEFORE P . V (no division after P . V);
+//   P . V accumulated in f32; output in bf16.
 //
 // What bounds it on an H100: at ViT-B/16 shapes (S = 197, D = 64) one
-// (batch, head) pair is 197x197x64x2x2 = 10 MFLOP against 75 KB of q/k/v,
-// so the tensor cores, not HBM, would bound a good kernel; this first
-// kernel is bound by latency (few blocks, synchronous shared-memory
-// loads, scalar softmax). Design: one block per (query tile of 64, head,
-// batch), four warps of 16 query rows each. K and the transposed V of
-// the block's (batch, head) are staged whole in shared memory (about
-// 57 KB at S = 197, above the 48 KB default, hence the
-// MaxDynamicSharedMemorySize attribute); the (64 x S) f32 logits stay in
-// shared memory, so neither scores nor probabilities touch HBM. Both
-// products run on mma.sync (bf16 in, f32 accumulate). q/k/v are read
-// through their (B, S, H, D) strides, so the caller's head split is
-// never copied.
+// (batch, head) is 4 x 197^2 x 64 = 10 MFLOP against 100 KB of q/k/v/out,
+// so the call is bound by memory (0.36 us for B = 1 at 3.35 TB/s) and,
+// in practice, by latency: 48 blocks at B = 1, each a short chain of
+// load -> product -> softmax -> product.
+// Design: one warpgroup (128 threads) per (64-query tile, head, batch).
+// One thread issues TMA loads of the tile's Q (64 x 64) and of all keys'
+// K and V (S rounded up to 64, at most 256) through 4-D tensor maps over
+// the caller's (B, S, H, D) strides, so the head split is never copied;
+// rows past S arrive as zeros. Q and K complete one mbarrier, V another,
+// so QK^T starts while V is in flight. QK^T is wgmma m64n64k16 per 64-key
+// chunk (both operands K-major in shared memory); the logits of a row stay
+// in the registers of the four threads that own it (up to 128 f32 each),
+// so the exact softmax needs two quad shuffles per reduction and no
+// shared memory. P is rounded to bf16 in registers, where it already has
+// the layout of wgmma's A operand, and P . V is wgmma with A from
+// registers and V as an MN-major B (transpose flag): nothing is transposed
+// by hand. Shared memory is 8 + 2 x 32 KB at S = 197 and the registers
+// are held to 168 a thread (__launch_bounds__(128, 3)), so three blocks
+// fit on an SM and B = 8 (384 blocks) runs in one wave. With one warp a
+// scheduler the softmax is latency-bound scalar code, so exp and the
+// division run on the SFU.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace istpu {
 namespace {
 
-constexpr int kQTile = 64;  // query rows per block
-constexpr int kWarps = kQTile / 16;
+constexpr int kQTile = 64;   // query rows per block
+constexpr int kKChunk = 64;  // keys per QK^T product (N of wgmma)
+constexpr int kHeadDim = 64;
+constexpr int kMaxChunks = 4;  // S <= 256
+constexpr uint32_t kTileBytes = kQTile * kHeadDim * 2;  // one 64 x 64 bf16 box
 
-struct Strides {  // in elements; the last (D) dimension is contiguous
-  long long b, s, h;
-};
-
-template <int D>
-__host__ __device__ constexpr int attn_ld_qk() { return D + kPad; }
-
-__host__ __device__ inline int seq16(int S) { return (S + 15) & ~15; }
-
-template <int D>
-size_t attention_smem_bytes(int S) {
-  const int s16 = seq16(S);
-  const size_t ldq = attn_ld_qk<D>(), ldp = s16 + kPad, ldl = s16 + 4;
-  return sizeof(bf16) * (kQTile * ldq + s16 * ldq + D * ldp + kQTile * ldp) +
-         sizeof(float) * kQTile * ldl;
+size_t attention_smem_bytes(int chunks) {
+  return 1024 + kTileBytes * (1 + 2 * chunks) + 2 * sizeof(uint64_t);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int S, int H,
-                 Strides sq, Strides sk, Strides sv, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int s16 = seq16(S);
-  constexpr int ldq = attn_ld_qk<D>();
-  const int ldp = s16 + kPad;
-  const int ldl = s16 + 4;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [kQTile][ldq]
-  bf16* Ks = Qs + kQTile * ldq;              // [s16][ldq]
-  bf16* Vt = Ks + s16 * ldq;                 // [D][ldp]   (V transposed)
-  bf16* Ps = Vt + D * ldp;                   // [kQTile][ldp]
-  float* Ls = reinterpret_cast<float*>(Ps + kQTile * ldp);  // [kQTile][ldl]
+template <int kChunks>
+__global__ void __launch_bounds__(128, 3)
+attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int S, int H,
+                 float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align_1024(smem_raw);
+  unsigned char* Ks = Qs + kTileBytes;
+  unsigned char* Vs = Ks + kChunks * kTileBytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + kChunks * kTileBytes);  // [0] Q+K, [1] V
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQTile;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
 
-  // Stage Q (this tile), K and V^T (all keys); rows past S are zero so
-  // padded keys contribute exact zeros to P . V.
-  constexpr int kVec = 8;  // bf16 per 16-byte load
-  constexpr int kRowVecs = D / kVec;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = tid; i < kQTile * kRowVecs; i += blockDim.x) {
-    const int r = i / kRowVecs, c = (i % kRowVecs) * kVec;
-    uint4 val = zero;
-    if (q0 + r < S) val = *reinterpret_cast<const uint4*>(qb + (q0 + r) * sq.s + c);
-    *reinterpret_cast<uint4*>(Qs + r * ldq + c) = val;
-  }
-  for (int i = tid; i < s16 * kRowVecs; i += blockDim.x) {
-    const int j = i / kRowVecs, c = (i % kRowVecs) * kVec;
-    uint4 kval = zero, vval = zero;
-    if (j < S) {
-      kval = *reinterpret_cast<const uint4*>(kb + j * sk.s + c);
-      vval = *reinterpret_cast<const uint4*>(vb + j * sv.s + c);
-    }
-    *reinterpret_cast<uint4*>(Ks + j * ldq + c) = kval;
-    const bf16* ve = reinterpret_cast<const bf16*>(&vval);
-#pragma unroll
-    for (int u = 0; u < kVec; ++u) Vt[(c + u) * ldp + j] = ve[u];
+  if (tid == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 1);
+    fence_barrier_init();
   }
   __syncthreads();
-
-  // Logits of this warp's 16 query rows against every key, scaled in f32.
-  const int r0 = warp * 16;
-  uint32_t qa[D / 16][4];
+  if (tid == 0) {
+    // Coordinates run innermost first: (d, head, token, batch).
+    mbar_arrive_expect_tx(&bars[0], kTileBytes * (1 + kChunks));
+    tma_load_4d(Qs, &tq, &bars[0], 0, h, q0, b);
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) load_a_frag(qa[ks], Qs, ldq, r0, ks * 16, g, t);
-  for (int n0 = 0; n0 < s16; n0 += 8) {
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-    const bf16* krow = Ks + (n0 + g) * ldq;
+    for (int c = 0; c < kChunks; ++c)
+      tma_load_4d(Ks + c * kTileBytes, &tk, &bars[0], 0, h, c * kKChunk, b);
+    mbar_arrive_expect_tx(&bars[1], kTileBytes * kChunks);
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
-      mma_bf16_16x8x16(c, qa[ks], ld32(krow + ks * 16 + 2 * t),
-                       ld32(krow + ks * 16 + 8 + 2 * t));
-    float* l0 = Ls + (r0 + g) * ldl + n0 + 2 * t;
-    float* l1 = l0 + 8 * ldl;
-    l0[0] = c[0] * scale;
-    l0[1] = c[1] * scale;
-    l1[0] = c[2] * scale;
-    l1[1] = c[3] * scale;
+    for (int c = 0; c < kChunks; ++c)
+      tma_load_4d(Vs + c * kTileBytes, &tv, &bars[1], 0, h, c * kKChunk, b);
   }
-  __syncwarp();
 
-  // Row softmax over the S true keys, then P rounded to bf16 (zero past S).
-  for (int rr = 0; rr < 16; ++rr) {
-    float* lr = Ls + (r0 + rr) * ldl;
-    float m = __int_as_float(0xff800000);  // -inf
-    for (int j = lane; j < S; j += 32) m = fmaxf(m, lr[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = expf(lr[j] - m);
-      lr[j] = e;
-      sum += e;
+  // Logits: s[c][4 j + e] is row 16 warp + g + 8 (e / 2), key 64 c + 8 j + 2 t + e % 2.
+  float s[kChunks][32];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[c][i] = 0.f;
+  mbar_wait(&bars[0], 0);
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk)
+      wgmma_m64n64k16_ss(s[c], kmajor_desc(Qs + 32 * kk),
+                            kmajor_desc(Ks + c * kTileBytes + 32 * kk));
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) fence_regs(s[c]);
+
+  // Scale, mask keys >= S to -inf, and the row max over the quad.
+  const float neg_inf = __int_as_float(0xff800000);
+  float mx[2] = {neg_inf, neg_inf};
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = c * kKChunk + 8 * j + 2 * t + (e & 1);
+        const float l = key < S ? s[c][4 * j + e] * scale : neg_inf;
+        s[c][4 * j + e] = l;
+        mx[e >> 1] = fmaxf(mx[e >> 1], l);
+      }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float e = __expf(s[c][i] - mx[(i >> 1) & 1]);
+      s[c][i] = e;
+      sum[(i >> 1) & 1] += e;
     }
-    sum = warp_sum(sum);
-    bf16* pr = Ps + (r0 + rr) * ldp;
-    for (int j = lane; j < s16; j += 32)
-      pr[j] = __float2bfloat16(j < S ? lr[j] / sum : 0.f);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
   }
-  __syncwarp();
 
-  // out = P . V over the keys, 16 at a time.
-  float acc[D / 8][4];
+  // P = e / sum in bf16, as the A fragments of P . V: k-step 4 c + kk
+  // covers keys 64 c + 16 kk .. +15, i.e. 8-key blocks 2 kk and 2 kk + 1.
+  // exp and the division run on the SFU (__expf, __fdividef). __expf's
+  // error grows with |x|: 2 + floor(1.173 |x|) f32 ulps by the CUDA
+  // Programming Guide, tens of ulps for logits far below the row max;
+  // __fdividef adds 2. A bf16 step is 2^16 f32 ulps, so P can differ from
+  // the IEEE expf / division version only where the f32 value sits next to
+  // a bf16 rounding boundary (chip_smoke.py phase 3 measures the gap).
+  uint32_t p[kChunks * 4][4];
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  for (int k0 = 0; k0 < s16; k0 += 16) {
-    uint32_t pa[4];
-    load_a_frag(pa, Ps, ldp, r0, k0, g, t);
+  for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      const bf16* vrow = Vt + (nt * 8 + g) * ldp + k0;
-      mma_bf16_16x8x16(acc[nt], pa, ld32(vrow + 2 * t), ld32(vrow + 8 + 2 * t));
+    for (int kk = 0; kk < 4; ++kk) {
+      const int lo = 8 * kk, hi = 8 * kk + 4;  // blocks 2 kk and 2 kk + 1
+      p[4 * c + kk][0] = pack_bf16(__fdividef(s[c][lo], sum[0]), __fdividef(s[c][lo + 1], sum[0]));
+      p[4 * c + kk][1] =
+          pack_bf16(__fdividef(s[c][lo + 2], sum[1]), __fdividef(s[c][lo + 3], sum[1]));
+      p[4 * c + kk][2] = pack_bf16(__fdividef(s[c][hi], sum[0]), __fdividef(s[c][hi + 1], sum[0]));
+      p[4 * c + kk][3] =
+          pack_bf16(__fdividef(s[c][hi + 2], sum[1]), __fdividef(s[c][hi + 3], sum[1]));
     }
-  }
 
-  // Output is a fresh contiguous (B, S, H, D) tensor.
-  const long long ostride = static_cast<long long>(H) * D;
-  bf16* ob = o + (static_cast<long long>(b) * S * H + h) * D;
-  const int row0 = q0 + r0 + g, row1 = row0 + 8;
+  float acc[32];
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int c = nt * 8 + 2 * t;
-    if (row0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * ostride + c) =
-          __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
-    if (row1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * ostride + c) =
-          __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  mbar_wait(&bars[1], 0);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kChunks * 4; ++ks)
+    wgmma_m64n64k16_rs(acc, p[ks], mnmajor_desc(Vs + ks * 16 * 128));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // Output: a fresh contiguous (B, S, H, D) tensor.
+  const long long row_stride = static_cast<long long>(H) * kHeadDim;
+  bf16* ob = o + (static_cast<long long>(b) * S * H + h) * kHeadDim;
+  const int row0 = q0 + warp * 16 + g;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= S) continue;
+    bf16* orow = ob + row * row_stride;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+          pack_bf16(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
   }
 }
 
-template <int D>
-cudaError_t launch_attention(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                             int B, int S, int H, Strides sq, Strides sk, Strides sv,
+// A 4-D map over a (B, S, H, D) bf16 tensor with element strides
+// (sb, ss, sh, 1); boxes of 64 tokens x one head x D.
+cudaError_t qkv_map(CUtensorMap* map, const void* base, int B, int S, int H, long long sb,
+                    long long ss, long long sh) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHeadDim), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kHeadDim, 1, kQTile, 1};
+  return make_tensor_map(map, base, 4, dims, strides, box);
+}
+
+template <int kChunks>
+cudaError_t launch_attention(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                             bf16* o, int B, int S, int H, int q_tiles, int smem,
                              cudaStream_t stream) {
-  const size_t smem = attention_smem_bytes<D>(S);
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_kernel<kChunks>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(attention_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + kQTile - 1) / kQTile, H, B);
-  attention_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
-      q, k, v, o, S, H, sq, sk, sv, 1.0f / sqrtf(static_cast<float>(D)));
+  const dim3 grid(q_tiles, H, B);
+  attention_kernel<kChunks><<<grid, 128, smem, stream>>>(
+      tq, tk, tv, o, S, H, 1.0f / sqrtf(static_cast<float>(kHeadDim)));
   return cudaGetLastError();
 }
 
@@ -190,34 +214,36 @@ cudaError_t launch_attention(const bf16* q, const bf16* k, const bf16* v, bf16* 
 
 extern "C" {
 
-// Largest sequence length the kernel's shared-memory plan admits on
-// `device` for head dim D (0 for an unsupported D or on error).
-int istpu_attention_max_seq(int D, int device) {
-  if (D != 64) return 0;
-  int max_smem = 0;
-  if (cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return 0;
-  int s = 16;
-  while (istpu::attention_smem_bytes<64>(s + 16) <= static_cast<size_t>(max_smem)) s += 16;
-  return s;
-}
-
-// q, k, v: bf16 (B, S, H, D) with the given element strides (D contiguous);
-// o: contiguous bf16 (B, S, H, D). Returns a cudaError_t.
+// q, k, v: bf16 (B, S, H, D) with the given element strides (D contiguous,
+// the others multiples of 8); o: contiguous bf16 (B, S, H, D); S <= 256,
+// D = 64. The cut is the caller's plan (ops/kernels/attention.py
+// attention_plan): q_tiles blocks of 64 queries, chunks of 64 keys and
+// smem bytes of shared memory a block; a plan that does not cover S is
+// refused. Returns a cudaError_t.
 int istpu_attention_bf16(const void* q, const void* k, const void* v, void* o, int B,
                          int S, int H, int D, long long qsb, long long qss,
                          long long qsh, long long ksb, long long kss, long long ksh,
-                         long long vsb, long long vss, long long vsh, int device,
-                         void* stream) {
+                         long long vsb, long long vss, long long vsh, int q_tiles,
+                         int chunks, int smem, int device, void* stream) {
+  using namespace istpu;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  using istpu::bf16;
-  if (D != 64) return cudaErrorInvalidValue;
-  return istpu::launch_attention<64>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), B, S, H, {qsb, qss, qsh},
-      {ksb, kss, ksh}, {vsb, vss, vsh}, static_cast<cudaStream_t>(stream));
+  if (D != kHeadDim || B <= 0 || H <= 0 || S <= 0 || chunks < 1 || chunks > kMaxChunks ||
+      chunks * kKChunk < S || q_tiles * kQTile < S ||
+      static_cast<size_t>(smem) < attention_smem_bytes(chunks))
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if ((err = qkv_map(&tq, q, B, S, H, qsb, qss, qsh)) != cudaSuccess) return err;
+  if ((err = qkv_map(&tk, k, B, S, H, ksb, kss, ksh)) != cudaSuccess) return err;
+  if ((err = qkv_map(&tv, v, B, S, H, vsb, vss, vsh)) != cudaSuccess) return err;
+  auto* op = static_cast<bf16*>(o);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (chunks) {
+    case 1: return launch_attention<1>(tq, tk, tv, op, B, S, H, q_tiles, smem, s);
+    case 2: return launch_attention<2>(tq, tk, tv, op, B, S, H, q_tiles, smem, s);
+    case 3: return launch_attention<3>(tq, tk, tv, op, B, S, H, q_tiles, smem, s);
+    default: return launch_attention<4>(tq, tk, tv, op, B, S, H, q_tiles, smem, s);
+  }
 }
 
 const char* istpu_error_string(int err) {

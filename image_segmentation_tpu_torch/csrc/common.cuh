@@ -1,7 +1,7 @@
-// Shared device helpers for the hand-written Hopper kernels.
-//
-// The products use the warp-level tensor-core instruction
-// mma.sync.m16n8k16 (bf16 inputs, f32 accumulators). Fragment layout
+// Shared device helpers for the hand-written kernels: the bf16 type, a
+// warp reduction, and the warp-level tensor-core product of K1
+// (double_conv.cu), mma.sync.m16n8k16 (bf16 inputs, f32 accumulators;
+// K3 and K4 use wgmma, hopper.cuh). Fragment layout
 // (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with g = lane / 4 and
 // t = lane % 4:
 //   A (16x16, row-major): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
@@ -50,12 +50,6 @@ __device__ __forceinline__ void load_a_frag(uint32_t a[4], const bf16* base, int
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 

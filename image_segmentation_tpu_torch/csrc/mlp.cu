@@ -1,8 +1,8 @@
 // K4: fused ViT MLP, x + fc2(quickGELU(fc1(LayerNorm(x)))), for Hopper.
 //
 // Replaces image_segmentation_tpu/ops/pallas/mlp.py:_mlp_kernel
-// (fused_mlp -> _fused_mlp_impl), the second half of every CLIP ViT block.
-// Cast points are the Pallas kernel's (mlp.py:75-88):
+// (fused_mlp -> _fused_mlp_impl), the second half of every CLIP ViT
+// block. Cast points are the Pallas kernel's (mlp.py:75-88):
 //   LayerNorm statistics and affine in f32, result rounded to bf16;
 //   fc1 accumulated in f32, + f32 bias; quick-GELU h * sigmoid(1.702 h)
 //   in f32, rounded to bf16; fc2 accumulated in f32, + f32 bias, rounded
@@ -10,178 +10,353 @@
 // Weights use the nn.Linear layout: w1 is (F, H), w2 is (H, F).
 //
 // What bounds it on an H100: at ViT-B/16 shapes one call is
-// 2 x tokens x 768 x 3072 x 2 FLOP against 9.4 MB of bf16 weights, so at
-// the 197 tokens of one request it is bound by reading the weights (the
-// TPU kernel held both matrices in VMEM; 227 KB of shared memory cannot)
-// and by how many SMs share that work.
-// Design: a block of eight warps owns a 32-token tile and one split of
-// F (the grid is token tiles x F splits, about one block per SM at one
-// request). It normalises its tile into shared memory, then walks its
-// F range in slices of 64: fc1 for the slice (W1 staged through shared
-// memory 64 columns of H at a time), bias + quick-GELU in registers,
-// the bf16 (32 x 64) activation parked in shared memory, then fc2
-// accumulates the slice into the block's (32 x H) f32 sum in registers
-// (warp w owns columns [w H/8, (w+1) H/8)). The (tokens x F)
-// intermediate never reaches HBM; each split writes its f32 partial fc2
-// sum, and a second kernel adds the partials in split order, then b2,
-// the bf16 rounding and the residual. Both products run on mma.sync
-// (bf16 in, f32 accumulate).
+// 4 x tokens x 768 x 3072 FLOP against 9.4 MB of bf16 weights. At the
+// 197 tokens of one request it is bound by reading the weights (3.0 us);
+// at the 1576 tokens of a batch of 8 by the tensor cores (15 us).
+// The TPU kernel keeps both weight matrices in VMEM; 227 KB of shared
+// memory cannot, and the fc2 accumulator of 64 tokens x 768 in f32 would
+// fill an SM's register file. So the (tokens x F) intermediate G is
+// written once in bf16 (9.7 MB at 1576 tokens, which stays in the 50 MB
+// L2); the Pallas kernel rounds it to bf16 before fc2 anyway.
+// Design: two wgmma GEMMs (bf16 in, f32 accumulate) whose operands arrive
+// by TMA (128-byte swizzle) through a ring of stages that thread 0 keeps
+// full ahead of the products; no float atomics, so the same inputs give
+// the same bits.
+// - fc1 (two warpgroups, one block an SM): a block owns 64 tokens and a
+//   run of 128-wide F tiles. TMA brings the raw x tile straight into the
+//   swizzled A slabs and the first eight W1 stages; the eight warps
+//   normalise the tile in place (statistics and affine in f32, LN
+//   parameters in registers), so A stays resident for the whole run while
+//   W1 (F, H) streams K-major. Each warpgroup multiplies one 64-column
+//   half of the tile (m64n64k16) and runs its epilogue: + b1 (loaded
+//   before the products), quick-GELU in f32, bf16, store G. Two warps a
+//   scheduler keep the LayerNorm and the epilogue, which are latency-bound
+//   scalar code, from serialising.
+// - fc2 (one warpgroup, two blocks an SM): a block owns 64 tokens x 128
+//   outputs and a run of 64-wide chunks of F; G and W2 (H, F) both stream
+//   (m64n128k16), G's ragged token edge reading as zeros. With one split
+//   the epilogue adds b2 in f32, rounds, adds the bf16 residual and
+//   rounds. Few tokens leave too few output tiles for the SMs, so F is
+//   split; each split writes an f32 partial and a third kernel adds them
+//   in split order, then b2 and the residual.
+// The plan (token tiles, F runs, splits) comes from mlp_plan in
+// ops/kernels/mlp.py.
 #include <algorithm>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace istpu {
 namespace {
 
-constexpr int kTM = 32;     // tokens per block
-constexpr int kFT = 64;     // F slice per step
-constexpr int kKC = 64;     // H chunk of the staged W1 tile
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
+constexpr int kTM = 64;      // tokens per tile (M of wgmma)
+constexpr int kTN = 128;     // output columns per tile (N of wgmma)
+constexpr int kTK = 64;      // reduction columns per stage (one 128-byte swizzle row)
+constexpr int kStages = 4;       // fc2: two blocks an SM
+constexpr int kFc1Stages = 8;    // fc1: one block an SM beside its resident A tile
+constexpr int kFc1Threads = 256;  // fc1: two warpgroups
+constexpr uint32_t kSlabBytes = kTM * kTK * 2;   // 64 x 64 bf16, 8 KB
+constexpr uint32_t kBTileBytes = kTN * kTK * 2;  // 128 x 64 bf16, 16 KB
 
 template <int H>
-constexpr size_t mlp_smem_bytes() {
-  return sizeof(bf16) *
-         (kTM * (H + kPad) + kFT * (kKC + kPad) + kTM * (kFT + kPad) + H * (kFT + kPad));
+constexpr size_t fc1_smem_bytes() {
+  return 1024 + (H / kTK) * kSlabBytes + kFc1Stages * kBTileBytes +
+         (kFc1Stages + 1) * sizeof(uint64_t);
+}
+constexpr size_t fc2_smem_bytes() {
+  return 1024 + kStages * (kSlabBytes + kBTileBytes) + kStages * sizeof(uint64_t);
 }
 
-// Grid (token tiles, F splits); split s covers F slices
-// [s * steps_per_split, (s + 1) * steps_per_split) of kFT columns.
+// h * sigmoid(1.702 h) in f32 with the SFU's exp and reciprocal. __expf's
+// error grows with |x| (2 + floor(1.173 |x|) f32 ulps by the CUDA
+// Programming Guide) and __fdividef adds 2; a bf16 step is 2^16 f32 ulps,
+// so G can differ from the IEEE version only next to a bf16 rounding
+// boundary (chip_smoke.py phase 3 measures the gap).
+__device__ __forceinline__ float quick_gelu(float h) {
+  return h * __fdividef(1.f, 1.f + __expf(-1.702f * h));
+}
+
+// fc1: G[m, f] = bf16(quickGELU(LN(x)[m, :] . W1[f, :] + b1[f])).
+// Grid (token tiles, F runs); run y covers F tiles [y * tiles, +tiles).
+// Two warpgroups: both normalise rows, warpgroup w multiplies columns
+// [64 w, 64 w + 64) of each 128-wide F tile and runs their epilogue.
 template <int H>
-__global__ void __launch_bounds__(kThreads)
-mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
-           const float* __restrict__ ln_b, const bf16* __restrict__ w1,
-           const float* __restrict__ b1, const bf16* __restrict__ w2,
-           float* __restrict__ partial, int M, int F, int steps_per_split,
-           float eps) {
-  static_assert(H % (kWarps * 8) == 0 && H % kKC == 0, "unsupported hidden size");
-  constexpr int ldx = H + kPad, ldw1 = kKC + kPad, ldg = kFT + kPad, ldw2 = kFT + kPad;
-  constexpr int kNT = H / (kWarps * 8);  // fc2 n-tiles per warp
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Xn = reinterpret_cast<bf16*>(smem);  // [kTM][ldx]  LN(x) in bf16
-  bf16* W1s = Xn + kTM * ldx;                 // [kFT][ldw1] W1[f0+n][k0+k]
-  bf16* Gs = W1s + kFT * ldw1;                // [kTM][ldg]  quickGELU(fc1) in bf16
-  bf16* W2s = Gs + kTM * ldg;                 // [H][ldw2]   W2[o][f0+f]
+__global__ void __launch_bounds__(kFc1Threads)
+mlp_fc1_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw1,
+               const float* __restrict__ ln_w, const float* __restrict__ ln_b,
+               const float* __restrict__ b1, bf16* __restrict__ g, int M, int F,
+               int tiles_per_run, float eps) {
+  static_assert(H % 128 == 0 && H <= 768, "unsupported hidden size");
+  constexpr int kStages = kFc1Stages;
+  constexpr int kChunks = H / kTK;
+  constexpr int kVecs = H / 8;  // 16-byte vectors per row
+  constexpr int kPerLane = (kVecs + 31) / 32;
+  constexpr int kWarps = kFc1Threads / 32;
+  constexpr int kHalf = kTN / 2;  // columns per warpgroup
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* As = align_1024(smem_raw);       // kChunks slabs of 64 x 64
+  unsigned char* Bs = As + kChunks * kSlabBytes;  // kStages x (128 x 64)
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + kStages * kBTileBytes);
+  uint64_t* x_full = full + kStages;
 
-  const int m0 = blockIdx.x * kTM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int wg = tid >> 7;
+  const int m0 = blockIdx.x * kTM;
+  const int f_tiles = (F + kTN - 1) / kTN;
+  const int tile0 = blockIdx.y * tiles_per_run;
+  const int tiles = min(tiles_per_run, f_tiles - tile0);
+  const int loads = tiles * kChunks;  // load i: F tile tile0 + i / kChunks, chunk i % kChunks
 
-  // LayerNorm: two-pass f32 statistics, one warp per row.
-  for (int r = warp; r < kTM; r += kWarps) {
-    bf16* xn = Xn + r * ldx;
-    if (m0 + r >= M) {
-      for (int c = lane; c < H; c += 32) xn[c] = __float2bfloat16(0.f);
-      continue;
+  auto issue = [&](int i) {
+    const int st = i % kStages;
+    mbar_arrive_expect_tx(&full[st], kBTileBytes);
+    tma_load_2d(Bs + st * kBTileBytes, &tw1, &full[st], (i % kChunks) * kTK,
+                (tile0 + i / kChunks) * kTN);
+  };
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(&full[st], 1);
+    mbar_init(x_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();  // every thread waits on x_full below
+  if (tid == 0) {
+    // The raw x tile lands in the A slabs, already in the swizzled layout
+    // (rows past M read as zeros); W1's first stages follow.
+    mbar_arrive_expect_tx(x_full, kChunks * kSlabBytes);
+    for (int c = 0; c < kChunks; ++c) tma_load_2d(As + c * kSlabBytes, &tx, x_full, c * kTK, m0);
+    for (int i = 0; i < min(kStages, loads); ++i) issue(i);
+  }
+
+  // LayerNorm in place: lane l owns the 16-byte vectors l + 32 u of every
+  // row (columns 8 (l + 32 u) .. +7), warp w the rows 8 w .. 8 w + 7.
+  // Two-pass f32 statistics over the row held in registers, then
+  // (x - mu) * rstd * ln_w + ln_b rounded to bf16, written back where the
+  // raw vector was; rows past M stay zero.
+  float lw[kPerLane][8], lb[kPerLane][8];
+#pragma unroll
+  for (int u = 0; u < kPerLane; ++u)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int c = min(8 * (lane + 32 * u) + q, H - 1);
+      lw[u][q] = ln_w[c];
+      lb[u][q] = ln_b[c];
     }
-    const bf16* xr = x + static_cast<long long>(m0 + r) * H;
-    float s = 0.f;
-    for (int c = lane; c < H; c += 32) s += __bfloat162float(xr[c]);
-    const float mu = warp_sum(s) / H;
+  mbar_wait(x_full, 0);
+  constexpr int kRows = kTM / kWarps;
+  const int rows = min(kRows, M - m0 - warp * kRows);
+#pragma unroll 2
+  for (int r = warp * kRows; r < warp * kRows + rows; ++r) {
+    uint4* slot[kPerLane];
+    float v[kPerLane][8];
+    float part[kPerLane];
+#pragma unroll
+    for (int u = 0; u < kPerLane; ++u) {
+      const int vec = lane + 32 * u;
+      slot[u] = reinterpret_cast<uint4*>(As + (vec / 8) * kSlabBytes +
+                                         sw128_offset(r, 8 * (vec % 8)));
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (vec < kVecs) raw = *slot[u];
+      const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[u][q] = __bfloat162float(e[q]);
+      part[u] = ((v[u][0] + v[u][1]) + (v[u][2] + v[u][3])) +
+                ((v[u][4] + v[u][5]) + (v[u][6] + v[u][7]));
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int u = 0; u < kPerLane; ++u) sum += part[u];
+    const float mu = warp_sum(sum) / H;
+#pragma unroll
+    for (int u = 0; u < kPerLane; ++u) {
+      float d[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) d[q] = lane + 32 * u < kVecs ? v[u][q] - mu : 0.f;
+      part[u] = ((d[0] * d[0] + d[1] * d[1]) + (d[2] * d[2] + d[3] * d[3])) +
+                ((d[4] * d[4] + d[5] * d[5]) + (d[6] * d[6] + d[7] * d[7]));
+    }
     float ss = 0.f;
-    for (int c = lane; c < H; c += 32) {
-      const float d = __bfloat162float(xr[c]) - mu;
-      ss += d * d;
-    }
+#pragma unroll
+    for (int u = 0; u < kPerLane; ++u) ss += part[u];
     const float rstd = rsqrtf(warp_sum(ss) / H + eps);
-    for (int c = lane; c < H; c += 32)
-      xn[c] = __float2bfloat16((__bfloat162float(xr[c]) - mu) * rstd * ln_w[c] + ln_b[c]);
-  }
-
-  float acc2[2][kNT][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    for (int u = 0; u < kPerLane; ++u) {
+      if (lane + 32 * u >= kVecs) continue;
+      uint4 packed;
+      uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) acc2[mt][nt][0] = acc2[mt][nt][1] = acc2[mt][nt][2] = acc2[mt][nt][3] = 0.f;
-
-  // fc1 split: warp w computes rows [16 (w % 2), +16) x columns
-  // [16 (w / 2), +16) of the (32 x 64) slice, as two 16x8 tiles.
-  const int mt1 = warp & 1, nc1 = (warp >> 1) * 16;
-  constexpr int kRowVecs1 = kKC / 8, kRowVecs2 = kFT / 8;
-
-  const int f_begin = blockIdx.y * steps_per_split * kFT;
-  const int f_end = min(F, f_begin + steps_per_split * kFT);
-  for (int f0 = f_begin; f0 < f_end; f0 += kFT) {
-    __syncthreads();  // previous slice's fc2 is done with Gs and W2s
-    for (int i = tid; i < H * kRowVecs2; i += kThreads) {
-      const int o = i / kRowVecs2, c = (i % kRowVecs2) * 8;
-      *reinterpret_cast<uint4*>(W2s + o * ldw2 + c) =
-          *reinterpret_cast<const uint4*>(w2 + static_cast<long long>(o) * F + f0 + c);
-    }
-
-    float acc1[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    for (int k0 = 0; k0 < H; k0 += kKC) {
-      __syncthreads();  // W1s free (and, on the first chunk, Xn written)
-      for (int i = tid; i < kFT * kRowVecs1; i += kThreads) {
-        const int n = i / kRowVecs1, c = (i % kRowVecs1) * 8;
-        *reinterpret_cast<uint4*>(W1s + n * ldw1 + c) =
-            *reinterpret_cast<const uint4*>(w1 + static_cast<long long>(f0 + n) * H + k0 + c);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kKC; kk += 16) {
-        uint32_t a[4];
-        load_a_frag(a, Xn, ldx, mt1 * 16, k0 + kk, g, t);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const bf16* wrow = W1s + (nc1 + j * 8 + g) * ldw1 + kk;
-          mma_bf16_16x8x16(acc1[j], a, ld32(wrow + 2 * t), ld32(wrow + 8 + 2 * t));
-        }
-      }
-    }
-
-    // + b1, quick-GELU in f32, round to bf16 into Gs.
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = nc1 + j * 8 + 2 * t;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = mt1 * 16 + g + (e >> 1) * 8, col = c + (e & 1);
-        const float hv = acc1[j][e] + b1[f0 + col];
-        const float act = hv * (1.f / (1.f + expf(-1.702f * hv)));
-        Gs[row * ldg + col] = __float2bfloat16(act);
-      }
-    }
-    __syncthreads();
-
-    // fc2: acc2 += Gs (32 x 64) . W2s^T over this slice.
-#pragma unroll
-    for (int kk = 0; kk < kFT; kk += 16) {
-      uint32_t a0[4], a1[4];
-      load_a_frag(a0, Gs, ldg, 0, kk, g, t);
-      load_a_frag(a1, Gs, ldg, 16, kk, g, t);
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const bf16* wrow = W2s + ((warp * kNT + nt) * 8 + g) * ldw2 + kk;
-        const uint32_t bb0 = ld32(wrow + 2 * t), bb1 = ld32(wrow + 8 + 2 * t);
-        mma_bf16_16x8x16(acc2[0][nt], a0, bb0, bb1);
-        mma_bf16_16x8x16(acc2[1][nt], a1, bb0, bb1);
-      }
+      for (int q = 0; q < 4; ++q)
+        pw[q] = pack_bf16((v[u][2 * q] - mu) * rstd * lw[u][2 * q] + lb[u][2 * q],
+                          (v[u][2 * q + 1] - mu) * rstd * lw[u][2 * q + 1] + lb[u][2 * q + 1]);
+      *slot[u] = packed;
     }
   }
+  fence_proxy_async();  // the A tile's generic writes before wgmma reads them
+  __syncthreads();
 
-  // This split's f32 partial of fc2 for the tile.
-  float* part = partial + static_cast<long long>(blockIdx.y) * M * H;
+  // This thread's accumulator holds rows 16 (warp % 4) + gq (+ 8) and, of
+  // each tile, columns 64 wg + 8 j + 2 gt (+ 1).
+  const int gq = lane >> 2, gt = lane & 3;
+  const int row0 = m0 + (warp & 3) * 16 + gq;
+  float acc[32];
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int f0 = (tile0 + tile) * kTN + wg * kHalf;
+    // The tile's biases, loaded now so their latency hides behind the products.
+    float bias[8][2];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    for (int j = 0; j < 8; ++j) {
+      const int f = min(f0 + 8 * j + 2 * gt, F - 2);
+      bias[j][0] = b1[f];
+      bias[j][1] = b1[f + 1];
+    }
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
+    for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+    for (int kc = 0; kc < kChunks; ++kc) {
+      const int i = tile * kChunks + kc, st = i % kStages;
+      mbar_wait(&full[st], (i / kStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTK / 16; ++kk)
+        wgmma_m64n64k16_ss(acc, kmajor_desc(As + kc * kSlabBytes + 32 * kk),
+                              kmajor_desc(Bs + st * kBTileBytes + wg * (kBTileBytes / 2) +
+                                          32 * kk));
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(acc);
+      // Both warpgroups' products of load i - 1 are done: its stage takes
+      // load i - 1 + kStages.
+      if (kc >= 1 && i - 1 + kStages < loads) {
+        named_barrier_sync(1, kFc1Threads);
+        if (tid == 0) issue(i - 1 + kStages);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    // The tile's last stage is free too.
+    const int last = (tile + 1) * kChunks - 1;
+    if (last + kStages < loads) {
+      named_barrier_sync(1, kFc1Threads);
+      if (tid == 0) issue(last + kStages);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int f = f0 + 8 * j + 2 * gt;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int row = m0 + mt * 16 + g + half * 8;
-        if (row >= M) continue;
-        const int col = (warp * kNT + nt) * 8 + 2 * t;
-        *reinterpret_cast<float2*>(part + static_cast<long long>(row) * H + col) =
-            make_float2(acc2[mt][nt][2 * half], acc2[mt][nt][2 * half + 1]);
+        const int row = row0 + 8 * half;
+        if (f < F && row < M)
+          *reinterpret_cast<uint32_t*>(g + static_cast<long long>(row) * F + f) =
+              pack_bf16(quick_gelu(acc[4 * j + 2 * half] + bias[j][0]),
+                        quick_gelu(acc[4 * j + 2 * half + 1] + bias[j][1]));
       }
+    }
+  }
 }
 
-// out = x + bf16(sum of partials + b2), the sum in split order, two
+// fc2: y[m, o] = G[m, :] . W2[o, :] over the split's chunks of F. One
+// split: out = bf16(x + bf16(y + b2)); several: y to partial[split].
+// Grid (token tiles, H / 128, splits).
+__global__ void __launch_bounds__(128)
+mlp_fc2_kernel(const __grid_constant__ CUtensorMap tg, const __grid_constant__ CUtensorMap tw2,
+               const bf16* __restrict__ x, const float* __restrict__ b2, bf16* __restrict__ out,
+               float* __restrict__ partial, int M, int H, int F, int chunks_per_split) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* As = align_1024(smem_raw);         // kStages x (64 x 64) of G
+  unsigned char* Bs = As + kStages * kSlabBytes;    // kStages x (128 x 64) of W2
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + kStages * kBTileBytes);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int m0 = blockIdx.x * kTM, n0 = blockIdx.y * kTN;
+  const int k_chunks = F / kTK;
+  const int c0 = blockIdx.z * chunks_per_split;
+  const int loads = min(chunks_per_split, k_chunks - c0);
+
+  auto issue = [&](int i) {
+    const int st = i % kStages;
+    mbar_arrive_expect_tx(&full[st], kSlabBytes + kBTileBytes);
+    tma_load_2d(As + st * kSlabBytes, &tg, &full[st], (c0 + i) * kTK, m0);
+    tma_load_2d(Bs + st * kBTileBytes, &tw2, &full[st], (c0 + i) * kTK, n0);
+  };
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(&full[st], 1);
+    fence_barrier_init();
+    for (int i = 0; i < min(kStages, loads); ++i) issue(i);
+  }
+  __syncthreads();
+
+  const int gq = lane >> 2, gt = lane & 3;
+  const int row0 = m0 + warp * 16 + gq;
+  // This thread's columns n0 + 8 j + 2 gt (+ 1): their biases, loaded now
+  // so their latency hides behind the products.
+  float bias[16][2];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    bias[j][0] = b2[n0 + 8 * j + 2 * gt];
+    bias[j][1] = b2[n0 + 8 * j + 2 * gt + 1];
+  }
+  float acc[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+  for (int i = 0; i < loads; ++i) {
+    const int st = i % kStages;
+    mbar_wait(&full[st], (i / kStages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTK / 16; ++kk)
+      wgmma_m64n128k16_ss(acc, kmajor_desc(As + st * kSlabBytes + 32 * kk),
+                             kmajor_desc(Bs + st * kBTileBytes + 32 * kk));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(acc);
+    if (tid == 0 && i >= 1 && i - 1 + kStages < loads) issue(i - 1 + kStages);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  if (gridDim.z == 1) {
+    // The residual, all loads issued before any is used.
+    __nv_bfloat162 xv[16][2];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = min(row0 + 8 * half, M - 1);
+        xv[j][half] = *reinterpret_cast<const __nv_bfloat162*>(
+            x + static_cast<long long>(row) * H + n0 + 8 * j + 2 * gt);
+      }
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + 8 * half;
+        if (row >= M) continue;
+        const float r0 = __bfloat162float(__float2bfloat16(acc[4 * j + 2 * half] + bias[j][0]));
+        const float r1 =
+            __bfloat162float(__float2bfloat16(acc[4 * j + 2 * half + 1] + bias[j][1]));
+        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(row) * H + n0 + 8 * j +
+                                           2 * gt) =
+            __floats2bfloat162_rn(__low2float(xv[j][half]) + r0,
+                                  __high2float(xv[j][half]) + r1);
+      }
+  } else {
+    float* part = partial + static_cast<long long>(blockIdx.z) * M * H;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + 8 * half;
+        if (row < M)
+          *reinterpret_cast<float2*>(part + static_cast<long long>(row) * H + n0 + 8 * j +
+                                     2 * gt) =
+              make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      }
+  }
+}
+
+// out = bf16(x + bf16(sum of partials + b2)), the sum in split order, two
 // columns per thread.
-__global__ void mlp_epilogue_kernel(const float* __restrict__ partial, int splits,
-                                    const bf16* __restrict__ x,
-                                    const float* __restrict__ b2,
-                                    bf16* __restrict__ out, int M, int H) {
+__global__ void mlp_reduce_kernel(const float* __restrict__ partial, int splits,
+                                  const bf16* __restrict__ x, const float* __restrict__ b2,
+                                  bf16* __restrict__ out, int M, int H) {
   const long long pairs = static_cast<long long>(M) * H / 2;
   const long long stride = static_cast<long long>(M) * H;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
@@ -202,23 +377,26 @@ __global__ void mlp_epilogue_kernel(const float* __restrict__ partial, int split
   }
 }
 
+// A 2-D map over a row-major (rows, cols) bf16 matrix, boxes of
+// box_rows x 64 columns.
+cudaError_t matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {kTK, static_cast<cuuint32_t>(box_rows)};
+  return make_tensor_map(map, base, 2, dims, strides, box);
+}
+
 template <int H>
-cudaError_t launch_mlp(const bf16* x, const float* ln_w, const float* ln_b,
-                       const bf16* w1, const float* b1, const bf16* w2, const float* b2,
-                       float* partial, bf16* out, int M, int F, int splits,
-                       int steps_per_split, float eps, cudaStream_t stream) {
-  constexpr size_t smem = mlp_smem_bytes<H>();
+cudaError_t launch_fc1(const CUtensorMap& tx, const CUtensorMap& tw1, const float* ln_w,
+                       const float* ln_b, const float* b1, bf16* g, int M, int F, int runs,
+                       int tiles_per_run, float eps, cudaStream_t stream) {
+  constexpr size_t smem = fc1_smem_bytes<H>();
   cudaError_t err = cudaFuncSetAttribute(
-      mlp_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      mlp_fc1_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((M + kTM - 1) / kTM, splits);
-  mlp_kernel<H><<<grid, kThreads, smem, stream>>>(x, ln_w, ln_b, w1, b1, w2, partial, M,
-                                                  F, steps_per_split, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long pairs = static_cast<long long>(M) * H / 2;
-  const int blocks = static_cast<int>(std::min<long long>((pairs + 255) / 256, 4096));
-  mlp_epilogue_kernel<<<blocks, 256, 0, stream>>>(partial, splits, x, b2, out, M, H);
+  const dim3 grid((M + kTM - 1) / kTM, runs);
+  mlp_fc1_kernel<H><<<grid, kFc1Threads, smem, stream>>>(tx, tw1, ln_w, ln_b, b1, g, M, F,
+                                                 tiles_per_run, eps);
   return cudaGetLastError();
 }
 
@@ -227,47 +405,73 @@ cudaError_t launch_mlp(const bf16* x, const float* ln_w, const float* ln_b,
 
 extern "C" {
 
+
 // x, out: contiguous bf16 (M, H); w1: bf16 (F, H); w2: bf16 (H, F);
-// ln_w, ln_b, b2: f32 (H,); b1: f32 (F,); partial: f32 scratch
-// (splits, M, H). H in {128, 256, ..., 768}, F a multiple of 64; the
-// F / 64 slices are cut into `splits` runs of `steps_per_split`.
+// ln_w, ln_b, b2: f32 (H,); b1: f32 (F,); g: bf16 scratch (M, F);
+// partial: f32 scratch (splits, M, H), unused when splits is 1.
+// H in {128, 256, ..., 768}, F a multiple of 64. fc1 runs over
+// `runs` x `tiles_per_run` F tiles of 128, fc2 over `splits` x
+// `chunks_per_split` chunks of 64 (ops/kernels/mlp.py: mlp_plan).
 // Returns a cudaError_t.
 int istpu_mlp_bf16(const void* x, const void* ln_w, const void* ln_b, const void* w1,
-                   const void* b1, const void* w2, const void* b2, void* partial,
-                   void* out, int M, int H, int F, int splits, int steps_per_split,
-                   float eps, int device, void* stream) {
+                   const void* b1, const void* w2, const void* b2, void* g, void* partial,
+                   void* out, int M, int H, int F, int runs, int tiles_per_run, int splits,
+                   int chunks_per_split, float eps, int device, void* stream) {
+  using namespace istpu;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int steps = F / istpu::kFT;
-  if (M <= 0 || F <= 0 || F % istpu::kFT != 0 || splits <= 0 || steps_per_split <= 0 ||
-      splits * steps_per_split < steps || (splits - 1) * steps_per_split >= steps)
+  const int f_tiles = (F + kTN - 1) / kTN, k_chunks = F / kTK;
+  if (M <= 0 || F <= 0 || F % kTK != 0 || H % kTN != 0 || runs <= 0 || tiles_per_run <= 0 ||
+      (runs - 1) * tiles_per_run >= f_tiles || runs * tiles_per_run < f_tiles ||
+      splits <= 0 || chunks_per_split <= 0 || (splits - 1) * chunks_per_split >= k_chunks ||
+      splits * chunks_per_split < k_chunks || (splits > 1 && partial == nullptr))
     return cudaErrorInvalidValue;
-  using istpu::bf16;
   const auto* xp = static_cast<const bf16*>(x);
   const auto* lw = static_cast<const float*>(ln_w);
   const auto* lb = static_cast<const float*>(ln_b);
-  const auto* w1p = static_cast<const bf16*>(w1);
   const auto* b1p = static_cast<const float*>(b1);
-  const auto* w2p = static_cast<const bf16*>(w2);
   const auto* b2p = static_cast<const float*>(b2);
+  auto* gp = static_cast<bf16*>(g);
   auto* pp = static_cast<float*>(partial);
   auto* op = static_cast<bf16*>(out);
   auto s = static_cast<cudaStream_t>(stream);
+
+  CUtensorMap tx, tw1, tg, tw2;
+  if ((err = matrix_map(&tx, x, M, H, kTM)) != cudaSuccess) return err;
+  if ((err = matrix_map(&tw1, w1, F, H, kTN)) != cudaSuccess) return err;
+  if ((err = matrix_map(&tg, g, M, F, kTM)) != cudaSuccess) return err;
+  if ((err = matrix_map(&tw2, w2, H, F, kTN)) != cudaSuccess) return err;
+
   switch (H) {
-#define ISTPU_MLP_CASE(HH)                                                             \
-  case HH:                                                                             \
-    return istpu::launch_mlp<HH>(xp, lw, lb, w1p, b1p, w2p, b2p, pp, op, M, F, splits, \
-                                 steps_per_split, eps, s);
-    ISTPU_MLP_CASE(128)
-    ISTPU_MLP_CASE(256)
-    ISTPU_MLP_CASE(384)
-    ISTPU_MLP_CASE(512)
-    ISTPU_MLP_CASE(640)
-    ISTPU_MLP_CASE(768)
-#undef ISTPU_MLP_CASE
+#define ISTPU_FC1_CASE(HH)                                                                \
+  case HH:                                                                                \
+    err = launch_fc1<HH>(tx, tw1, lw, lb, b1p, gp, M, F, runs, tiles_per_run, eps, s);   \
+    break;
+    ISTPU_FC1_CASE(128)
+    ISTPU_FC1_CASE(256)
+    ISTPU_FC1_CASE(384)
+    ISTPU_FC1_CASE(512)
+    ISTPU_FC1_CASE(640)
+    ISTPU_FC1_CASE(768)
+#undef ISTPU_FC1_CASE
     default:
       return cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return err;
+
+  constexpr size_t smem2 = fc2_smem_bytes();
+  err = cudaFuncSetAttribute(mlp_fc2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem2));
+  if (err != cudaSuccess) return err;
+  const dim3 grid2((M + kTM - 1) / kTM, H / kTN, splits);
+  mlp_fc2_kernel<<<grid2, 128, smem2, s>>>(tg, tw2, xp, b2p, op, pp, M, H, F,
+                                           chunks_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long pairs = static_cast<long long>(M) * H / 2;
+  const int blocks = static_cast<int>(std::min<long long>((pairs + 255) / 256, 1024));
+  mlp_reduce_kernel<<<blocks, 256, 0, s>>>(pp, splits, xp, b2p, op, M, H);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -8,6 +8,11 @@ so machines without nvcc import every module). The library lands in
 is newer than it (the rule of image_segmentation_tpu/ops/native_codec.py).
 A missing compiler or a failed build raises with the compiler's output:
 there is no fallback for a CUDA tensor.
+
+The TMA tensor maps are encoded on the host by the driver's
+cuTensorMapEncodeTiled, which csrc/hopper.cuh looks up at run time through
+cudaGetDriverEntryPoint: the library links against the CUDA runtime only,
+no -lcuda.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libistpu_kernels.so")
 SOURCES = ("attention.cu", "mlp.cu", "double_conv.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "hopper.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -59,10 +64,11 @@ def _stale() -> bool:
 
 
 def build() -> str:
-    """Compile csrc/*.cu into LIB_PATH; returns nvcc's output (stderr).
-    One nvcc per source runs in parallel, then one links the objects.
-    Writes to a temporary file first, so a concurrent loader never maps
-    a half-written library."""
+    """Compile csrc/*.cu into LIB_PATH; returns nvcc's output (stderr),
+    which holds ptxas's report (-v) of every kernel's registers, shared
+    memory and spills. One nvcc per source runs in parallel, then one
+    links the objects. Writes to a temporary file first, so a concurrent
+    loader never maps a half-written library."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
@@ -70,7 +76,8 @@ def build() -> str:
         procs = [
             (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                    text=True))
-            for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, f)]
+            for cmd in ([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj,
+                         os.path.join(CSRC_DIR, f)]
                         for f, obj in zip(SOURCES, objs))
         ]
         results = [(cmd, p, p.communicate()[1]) for cmd, p in procs]
@@ -91,11 +98,9 @@ def build() -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.istpu_attention_bf16.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
-                                         *([i64] * 9), i32, vp]
+                                         *([i64] * 9), i32, i32, i32, i32, vp]
     lib.istpu_attention_bf16.restype = i32
-    lib.istpu_attention_max_seq.argtypes = [i32, i32]
-    lib.istpu_attention_max_seq.restype = i32
-    lib.istpu_mlp_bf16.argtypes = [vp] * 9 + [i32] * 5 + [f32, i32, vp]
+    lib.istpu_mlp_bf16.argtypes = [vp] * 10 + [i32] * 7 + [f32, i32, vp]
     lib.istpu_mlp_bf16.restype = i32
     lib.istpu_conv3x3_bf16.argtypes = [vp] * 6 + [i32] * 8 + [vp]
     lib.istpu_conv3x3_bf16.restype = i32

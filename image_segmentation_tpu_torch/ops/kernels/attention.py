@@ -14,7 +14,7 @@ On a CUDA tensor it launches the kernel (bf16, D = 64) or raises.
 """
 from __future__ import annotations
 
-import functools
+import dataclasses
 import math
 
 import torch
@@ -26,6 +26,9 @@ from image_segmentation_tpu_torch.ops.kernels import _build
 LAUNCHES = 0
 
 HEAD_DIM = 64
+Q_TILE = 64  # query rows per block (csrc/attention.cu kQTile)
+KEY_CHUNK = 64  # keys per QKᵀ product (kKChunk)
+MAX_SEQ = 256  # keys a block holds in shared memory and registers (4 chunks)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -55,10 +58,30 @@ def _check_cuda_args(q, k, v) -> None:
         raise ValueError(f"the CUDA kernel takes head dim {HEAD_DIM}, got {q.shape[-1]}")
 
 
-@functools.lru_cache(maxsize=None)
-def _max_seq(head_dim: int, device_index: int) -> int:
-    """Longest sequence the kernel's shared-memory plan admits."""
-    return _build.load().istpu_attention_max_seq(head_dim, device_index)
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """How csrc/attention.cu cuts one call: a block per (query tile, head,
+    batch), every block holding all keys padded to `chunks` × KEY_CHUNK
+    (the padding reads as zeros and is masked to -inf). The wrapper passes
+    the grid's query tiles, `chunks` and `smem_bytes` to the C entry
+    point, which launches with them and refuses a plan that does not
+    cover S."""
+
+    grid: tuple
+    chunks: int
+    padded_keys: int
+    smem_bytes: int
+
+
+def attention_plan(b: int, s: int, h: int) -> AttentionPlan:
+    """The cut for (B, S, H, 64); raises past MAX_SEQ tokens."""
+    if not 1 <= s <= MAX_SEQ:
+        raise ValueError(f"the CUDA kernel takes 1 to {MAX_SEQ} tokens, got {s}")
+    chunks = -(-s // KEY_CHUNK)
+    tile_bytes = Q_TILE * HEAD_DIM * 2
+    # 1024 bytes of alignment slack, Q, K and V, two mbarriers
+    smem = 1024 + tile_bytes * (1 + 2 * chunks) + 16
+    return AttentionPlan((-(-s // Q_TILE), h, b), chunks, chunks * KEY_CHUNK, smem)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -69,18 +92,16 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise ValueError(f"fused_attention runs on cpu or cuda, not {q.device}")
     _check_cuda_args(q, k, v)
     b, s, h, d = q.shape
-    lib = _build.load()
-    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    max_seq = _max_seq(d, dev)
-    if s > max_seq:
-        raise ValueError(f"the CUDA kernel takes at most {max_seq} tokens, got {s}")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    plan = attention_plan(b, s, h)  # raises past MAX_SEQ
+    lib = _build.load()
+    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
     rc = lib.istpu_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], dev,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], plan.grid[0], plan.chunks,
+        plan.smem_bytes, dev, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "fused_attention launch")
     global LAUNCHES

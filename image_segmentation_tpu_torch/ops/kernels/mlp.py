@@ -14,7 +14,9 @@ CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
@@ -25,8 +27,9 @@ from image_segmentation_tpu_torch.ops.kernels import _build
 LAUNCHES = 0
 
 HIDDEN_SIZES = (128, 256, 384, 512, 640, 768)
-TOKEN_TILE = 32  # tokens per block (csrc/mlp.cu kTM)
-F_SLICE = 64  # F columns per step (csrc/mlp.cu kFT)
+TOKEN_TILE = 64  # tokens per tile, the M of wgmma (csrc/mlp.cu kTM)
+OUT_TILE = 128  # output columns per tile: fc1's F, fc2's H (kTN)
+K_CHUNK = 64  # reduction columns per pipeline stage (kTK)
 
 
 def mlp_reference(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
@@ -45,10 +48,10 @@ def mlp_reference(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
 def _check_cuda_args(x, ln_w, ln_b, w1, b1, w2, b2) -> None:
     hdim = x.shape[-1]
     fdim = w1.shape[0]
-    if hdim not in HIDDEN_SIZES or fdim % 128:
+    if hdim not in HIDDEN_SIZES or fdim <= 0 or fdim % K_CHUNK:
         raise ValueError(
             f"the CUDA kernel takes H in {HIDDEN_SIZES} and F a multiple of "
-            f"128, got H={hdim} F={fdim}")
+            f"{K_CHUNK}, got H={hdim} F={fdim}")
     shapes = {"ln_w": (hdim,), "ln_b": (hdim,), "w1": (fdim, hdim),
               "b1": (fdim,), "w2": (hdim, fdim), "b2": (hdim,)}
     dtypes = {"x": torch.bfloat16, "w1": torch.bfloat16, "w2": torch.bfloat16,
@@ -72,14 +75,49 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def f_splits(tokens: int, fdim: int, sms: int):
-    """(splits, steps per split) cutting the F / F_SLICE steps so that
-    token tiles × splits comes to about one block per SM."""
-    steps = fdim // F_SLICE
-    tiles = -(-tokens // TOKEN_TILE)
-    want = max(1, min(steps, -(-sms // tiles)))
-    per = -(-steps // want)
-    return -(-steps // per), per
+@dataclasses.dataclass(frozen=True)
+class MlpPlan:
+    """How csrc/mlp.cu cuts one call. fc1: token tiles x `runs` blocks,
+    each over `tiles_per_run` F tiles of OUT_TILE. fc2: token tiles x
+    H / OUT_TILE x `splits` blocks, each over `chunks_per_split` chunks of
+    F of K_CHUNK. Scratch: the bf16 intermediate G, and f32 partials of
+    fc2 when F is split."""
+
+    token_tiles: int
+    runs: int
+    tiles_per_run: int
+    splits: int
+    chunks_per_split: int
+    g_shape: tuple
+    partial_shape: Optional[tuple]
+
+
+def mlp_plan(tokens: int, hdim: int, fdim: int, sms: int) -> MlpPlan:
+    """The cut for `tokens` rows on a card with `sms` SMs.
+
+    fc1 blocks hold their LayerNorm tile resident (one block an SM): the
+    run length is the one with the fewest waves x tiles per block, the
+    longer on a tie (fewer LayerNorm recomputations). fc2 splits F only
+    when its output tiles are too few to cover the SMs, to about two
+    blocks for every three SMs: more splits cost more in f32 partials and
+    their reduction than they gain in parallel loads (a sweep of the
+    split count on an H100 at 197 and 394 tokens)."""
+    tt = -(-tokens // TOKEN_TILE)
+    f_tiles = -(-fdim // OUT_TILE)
+    best = None
+    for per in range(1, f_tiles + 1):
+        runs = -(-f_tiles // per)
+        cost = -(-tt * runs // sms) * per
+        if best is None or cost <= best[0]:
+            best = (cost, per, runs)
+    _, per, runs = best
+    k_chunks = fdim // K_CHUNK
+    out_tiles = tt * (hdim // OUT_TILE)
+    want = max(1, min(k_chunks, -(-2 * sms // (3 * out_tiles))))
+    chunks = -(-k_chunks // want)
+    splits = -(-k_chunks // chunks)
+    return MlpPlan(tt, runs, per, splits, chunks, (tokens, fdim),
+                   (splits, tokens, hdim) if splits > 1 else None)
 
 
 def fused_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
@@ -96,12 +134,15 @@ def fused_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
         return out
     lib = _build.load()
     dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    splits, per = f_splits(m, fdim, _sm_count(dev))
-    partial = torch.empty((splits, m, hdim), dtype=torch.float32, device=x.device)
+    plan = mlp_plan(m, hdim, fdim, _sm_count(dev))
+    g = torch.empty(plan.g_shape, dtype=torch.bfloat16, device=x.device)
+    partial = (None if plan.partial_shape is None else
+               torch.empty(plan.partial_shape, dtype=torch.float32, device=x.device))
     rc = lib.istpu_mlp_bf16(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), m, hdim, fdim, splits, per, float(eps), dev,
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), g.data_ptr(),
+        None if partial is None else partial.data_ptr(), out.data_ptr(), m, hdim, fdim,
+        plan.runs, plan.tiles_per_run, plan.splits, plan.chunks_per_split, float(eps), dev,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "fused_mlp launch")

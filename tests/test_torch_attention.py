@@ -55,3 +55,23 @@ def test_wrapper_rejects_other_devices():
     q = torch.zeros(1, 4, 1, 64, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         K3.fused_attention(q, q, q)
+
+
+@pytest.mark.parametrize("s", [1, 64, 65, 197, 256])
+def test_attention_plan_pads_keys_to_chunks(s):
+    """The CUDA grid of K3: one block per (64-query tile, head, batch)
+    covering every query row once, keys padded to whole 64-key chunks, and
+    shared memory for three blocks an SM at every admitted length."""
+    plan = K3.attention_plan(8, s, 12)
+    assert plan.grid == (-(-s // K3.Q_TILE), 12, 8)
+    assert plan.grid[0] * K3.Q_TILE - s < K3.Q_TILE
+    assert plan.padded_keys == plan.chunks * K3.KEY_CHUNK
+    assert s <= plan.padded_keys < s + K3.KEY_CHUNK
+    assert 3 * plan.smem_bytes <= 232448 - 3 * 1024  # the SM's shared memory, with reserves
+
+
+def test_attention_plan_refuses_past_256():
+    with pytest.raises(ValueError, match="256"):
+        K3.attention_plan(1, 257, 12)
+    with pytest.raises(ValueError, match="256"):
+        K3.attention_plan(1, 0, 12)

@@ -41,8 +41,14 @@ def _close(got, want):
     assert err <= REL_TOL * want.abs().max().item(), err
 
 
-@pytest.mark.parametrize("shape,v_offset", [((1, 197, 12, 64), 0.0), ((8, 197, 12, 64), 0.0),
-                                            ((2, 130, 2, 64), 10.0), ((1, 1, 1, 64), 0.0)])
+# Every sequence-length regime of the kernel's key padding (one key, one
+# whole 64-key chunk, one key past it, ViT-B/16's 197, the longest
+# admitted), at one request and at the BatchingEngine's largest bucket;
+# then S = 130 with V offset by +10, where attention mass leaking onto the
+# padded keys would show.
+@pytest.mark.parametrize("shape,v_offset", [((b, s, 12, 64), 0.0) for b in (1, 8)
+                                            for s in (1, 64, 65, 197, 256)]
+                         + [((2, 130, 2, 64), 10.0)])
 def test_attention_kernel(cuda, shape, v_offset):
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
@@ -53,6 +59,7 @@ def test_attention_kernel(cuda, shape, v_offset):
     torch.cuda.synchronize()
     assert K3.LAUNCHES == before + 1 and got.dtype == torch.bfloat16
     _close(got, K3.attention_reference(q, k, v))
+    assert torch.equal(got, K3.fused_attention(q, k, v))  # no atomics: the same bits
 
 
 def test_attention_kernel_reads_strided_heads(cuda):
@@ -62,6 +69,33 @@ def test_attention_kernel_reads_strided_heads(cuda):
     q, k, v = (t.view(2, 197, 12, 64) for t in qkv.split(12 * 64, dim=-1))
     assert not q.is_contiguous()
     _close(K3.fused_attention(q, k, v), K3.attention_reference(q, k, v))
+
+
+def test_attention_refuses_past_256_tokens(cuda):
+    q = torch.randn(1, 257, 2, 64, device=cuda).bfloat16()
+    before = K3.LAUNCHES
+    with pytest.raises(ValueError, match="256"):
+        K3.fused_attention(q, q, q)
+    assert K3.LAUNCHES == before
+
+
+def test_attention_launches_the_plan_it_is_given(cuda, monkeypatch):
+    """The C entry point cuts the call as attention_plan says: a plan with
+    more key chunks than S needs still gives the same result (the extra
+    keys are masked), one that leaves keys or queries out is refused."""
+    q, k, v = (torch.randn(1, 130, 2, 64, device=cuda).bfloat16() for _ in range(3))
+    want = K3.fused_attention(q, k, v)
+    plan = K3.attention_plan(1, 130, 2)
+    wider = K3.attention_plan(1, 256, 2)
+    monkeypatch.setattr(K3, "attention_plan", lambda *a: dataclasses.replace(
+        plan, chunks=wider.chunks, smem_bytes=wider.smem_bytes))
+    torch.testing.assert_close(K3.fused_attention(q, k, v), want, rtol=0, atol=0)
+    for short in (dataclasses.replace(plan, chunks=plan.chunks - 1),
+                  dataclasses.replace(plan, grid=(plan.grid[0] - 1, *plan.grid[1:])),
+                  dataclasses.replace(plan, smem_bytes=plan.smem_bytes - 1024)):
+        monkeypatch.setattr(K3, "attention_plan", lambda *a, _p=short: _p)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            K3.fused_attention(q, k, v)
 
 
 def test_attention_refuses_what_the_kernel_does_not_take(cuda):
@@ -81,8 +115,11 @@ def _mlp_args(m, h, f, device, seed=0):
             (0.03 * rnd(h, f)).bfloat16(), 0.1 * rnd(h), 1e-5)
 
 
-@pytest.mark.parametrize("m,h,f", [(197, 768, 3072), (1576, 768, 3072), (333, 768, 3072),
-                                   (131, 128, 256), (1, 640, 128), (1, 768, 3072)])
+# Token counts around the 64-token tile (1, 63, 64, 65), one request (197),
+# the BatchingEngine's largest bucket (1576) and four times that; then
+# narrower widths, and an F that is a multiple of 64 but not of 128.
+@pytest.mark.parametrize("m,h,f", [(m, 768, 3072) for m in (1, 63, 64, 65, 197, 1576, 6304)]
+                         + [(333, 768, 3072), (131, 128, 256), (1, 640, 128), (65, 256, 192)])
 def test_mlp_kernel(cuda, m, h, f):
     args = _mlp_args(m, h, f, cuda)
     before = K4.LAUNCHES
@@ -90,6 +127,7 @@ def test_mlp_kernel(cuda, m, h, f):
     torch.cuda.synchronize()
     assert K4.LAUNCHES == before + 1 and got.dtype == torch.bfloat16
     _close(got, K4.mlp_reference(*args))
+    assert torch.equal(got, K4.fused_mlp(*args))  # splits reduced in order: the same bits
 
 
 def test_mlp_refuses_what_the_kernel_does_not_take(cuda):

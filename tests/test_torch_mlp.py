@@ -90,15 +90,41 @@ def test_wrapper_rejects_other_devices():
         K4.fused_mlp(*args)
 
 
-@pytest.mark.parametrize("tokens,fdim", [(1, 3072), (197, 3072), (333, 3072),
-                                         (1576, 3072), (6304, 3072), (131, 256)])
-def test_f_splits_cover_f_once(tokens, fdim):
-    """The CUDA grid's F splits: every F slice in exactly one split, no
-    empty split, and about one block per SM when tokens are few."""
-    splits, per = K4.f_splits(tokens, fdim, sms=132)
-    steps = fdim // K4.F_SLICE
-    assert (splits - 1) * per < steps <= splits * per
-    tiles = -(-tokens // K4.TOKEN_TILE)
-    assert tiles * splits < 132 + tiles
-    if tiles >= 132:
-        assert splits == 1
+@pytest.mark.parametrize("tokens,hdim,fdim", [
+    (1, 768, 3072), (197, 768, 3072), (333, 768, 3072), (1576, 768, 3072),
+    (6304, 768, 3072), (131, 128, 256), (63, 128, 192), (65, 640, 128), (788, 640, 3072)])
+def test_mlp_plan_covers_every_tile_and_split_once(tokens, hdim, fdim):
+    """The CUDA grids of K4: every (token tile, F tile) of fc1 in exactly
+    one block, every (token tile, H tile) of fc2 once per split, every
+    64-wide chunk of F in exactly one split, no empty run or split, and
+    the scratch shapes the kernels index."""
+    sms = 132
+    plan = K4.mlp_plan(tokens, hdim, fdim, sms)
+    tt = -(-tokens // K4.TOKEN_TILE)
+    assert plan.token_tiles == tt
+    f_tiles = -(-fdim // K4.OUT_TILE)
+    fc1 = [(t, plan.tiles_per_run * r + i) for t in range(tt) for r in range(plan.runs)
+           for i in range(plan.tiles_per_run) if plan.tiles_per_run * r + i < f_tiles]
+    assert sorted(fc1) == [(t, f) for t in range(tt) for f in range(f_tiles)]
+    assert all(plan.tiles_per_run * r < f_tiles for r in range(plan.runs))
+    k_chunks = fdim // K4.K_CHUNK
+    chunks = [plan.chunks_per_split * s + i for s in range(plan.splits)
+              for i in range(plan.chunks_per_split) if plan.chunks_per_split * s + i < k_chunks]
+    assert chunks == list(range(k_chunks))
+    assert all(plan.chunks_per_split * s < k_chunks for s in range(plan.splits))
+    assert plan.g_shape == (tokens, fdim)
+    assert plan.partial_shape == ((plan.splits, tokens, hdim) if plan.splits > 1 else None)
+    out_tiles = tt * hdim // K4.OUT_TILE
+    if out_tiles >= sms:
+        assert plan.splits == 1  # enough output tiles: no partials
+    else:
+        assert out_tiles * plan.splits <= 2 * sms  # fc2 blocks fit two an SM, one wave
+
+
+def test_mlp_plan_fc1_fits_one_wave_where_it_can():
+    """fc1 holds one block an SM: at one request every block takes one F
+    tile; at a batch of 8 the runs are cut so the grid fits one wave."""
+    one = K4.mlp_plan(197, 768, 3072, 132)
+    assert one.tiles_per_run == 1 and one.token_tiles * one.runs <= 132
+    eight = K4.mlp_plan(1576, 768, 3072, 132)
+    assert eight.token_tiles * eight.runs <= 132
