@@ -15,6 +15,7 @@ The no-skip and decoder-only variants come later.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -78,7 +79,11 @@ class ClipUNet(nn.Module):
     """forward(x (N, S, S, 3) float in [0, 1]) → logits (N, S, S, classes) f32.
 
     `dtype` is the compute dtype (parameters stay float32); `use_kernels`
-    routes the ViT through K3/K4 (see clip_vit.py)."""
+    routes the ViT through K3/K4 (see clip_vit.py). With `freeze_encoder`
+    (the JAX default, clip_unet.py:141-143, where the bottleneck and every
+    skip go through stop_gradient) the ViT runs under `torch.no_grad()`:
+    its outputs carry no gradient, it records no graph, and K3/K4, which
+    have no backward, stay usable in a train step."""
 
     def __init__(
         self,
@@ -88,10 +93,12 @@ class ClipUNet(nn.Module):
         vit: ClipViTConfig = ClipViTConfig(),
         dtype: torch.dtype = torch.float32,
         use_kernels: bool = False,
+        freeze_encoder: bool = True,
     ):
         super().__init__()
         self.vit = vit
         self.dtype = dtype
+        self.freeze_encoder = freeze_encoder
         self.skip_indices = tuple(sorted(skip_indices))
         ch = list(decoder_channels)
         # zip(blocks, reversed(skips)) truncates, as in the reference
@@ -104,7 +111,8 @@ class ClipUNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g = self.vit.grid_size
-        last, hidden = self.vision_model(x.to(self.dtype))
+        with torch.no_grad() if self.freeze_encoder else contextlib.nullcontext():
+            last, hidden = self.vision_model(x.to(self.dtype))
         grid = lambda t: tokens_to_grid(t, g).permute(0, 3, 1, 2)  # channels_last NCHW
         skips = [grid(hidden[i]) for i in self.skip_indices]
         y = conv1x1(grid(last), self.init_conv)

@@ -1,4 +1,4 @@
-"""Prompt-based interactive segmentation model, eval-mode forward.
+"""Prompt-based interactive segmentation model.
 
 Counterpart of image_segmentation_tpu/models/prompt.py (PromptModel,
 :34-85; reference prompt_based/prompt.py:6-56). Two branches:
@@ -14,12 +14,22 @@ The output is a 4-channel PROBABILITY map (not logits), NHWC float32:
   ch2 cat           = mask·p(cat)
   ch3 dog           = mask·p(dog)
 The softmax, the sigmoid and this channel algebra run in float32 whatever
-the branches' compute dtype. `head` is everything after the clip branch,
-so the serving engine can run the clip branch once per image and the head
-once per click (`InferenceEngine.register_prompt_composed`).
+the branches' compute dtype.
+
+Freezing follows the JAX model (prompt.py:36,46-68): the clip branch is
+always built with `freeze_encoder=True`, so its ViT never trains; with
+`freeze_clip` (the default) the whole branch runs under `torch.no_grad()`
+and its logits carry no gradient (JAX's stop_gradient). It runs in the
+caller's mode either way, so in training its decoder BatchNorms use batch
+statistics and update their running ones, as JAX's `train` flag does.
+
+`head` is everything after the clip branch, so the serving engine can run
+the clip branch once per image and the head once per click
+(`InferenceEngine.register_prompt_composed`).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -43,12 +53,14 @@ class PromptModel(nn.Module):
         unet_base: int = 64,
         dtype: torch.dtype = torch.float32,
         use_kernels: bool = False,
+        freeze_clip: bool = True,
     ):
         super().__init__()
         self.dtype = dtype
+        self.freeze_clip = freeze_clip
         self.clip = ClipUNet(num_classes=num_classes, decoder_channels=decoder_channels,
                              skip_indices=skip_indices, vit=vit, dtype=dtype,
-                             use_kernels=use_kernels)
+                             use_kernels=use_kernels, freeze_encoder=True)
         self.mask = UNet(num_classes=1, base=unet_base, dtype=dtype,
                          use_kernels=use_kernels, in_channels=4)
 
@@ -65,7 +77,9 @@ class PromptModel(nn.Module):
                           selected[..., 1:3]], dim=-1)
 
     def forward(self, x: torch.Tensor, heatmap: torch.Tensor) -> torch.Tensor:
-        return self.head(x, heatmap, self.clip(x))
+        with torch.no_grad() if self.freeze_clip else contextlib.nullcontext():
+            clip_logits = self.clip(x)
+        return self.head(x, heatmap, clip_logits)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "PromptModel":

@@ -7,7 +7,9 @@ so machines without nvcc import every module). The library lands in
 `build/torch_kernels/` beside the package and is rebuilt when a source
 is newer than it (the rule of image_segmentation_tpu/ops/native_codec.py).
 A missing compiler or a failed build raises with the compiler's output:
-there is no fallback for a CUDA tensor.
+there is no fallback for a CUDA tensor. Nor does a wrapper drop a
+gradient: the kernels have no backward, so `refuse_grad` raises when one
+would be asked for.
 
 The TMA tensor maps are encoded on the host by the driver's
 cuTensorMapEncodeTiled, which csrc/hopper.cuh looks up at run time through
@@ -23,6 +25,8 @@ import subprocess
 import tempfile
 import threading
 from typing import Optional
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -102,7 +106,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.istpu_attention_bf16.restype = i32
     lib.istpu_mlp_bf16.argtypes = [vp] * 10 + [i32] * 7 + [f32, i32, vp]
     lib.istpu_mlp_bf16.restype = i32
-    lib.istpu_conv3x3_bf16.argtypes = [vp] * 6 + [i32] * 8 + [vp]
+    lib.istpu_conv3x3_bf16.argtypes = [vp] * 7 + [i32] * 10 + [vp]
     lib.istpu_conv3x3_bf16.restype = i32
     lib.istpu_error_string.argtypes = [i32]
     lib.istpu_error_string.restype = ctypes.c_char_p
@@ -119,6 +123,15 @@ def load() -> ctypes.CDLL:
             _declare(lib)
             _lib = lib
         return _lib
+
+
+def refuse_grad(op: str, *tensors) -> None:
+    """Raise if a kernel without a backward would drop a gradient: grad
+    mode is on and an argument requires grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{op}: the CUDA kernel has no backward, and an argument requires grad; run "
+            f"it under torch.no_grad() or torch.inference_mode(), or on a frozen module")
 
 
 def check(rc: int, what: str) -> None:

@@ -10,7 +10,9 @@ plain PyTorch with the kernel's cast points:
   probabilities cast to v's dtype;  P·V accumulated in f32;  out in q's dtype.
 
 `fused_attention` takes the plain version only for tensors on the CPU.
-On a CUDA tensor it launches the kernel (bf16, D = 64) or raises.
+On a CUDA tensor it launches the kernel (bf16, D = 64) or raises; the
+kernel has no backward, so under grad mode an argument that requires
+grad is refused.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ def _check_cuda_args(q, k, v) -> None:
                 f"and strides that are multiples of 8; got strides {t.stride()}")
     if q.shape[-1] != HEAD_DIM:
         raise ValueError(f"the CUDA kernel takes head dim {HEAD_DIM}, got {q.shape[-1]}")
+    _build.refuse_grad("fused_attention", q, k, v)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,10 +4,12 @@ Counterpart of image_segmentation_tpu/ops/pallas/blocks.py:
   down block = 2×2 max pool → fused double conv;
   up block   = 2×2 stride-2 transpose conv + bias → concat [skip, up] →
                fused double conv.
-As in the JAX package, the pre-stages are not in the kernel: the pool,
-the transpose conv and the concat are torch ops, and the double conv is
-K1 (`double_conv.fused_double_conv`), which counts the launches. The
-concat puts the skip FIRST (blocks.py:71, reference unet/unet.py:63).
+The pool and the transpose conv are torch ops, as the JAX package leaves
+them to XLA, and the double conv is K1, which counts the launches. The
+up block's concat is not a torch op on a card: `fused_double_conv_cat`
+reads the skip's channels and then the up's in K1's load stage, skip
+FIRST (blocks.py:71, reference unet/unet.py:63); on the CPU its plain
+version concatenates.
 
 Transpose-conv weights are in torch's ConvTranspose2d layout
 (Cin, Cout, 2, 2), already flipped from flax's by models/convert.py.
@@ -17,7 +19,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from image_segmentation_tpu_torch.ops.kernels.double_conv import fused_double_conv
+from image_segmentation_tpu_torch.ops.kernels.double_conv import (
+    fused_double_conv,
+    fused_double_conv_cat,
+)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -47,8 +52,7 @@ def fused_down_block(x, w1, scale1, bias1, w2, scale2, bias2) -> torch.Tensor:
 
 def fused_up_block(skip, x, up_weight, up_bias, w1, scale1, bias1, w2, scale2,
                    bias2) -> torch.Tensor:
-    """transpose conv ×2 (halving channels), concat [skip, up], fused double
-    conv (reference Up block)."""
+    """transpose conv ×2 (halving channels), then the fused double conv of
+    concat [skip, up] (reference Up block)."""
     up = transpose_conv_2x2(x, up_weight, up_bias)
-    return fused_double_conv(torch.cat([skip, up], dim=-1), w1, scale1, bias1,
-                             w2, scale2, bias2)
+    return fused_double_conv_cat(skip, up, w1, scale1, bias1, w2, scale2, bias2)

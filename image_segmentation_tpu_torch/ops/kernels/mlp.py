@@ -10,7 +10,8 @@ f32 accumulation + f32 bias → cast → residual add in x's dtype.
 
 Weights use the nn.Linear layout: w1 is (F, H), w2 is (H, F).
 `fused_mlp` takes the plain version only for tensors on the CPU. On a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises; the kernel has no backward,
+so under grad mode an argument that requires grad is refused.
 """
 from __future__ import annotations
 
@@ -68,6 +69,7 @@ def _check_cuda_args(x, ln_w, ln_b, w1, b1, w2, b2) -> None:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    _build.refuse_grad("fused_mlp", *args.values())
 
 
 @functools.lru_cache(maxsize=None)

@@ -113,8 +113,9 @@ def register_families(eng: InferenceEngine, families) -> None:
             eng.register(name, model, tsize)
 
 
-def build_demo_engine(device="cpu", seed: int = 0) -> InferenceEngine:
-    """A registry of the four random-weight, reduced-width families."""
+def build_demo_engine(device="cuda", seed: int = 0) -> InferenceEngine:
+    """A registry of the four random-weight, reduced-width families, on the
+    card unless `device` says otherwise."""
     eng = InferenceEngine(device=device)
     register_families(eng, demo_model_specs(device, seed))
     return eng

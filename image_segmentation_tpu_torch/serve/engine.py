@@ -19,8 +19,9 @@ On CUDA the engine owns one compute stream: every dispatch runs on it,
 whatever thread calls it, so weights, activations and cached prompt
 scores all live on one stream. Inputs cross from pinned memory with
 `non_blocking` copies on that stream; a fetch copies into pinned memory
-on a copy stream that waits on the forward's event. On the CPU the same
-code runs without streams, on the device the caller chose.
+on a copy stream that waits on the forward's event. The engine serves on
+the card unless built with device="cpu", where the same code runs
+without streams.
 
 Single-device only; the mesh and AOT artifacts come with later slices.
 """
@@ -137,8 +138,14 @@ class ModelEntry:
 
 
 class InferenceEngine:
-    def __init__(self, device="cpu", fast_transfer: bool = True):
+    """Serves on `device`, the card unless the caller asks for the CPU;
+    without a card the default raises rather than falling back."""
+
+    def __init__(self, device="cuda", fast_transfer: bool = True):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"InferenceEngine(device={str(self.device)!r}): no CUDA device "
+                               f"is available (pass device='cpu' to serve on the CPU)")
         self.fast_transfer = fast_transfer
         self.models: Dict[str, ModelEntry] = {}
         cuda = self.device.type == "cuda"

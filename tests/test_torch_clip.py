@@ -115,3 +115,52 @@ def test_init_is_seeded_and_uses_jax_distributions():
     conv = a["dec.0.conv1.conv.weight"]  # fan_in 3·3·32
     bound = (6 / (9 * 32)) ** 0.5
     assert conv.abs().max().item() <= bound and conv.abs().max().item() > 0.9 * bound
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def test_frozen_clip_unet_train_step_matches_jax_grad():
+    """One `train_step` of ClipUNet(freeze_encoder=True), the default, in
+    train mode on the CPU (the ViT through K3/K4's plain versions): every
+    `vision_model` parameter's .grad stays None, and every decoder gradient
+    matches jax.grad of the JAX ClipUNet(freeze_encoder=True) on the same
+    weights and batch (BatchNorm on batch statistics, Dice + CE), f32,
+    relative L2 error ≤ 1e-4 per tensor (the same sums in another order,
+    through four train-mode BNs)."""
+    from image_segmentation_tpu.losses import DiceCELoss as JaxDiceCE
+    from image_segmentation_tpu_torch.losses import DiceCELoss
+    from image_segmentation_tpu_torch.train.state import TrainState, make_adamw
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    model, variables = _jax_clip_unet_variables()
+    x = _pixels()
+    y = np.random.default_rng(5).integers(0, 4, (2, 32, 32)).astype(np.int32)
+
+    def loss(params):
+        out, _ = model.apply({"params": params, "batch_stats": variables["batch_stats"]},
+                             jnp.asarray(x), train=True, mutable=["batch_stats"])
+        return JaxDiceCE(smooth_dice=1.0)(out, jnp.asarray(y))
+
+    jgrad = jax.grad(loss)(variables["params"])
+    assert all(not np.any(np.asarray(g)) for g in jax.tree_util.tree_leaves(jgrad["encoder"]))
+    want = {k: v.numpy() for k, v in from_jax_variables(
+        {"params": jax.tree_util.tree_map(np.asarray, jgrad),
+         "batch_stats": variables["batch_stats"]}).items()}
+
+    port = ClipUNet(vit=ClipViTConfig(**VIT), use_kernels=True, **UNET)
+    assert port.freeze_encoder
+    port.load_state_dict(from_jax_variables(variables), strict=True)
+    port = port.to(memory_format=torch.channels_last)
+    st = TrainState(port, *make_adamw(port.parameters(), learning_rate=1e-3))
+    train_step(st, DiceCELoss(smooth_dice=1.0), torch.from_numpy(x), torch.from_numpy(y).long())
+    decoder = 0
+    for name, p in port.named_parameters():
+        if name.startswith("vision_model."):
+            assert p.grad is None, name
+            continue
+        decoder += 1
+        assert _rel(p.grad.numpy(), want[name]) <= 1e-4, (name, _rel(p.grad.numpy(), want[name]))
+    assert decoder == len([k for k in want if not k.startswith("vision_model.")
+                           and "running" not in k])

@@ -191,6 +191,75 @@ def test_double_conv_kernel(cuda, xshape, c, bias1_offset):
     assert K1.LAUNCHES == before + 1 and got.dtype == torch.bfloat16
     assert got.shape == xshape[:3] + (c,)
     _close(got, K1.double_conv_reference(*args))
+    assert torch.equal(got, K1.fused_double_conv(*args))  # split-K summed in order: same bits
+
+
+# The up block's double conv with the concat in the load stage: the
+# 256² level of UNet-64, the 32² one, and channel counts that are not
+# multiples of the 64-channel K step on a ragged image.
+@pytest.mark.parametrize("nhw,skip_c,up_c,c", [((1, 256, 256), 64, 64, 64),
+                                               ((1, 32, 32), 512, 512, 512),
+                                               ((2, 37, 45), 24, 48, 72)])
+def test_double_conv_concat_entry(cuda, nhw, skip_c, up_c, c):
+    x, *w = _k1_args(nhw + (skip_c + up_c,), c, 1.0, cuda)
+    skip, up = x[..., :skip_c].contiguous(), x[..., skip_c:].contiguous()
+    before = K1.LAUNCHES
+    got = K1.fused_double_conv_cat(skip, up, *w)
+    torch.cuda.synchronize()
+    assert K1.LAUNCHES == before + 1 and got.shape == nhw + (c,)
+    _close(got, K1.double_conv_cat_reference(skip, up, *w))
+    assert torch.equal(got, K1.fused_double_conv_cat(skip, up, *w))
+
+
+def test_kernels_refuse_inputs_that_require_grad(cuda):
+    """No kernel has a backward: under grad mode an argument that requires
+    grad raises (no silent drop of the gradient); under no_grad it runs."""
+    q = torch.randn(1, 8, 2, 64, device=cuda).bfloat16().requires_grad_()
+    mlp = list(_mlp_args(4, 128, 256, cuda))
+    mlp[3] = mlp[3].requires_grad_()
+    dc = list(_k1_args((1, 8, 8, 16), 16, 0.0, cuda))
+    dc[1] = dc[1].requires_grad_()
+    calls = [lambda: K3.fused_attention(q, q.detach(), q.detach()),
+             lambda: K4.fused_mlp(*mlp), lambda: K1.fused_double_conv(*dc),
+             lambda: K1.fused_double_conv_cat(dc[0][..., :8].contiguous(),
+                                              dc[0][..., 8:].contiguous(), *dc[1:])]
+    counts = (K3.LAUNCHES, K4.LAUNCHES, K1.LAUNCHES)
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+    assert (K3.LAUNCHES, K4.LAUNCHES, K1.LAUNCHES) == counts
+    with torch.no_grad():
+        for call in calls:
+            call()
+    assert (K3.LAUNCHES, K4.LAUNCHES, K1.LAUNCHES) == (counts[0] + 1, counts[1] + 1,
+                                                       counts[2] + 2)
+
+
+def test_frozen_clip_unet_trains_on_the_card(cuda):
+    """A reduced ClipUNet built as the config builds it on CUDA (bf16, K3
+    and K4 on, encoder frozen) takes one train step: its ViT runs the
+    kernels under no_grad (one launch of each a block) and gets no .grad,
+    and every decoder parameter gets a finite one."""
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.serve.app import DEMO_VIT
+    from image_segmentation_tpu_torch.train.state import TrainState
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    kw = dict(vit=DEMO_VIT, skip_indices=(0, 1, 2, 3), decoder_channels=(64, 32, 16, 8, 8))
+    model = C.build_model(C.CLIPUNET, cuda, torch.Generator().manual_seed(0), **kw)
+    st = TrainState(model, *C.build_optimizer(C.CLIPUNET, model))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand(2, 64, 64, 3, generator=g, device=cuda)
+    y = torch.randint(0, 4, (2, 64, 64), generator=g, device=cuda)
+    a, m = K3.LAUNCHES, K4.LAUNCHES
+    loss = train_step(st, C.build_loss(C.CLIPUNET), x, y)
+    assert torch.isfinite(loss)
+    assert (K3.LAUNCHES - a, K4.LAUNCHES - m) == (DEMO_VIT.num_layers,) * 2
+    for n, p in model.named_parameters():
+        if n.startswith("vision_model."):
+            assert p.grad is None, n
+        else:
+            assert p.grad is not None and torch.isfinite(p.grad).all(), n
 
 
 def test_double_conv_refuses_what_the_kernel_does_not_take(cuda):

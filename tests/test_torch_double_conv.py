@@ -159,18 +159,57 @@ def test_up_block_matches_jax_with_skip_first():
                                      (16, 1024, 1024), (32, 1024, 512), (64, 512, 256),
                                      (128, 256, 128), (256, 128, 64), (4, 64, 128)])
 def test_k_splits_cover_every_chunk(h, cin, c):
-    """The split-K plan at the UNet-64 and demo levels on 132 SMs: every
-    Cin chunk in exactly one split, no empty split, at least 4 chunks a
-    split, and a split only where the tiles leave SMs idle."""
+    """`conv_plan`, the cut of one conv, at the UNet-64 and demo levels on
+    132 SMs: every K step (chunk, dx) in exactly one split, no empty split,
+    at least MIN_STEPS_PER_SPLIT steps a split; no split where the tiles
+    fill the SMs; where they do not, the split count whose slowest block
+    runs the fewest steps (rounds over the SMs × steps a split, + 1 for the
+    reduction), which at these levels keeps every tile × split in one
+    round; one persistent block an SM at most."""
     cin = -(-cin // 8) * 8  # the wrapper pads the stem to 8 channels
-    splits, per = D.k_splits(1, h, h, cin, c, 132)
-    chunks = -(-cin // D.CHUNK)
-    assert (splits - 1) * per < chunks <= splits * per
-    blocks = -(-h // D.TILE_H) * -(-h // D.TILE_W) * -(-c // D.CO_BLOCK)
-    if blocks >= 132 or chunks < 2 * D.MIN_CHUNKS_PER_SPLIT:
-        assert splits == 1
-    else:
-        assert splits > 1 and per >= D.MIN_CHUNKS_PER_SPLIT
+    plan = D.conv_plan(1, h, h, cin, c, 132)
+    assert plan.steps == 3 * -(-cin // D.CHUNK)
+    assert (plan.splits - 1) * plan.per_split < plan.steps <= plan.splits * plan.per_split
+    tiles = -(-h // D.TILE_H) * -(-h // D.TILE_W) * -(-c // D.CO_TILE)
+    assert plan.blocks == min(132, tiles * plan.splits)
+    if tiles >= 132:
+        assert plan.splits == 1
+        return
+    cost = lambda s, per: -(-tiles * s // 132) * per + (s > 1)  # noqa: E731
+    chosen = cost(plan.splits, plan.per_split)
+    for want in range(1, plan.steps // D.MIN_STEPS_PER_SPLIT + 1):
+        per = -(-plan.steps // want)
+        assert chosen <= cost(-(-plan.steps // per), per)
+    if plan.splits > 1:
+        assert plan.per_split >= D.MIN_STEPS_PER_SPLIT and tiles * plan.splits <= 132
+
+
+def test_concat_entry_matches_jax_up_block_with_skip_first():
+    """`fused_double_conv_cat(skip, up)`, the up block's double conv with
+    the concat in the load stage, against the JAX `fused_up_block` in
+    interpret mode (transpose conv, then concat [skip, up], then the Pallas
+    double conv), f32, atol 1e-5; channel counts that are not multiples of
+    64 (24 + 16). Given [up, skip] instead it gives another answer."""
+    rng = np.random.default_rng(7)
+    skip = rng.normal(size=(2, 16, 24, 24)).astype(np.float32)
+    x = rng.normal(size=(2, 8, 12, 32)).astype(np.float32)
+    up_k = (rng.normal(size=(2, 2, 32, 16)) * 0.1).astype(np.float32)
+    up_b = (rng.normal(size=16) * 0.1).astype(np.float32)
+    _, w1, s1, b1, w2, s2, b2 = _args(cin=40, c=8, seed=8, bias1_offset=0.5)
+    dc = [w1, s1, b1, w2, s2, b2]
+    want = np.asarray(JB.fused_up_block(jnp.asarray(skip), jnp.asarray(x), jnp.asarray(up_k),
+                                        jnp.asarray(up_b), *map(jnp.asarray, dc), strip=8,
+                                        interpret=True))
+    tw = _conv_transpose({"kernel": up_k, "bias": up_b})
+    t = torch.from_numpy
+    up = B.transpose_conv_2x2(t(x), tw["weight"], tw["bias"])
+    got = D.fused_double_conv_cat(t(skip), up, *map(t, dc))
+    assert got.shape == (2, 16, 24, 8)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL_F32)
+    plain = D.double_conv_cat_reference(t(skip), up, *map(t, dc))
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+    swapped = D.fused_double_conv_cat(up, t(skip), *map(t, dc))
+    assert np.abs(swapped.numpy() - want).max() > 100 * ATOL_F32
 
 
 def test_wrapper_refuses_other_devices():

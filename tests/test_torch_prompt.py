@@ -234,3 +234,77 @@ def test_convert_refuses_an_unknown_tree():
         from_jax_variables({"params": {"Dense_0": {"kernel": np.zeros((2, 2))}}})
     with pytest.raises(ValueError, match="unknown JAX variables tree"):
         from_jax_variables({"params": {"encoder": {"Dense_0": {}}}})
+
+
+class _Joined(torch.nn.Module):
+    """The prompt model as a one-input module, for `train_step`: image and
+    heatmap concatenated along channels."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, xh):
+        return self.model(xh[..., :3], xh[..., 3:])
+
+
+def test_frozen_prompt_model_train_step_matches_jax_grad():
+    """One `train_step` of PromptModel(freeze_clip=True), the default, in
+    train mode on the CPU: no parameter of the clip branch gets a .grad,
+    and every parameter of the `mask` selection UNet gets the gradient of
+    jax.grad of the JAX PromptModel (freeze_clip=True) on the same weights
+    and batch, Dice + NLL on the probabilities. Both run the clip branch
+    with batch statistics (JAX passes `train` to it), so the mask gradient
+    sees the same clip probabilities. f32; relative L2 error per tensor
+    ≤ 1e-4, but:
+      * ≤ 2e-2 in the two shallowest levels (down1, down2), where JAX's own
+        f32 gradient lies 0.5-0.9% from its f64 gradient (flax's BatchNorm
+        backward cancels there, on these inputs), while the port's f32
+        gradient lies within 3e-5 of its own f64 one;
+      * the conv biases that feed a train-mode BatchNorm have exact
+        gradient 0: both sides' are rounding noise below 1e-6."""
+    from image_segmentation_tpu.losses import DiceNLLLoss as JaxDiceNLL
+    from image_segmentation_tpu_torch.losses import DiceNLLLoss
+    from image_segmentation_tpu_torch.train.state import TrainState, make_adamw
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    model = JaxPromptModel(vit=JaxViTConfig(**VIT), unet_base=8, **CLIP)
+    v = model.init(jax.random.PRNGKey(2), jnp.zeros((1, 64, 64, 3)), jnp.zeros((1, 64, 64, 1)))
+    v = _perturbed(v, 2)
+    x, hm = _inputs(seed=4)
+    y = np.random.default_rng(4).integers(0, 4, (2, 64, 64)).astype(np.int32)
+
+    def loss(params):
+        out, _ = model.apply({"params": params, "batch_stats": v["batch_stats"]},
+                             jnp.asarray(x), jnp.asarray(hm), train=True,
+                             mutable=["batch_stats"])
+        return JaxDiceNLL(smooth_dice=1.0)(out, jnp.asarray(y))
+
+    jgrad = jax.grad(loss)(v["params"])
+    assert all(not np.any(np.asarray(g)) for g in jax.tree_util.tree_leaves(jgrad["clip"]))
+    want = {k: t.numpy() for k, t in from_jax_variables(
+        {"params": jax.tree_util.tree_map(np.asarray, jgrad),
+         "batch_stats": v["batch_stats"]}).items()}
+
+    port = PromptModel(vit=ClipViTConfig(**VIT), unet_base=8, **CLIP)
+    assert port.freeze_clip and port.clip.freeze_encoder
+    port.load_state_dict(from_jax_variables(v), strict=True)
+    port = port.to(memory_format=torch.channels_last)
+    joined = _Joined(port)
+    st = TrainState(joined, *make_adamw(joined.parameters(), learning_rate=1e-3))
+    xh = torch.from_numpy(np.concatenate([x, hm], axis=-1))
+    train_step(st, DiceNLLLoss(smooth_dice=1.0), xh, torch.from_numpy(y).long())
+    mask = 0
+    for name, p in port.named_parameters():
+        if name.startswith("clip."):
+            assert p.grad is None, name
+            continue
+        mask += 1
+        g = p.grad.numpy()
+        if name.endswith(("conv1.conv.bias", "conv2.conv.bias")):
+            assert np.abs(g).max() <= 1e-6 and np.abs(want[name]).max() <= 1e-6, name
+            continue
+        rel = float(np.linalg.norm(g - want[name]) / np.linalg.norm(want[name]))
+        tol = 2e-2 if name.startswith(("mask.down1.", "mask.down2.")) else 1e-4
+        assert rel <= tol, (name, rel)
+    assert mask == sum(1 for k in want if k.startswith("mask.") and "running" not in k)

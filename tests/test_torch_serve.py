@@ -280,6 +280,20 @@ def test_main_without_cuda_exits_non_zero(monkeypatch):
         assert e.value.code not in (0, None) and "--device cpu" in str(e.value.code)
 
 
+@pytest.mark.parametrize("build", [lambda: port_engine.InferenceEngine(),
+                                   lambda: app.build_demo_engine()],
+                         ids=["InferenceEngine", "build_demo_engine"])
+def test_engine_defaults_to_the_card(build):
+    """With no device argument the engine serves on CUDA; on a machine
+    without a card it raises and says how to choose the CPU, rather than
+    serving there quietly."""
+    if torch.cuda.is_available():
+        assert build().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
+        build()
+
+
 def test_main_on_the_cpu_builds_a_warm_batching_engine(monkeypatch):
     """--device cpu --max-batch 2: the four families behind a warmed-up
     BatchingEngine, handed to the HTTP handler."""
