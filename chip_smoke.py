@@ -63,9 +63,20 @@ Phases (each prints its lines; any failure ends the run non-zero):
      (loss, gradient cosines, running statistics); the trained state's
      eval through K1 against the module path; the train step's
      images/s, device busy share and peak memory;
-  9. the last line is {"ok": true, "device": {...}}.
+  9. training (unet_aug): `run.main` fits the full-width UNet for 2
+     epochs on 128 synthetic images with online augmentation (K1 in
+     every eval epoch; about half the rows of each step batch changed),
+     then 1 epoch of `--offline-aug` on 16 items; the step with and
+     without augmentation in turns, the augmentation call's own ms, and
+     its device ms on a 64-row batch by augmenter (torch.profiler);
+ 10. training (the two-stage autoencoder, base 64, 256 px): `recon_ae`
+     for 2 epochs, then `autoencoder --pretrained-encoder` for 2; the
+     encoder equals the recon checkpoint's after the transfer and its
+     parameters are unchanged after the frozen stage 2; each stage's
+     step ms;
+ 11. the last line is {"ok": true, "device": {...}}.
 
-The launch counts of phases 4-8 are each set to 0 just before the path
+The launch counts of phases 4-10 are each set to 0 just before the path
 is driven and read just after; the kernels line sums them.
 
 Run from the repository root: python3 chip_smoke.py (no arguments).
@@ -109,40 +120,50 @@ def _cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _profile_session(fn, iters: int) -> dict:
+    """kernel → (count, device µs) of `iters` fn() calls under torch.profiler:
+    the key_averages() rows whose device_type is CUDA."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, e.self_device_time_total)
+            for e in prof.key_averages() if e.device_type.name == "CUDA"}
+
+
 def _device_profile(fn, iters: int = 20, warmup: int = 3) -> dict:
     """Device milliseconds of one fn() call by kernel: `iters` calls under
     torch.profiler, the key_averages() rows whose device_type is CUDA
     (every kernel, copy and memset the calls ran) divided by `iters`.
     Warm L2: the same inputs every call."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     # A profiler session now and then loses device records (one of its
     # activity buffers comes back empty): no rows at all, or a kernel seen
     # fewer times than the calls launched it, which reads far below the
-    # bound (in one session exactly half of them, so the counts alone do
-    # not show it). Every call launches the same kernels, so a session is
-    # kept when the rows whose count is not a multiple of `iters` hold at
-    # most 2% of its device time (in one run the full-width ClipUNet
-    # forward showed such a row in five of six sessions, with a total that
-    # holds from run to run); a lost record only ever lowers the time, so
-    # of two kept sessions the larger wins.
-    kept = []
-    for _ in range(6):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        total = sum(e.self_device_time_total for e in events)
-        odd = sum(e.self_device_time_total for e in events if e.count % iters)
-        if total > 0 and odd <= 0.02 * total:
-            kept.append({e.key: e.self_device_time_total / 1e3 / iters for e in events})
-            if len(kept) == 2:
-                return max(kept, key=lambda rows: sum(rows.values()))
-    raise RuntimeError("torch.profiler lost device records in five of six sessions")
+    # bound (in one session exactly half of them). Every session runs the
+    # same calls, so whole sessions agree on every kernel's count, while a
+    # lost record (or a one-off launch) makes one session differ; a count
+    # need not be a multiple of `iters` (the UNet forward through K1 runs
+    # one bf16 copy kernel 49 times in 5 calls in every session). Sessions
+    # run until two agree on every count, up to 8; of those the larger
+    # total wins, as a lost record only ever lowers the time.
+    sessions = []
+    for _ in range(8):
+        rows = _profile_session(fn, iters)
+        counts = {k: c for k, (c, _) in rows.items()}
+        same = [r for r in sessions if {k: c for k, (c, _) in r.items()} == counts]
+        sessions.append(rows)
+        if rows and same:
+            best = max(same + [rows], key=lambda r: sum(t for _, t in r.values()))
+            return {k: t / 1e3 / iters for k, (_, t) in best.items()}
+    raise RuntimeError(
+        f"torch.profiler lost device records: no two of 8 sessions of {iters} calls agreed on "
+        f"every kernel's count (device ms, kernels seen): "
+        f"{[(sum(t for _, t in r.values()) / 1e3, len(r)) for r in sessions]}")
 
 
 def _device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1151,10 +1172,8 @@ def phase_training(K, launches: dict, card: str) -> None:
     # bench_step: a fresh seeded model, one random batch, CUDA events
     model = C.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
     st = TrainState(model, *C.build_optimizer(cfg, model))
-    rng = np.random.default_rng(0)
     batch = cfg.batch_size * cfg.accum_steps
-    x = torch.from_numpy(rng.uniform(0, 1, (batch, 256, 256, 3)).astype(np.float32)).cuda()
-    y = torch.from_numpy(rng.integers(0, 4, (batch, 256, 256))).cuda()
+    x, y = _full_batch(batch)
     loss_fn = C.build_loss(cfg)
     step = lambda: train_step(st, loss_fn, x, y, cfg.accum_steps)  # noqa: E731
     for _ in range(3):
@@ -1190,6 +1209,233 @@ def phase_training(K, launches: dict, card: str) -> None:
         print(f"[train]   {e.key[:72]:72s} {e.self_device_time_total / 1e3:9.3f} ms x{e.count}")
     if not np.isfinite(float(loss)):
         raise AssertionError("the full-width train step's loss is not finite")
+
+
+def _step_ms(step, iters: int = 10) -> float:
+    """Median ms of one train step (CUDA events), after 2 warm-up steps."""
+    return _cuda_ms(step, iters=iters, warmup=2)
+
+
+def _syncs(fn) -> int:
+    """How many times one fn() call makes the host wait on the card: the
+    warnings of torch.cuda's sync debug mode, after a warm-up call."""
+    import warnings
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _full_batch(batch: int, side: int = 256, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(0, 1, (batch, side, side, 3)).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 4, (batch, side, side))).cuda()
+    return x, y
+
+
+def augment_device_ms(card: str) -> dict:
+    """Device ms of the online augmentation on a 64-row 256 px batch from
+    torch.profiler: each augmenter applied to all 64 rows, and
+    random_augment_batch (draws and grouped apply) as the trainer calls it."""
+    from image_segmentation_tpu_torch.ops import augment as Aug
+
+    x, y = _full_batch(64, seed=3)
+    gen = torch.Generator().manual_seed(0)
+    params = Aug.draw_augment_params(64, 256, gen, "cuda")
+    out = {name: _device_ms(lambda fn=fn: fn(x, y, params), iters=10)
+           for name, fn in Aug.AUGMENTERS}
+    # the trainer's call: the draws depend on the generator's state and the
+    # launches on the draws, so every timed call restarts the same seed
+    reseeded = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    out["draws"] = _device_ms(lambda: Aug.draw_augment_params(64, 256, reseeded(), "cuda"),
+                              iters=10)
+    out["random_augment_batch"] = _device_ms(
+        lambda: Aug.random_augment_batch(x, y, reseeded()), iters=10)
+    print(f"[aug] device ms on a (64, 256, 256, 3) batch, torch.profiler: "
+          f"{ {k: round(v, 4) for k, v in out.items()} } ({card})")
+    return out
+
+
+def phase_unet_aug(K, launches: dict, card: str) -> None:
+    """unet_aug on the card: run.main with online augmentation for 2 epochs
+    and a 1-epoch --offline-aug run (K1 in every eval epoch), the changed
+    share of each step batch, the step with and without augmentation, and
+    the augmentation's device time."""
+    import tempfile
+
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch import run as R
+    from image_segmentation_tpu_torch.ops import augment as Aug
+    from image_segmentation_tpu_torch.train.state import TrainState
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    cfg = C.UNET_AUG
+    n_train, n_val = 128, 32
+    per_epoch = 9 * _eval_batches(n_val, cfg.seed + 1, cfg.batch_size)
+    changed = []
+    real = Aug.random_augment_batch
+
+    def spy(images, labels, generator):
+        out = real(images, labels, generator)
+        rows = (out[0] != images).flatten(1).any(1) | (out[1] != labels).flatten(1).any(1)
+        changed.append(float(rows.float().mean()))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--config", "unet_aug", "--save-dir", tmp, "--device", "cuda"]
+        Aug.random_augment_batch = spy
+        try:
+            _zero(K)
+            t0 = time.time()
+            res = R.main(argv + ["--synthetic", str(n_train), "--epochs", "2"])
+            fit_s = time.time() - t0
+            counts = _counts(K)
+            _add(launches, K)
+        finally:
+            Aug.random_augment_batch = real
+        losses = res.history["train_loss"]
+        print(f"[unet_aug] fit 2 epochs, {n_train} train / {n_val} val synthetic images at "
+              f"256 px, micro 8 x accum 8, online augmentation: {fit_s:.1f} s; train loss "
+              f"{losses}; changed rows per step batch {changed}; launches (attention, mlp, "
+              f"double_conv) {counts}, want (0, 0, {2 * per_epoch}) ({card})")
+        if not all(np.isfinite(losses)) or counts != (0, 0, 2 * per_epoch):
+            raise AssertionError(f"unet_aug fit: losses {losses}, launches {counts}")
+        # p_augment 0.5 over 64 rows: 0.5 ± 0.0625 (one standard deviation)
+        if len(changed) != 4 or not all(0.25 <= c <= 0.75 for c in changed):
+            raise AssertionError(f"augmented share of the step batches {changed}")
+        _zero(K)
+        t0 = time.time()
+        res = R.main(argv + ["--synthetic", "16", "--epochs", "1", "--offline-aug",
+                             "--save-dir", tmp + "/offline"])
+        counts = _counts(K)
+        _add(launches, K)
+        want = 9 * _eval_batches(4, cfg.seed + 1, cfg.batch_size)
+        print(f"[unet_aug] --offline-aug, 16 synthetic items expanded on the host, 1 epoch: "
+              f"{time.time() - t0:.1f} s; {res.state.step} steps; train loss "
+              f"{res.history['train_loss']}; launches {counts}, want (0, 0, {want}) ({card})")
+        if not np.isfinite(res.history["train_loss"][0]) or counts != (0, 0, want):
+            raise AssertionError(f"offline unet_aug: {res.history}, launches {counts}")
+
+    # the step at full width with and without augmentation, in turns
+    model = C.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
+    st = TrainState(model, *C.build_optimizer(cfg, model))
+    x, y = _full_batch(cfg.batch_size * cfg.accum_steps)
+    loss_fn = C.build_loss(cfg)
+    gen = torch.Generator().manual_seed(0)
+    plain = lambda: train_step(st, loss_fn, x, y, cfg.accum_steps)  # noqa: E731
+    aug = lambda: train_step(st, loss_fn, x, y, cfg.accum_steps, Aug.random_augment_batch,  # noqa
+                             gen)
+    # the calls that make the host wait on the card: none in the
+    # augmentation, and no more in the augmented step than in the plain one
+    syncs = {"random_augment_batch": _syncs(lambda: Aug.random_augment_batch(x, y, gen)),
+             "plain step": _syncs(plain), "augmented step": _syncs(aug)}
+    print(f"[unet_aug] calls that wait on the card (torch.cuda sync debug mode): {syncs}")
+    if syncs["random_augment_batch"] or syncs["augmented step"] != syncs["plain step"]:
+        raise AssertionError(f"the online augmentation waits on the card: {syncs}")
+    # four steps in turns, forward and reversed: plain, augmented, a plain
+    # step on an already augmented batch (does the data move the step?),
+    # and the augmentation's call followed by a plain step (its launches)
+    xa, ya = Aug.random_augment_batch(x, y, torch.Generator().manual_seed(7))
+    steps = {"plain": plain, "augmented": aug,
+             "pre-augmented": lambda: train_step(st, loss_fn, xa, ya, cfg.accum_steps),
+             "call then plain": lambda: (Aug.random_augment_batch(x, y, gen), plain())}
+    times = {k: [] for k in steps}
+    for turn in range(4):
+        for k in (list(steps) if turn % 2 == 0 else list(steps)[::-1]):
+            times[k].append(round(_step_ms(steps[k], iters=10), 3))
+    medians = {k: round(statistics.median(v), 3) for k, v in times.items()}
+    print(f"[unet_aug] train step, UNet base 64, 256 px, batch 64 (8 x 8), bf16, median of 10 "
+          f"(CUDA events) in 4 turns, forward and reversed: {times} ms; medians {medians}; "
+          f"augmented - plain {medians['augmented'] - medians['plain']:.3f} ms ({card})")
+    # device ms a step: every CUDA row of 2 steps under torch.profiler over
+    # 2 (one session each; a profiled step costs seconds of host time). The
+    # augmented steps' kernels change with the draws, so sessions cannot be
+    # held to equal counts as `_device_profile` holds them
+    dev = {}
+    for name, fn in (("plain", plain), ("augmented", aug)):
+        fn()
+        dev[name] = round(sum(t for _, t in _profile_session(fn, 2).values()) / 2e3, 3)
+    print(f"[unet_aug] the same steps' device ms (torch.profiler, 2 steps): {dev} ({card})")
+    # the call the augmented step adds, alone: its launches and its kernels
+    # (CUDA events around each call)
+    call_ms = _cuda_ms(lambda: Aug.random_augment_batch(x, y, gen), iters=20)
+    print(f"[unet_aug] random_augment_batch on the 64-row batch: median {call_ms:.3f} ms a call "
+          f"(CUDA events, the host's enqueue included) ({card})")
+    augment_device_ms(card)
+    print(f"[unet_aug] K1 launches so far on the main paths: {launches['fused_double_conv']}")
+
+
+def phase_autoencoder(K, launches: dict, card: str) -> None:
+    """The two-stage autoencoder on the card: recon_ae for 2 epochs through
+    run.main, then autoencoder --pretrained-encoder for 2; the encoder as
+    transferred and as left by the frozen stage 2; each stage's step."""
+    import os
+    import tempfile
+
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch import run as R
+    from image_segmentation_tpu_torch.train import checkpoint as ckpt
+    from image_segmentation_tpu_torch.train.loop import mse_loss
+    from image_segmentation_tpu_torch.train.state import TrainState, freeze_, make_adamw
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    n_train = 128
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--synthetic", str(n_train), "--epochs", "2", "--save-dir", tmp,
+                  "--device", "cuda"]
+        _zero(K)
+        t0 = time.time()
+        recon = R.main(["--config", "recon_ae"] + common)
+        t1 = time.time()
+        src = os.path.join(tmp, "recon_ae")
+        seg = R.main(["--config", "autoencoder", "--pretrained-encoder", src] + common)
+        t2 = time.time()
+        counts = _counts(K)
+        _add(launches, K)
+        print(f"[ae] recon_ae 2 epochs {t1 - t0:.1f} s, train mse {recon.history['train_loss']}, "
+              f"val mse (original size) {recon.history['val_loss']}; autoencoder 2 epochs "
+              f"{t2 - t1:.1f} s, train loss {seg.history['train_loss']}, val mIoU "
+              f"{seg.history['val_iou']}; launches {counts} (no kernel on this path) ({card})")
+        losses = recon.history["train_loss"] + seg.history["train_loss"]
+        if not all(np.isfinite(losses)) or counts != (0, 0, 0):
+            raise AssertionError(f"autoencoder stages: losses {losses}, launches {counts}")
+        want = ckpt.load_model_state(src, "cuda")
+        fresh = C.build_model(C.AUTOENCODER, "cuda", torch.Generator().manual_seed(5))
+        n = ckpt.load_subtree(src, fresh, "encoder", "encoder")
+        got = fresh.state_dict()
+        after = seg.state.model.state_dict()
+        enc = [k for k in want if k.startswith("encoder.")]
+        transferred = all(torch.equal(got[k], want[k]) for k in enc)
+        kept = all(torch.equal(after[k], want[k]) for k in enc if "running" not in k)
+        moved = sum(not torch.equal(after[k], want[k]) for k in enc if "running" in k)
+        print(f"[ae] encoder: {n} entries transferred, equal to the recon checkpoint's "
+              f"{transferred}; parameters unchanged after the frozen stage 2 {kept}; BN "
+              f"statistics moved {moved} of {sum('running' in k for k in enc)}")
+        if not (transferred and kept and moved):
+            raise AssertionError("the encoder transfer or freeze does not hold")
+
+    x, _ = _full_batch(64, seed=4)
+    _, y = _full_batch(64, seed=5)
+    model = C.build_model(C.RECON_AE, "cuda", torch.Generator().manual_seed(0))
+    st = TrainState(model, make_adamw(model.parameters(), weight_decay=0.0)[0])
+    recon_ms = _step_ms(lambda: train_step(st, mse_loss, x, x, 8))
+    model = C.build_model(C.AUTOENCODER, "cuda", torch.Generator().manual_seed(0))
+    freeze_(model, ("encoder",))
+    st = TrainState(model, *C.build_optimizer(C.AUTOENCODER, model,
+                                              frozen_prefixes=("encoder",)))
+    loss_fn = C.build_loss(C.AUTOENCODER)
+    seg_ms = _step_ms(lambda: train_step(st, loss_fn, x, y, 8))
+    print(f"[ae] train step, base 64, 256 px, batch 64 (8 x 8), bf16, median of 10 (CUDA "
+          f"events): recon_ae {recon_ms:.3f} ms, autoencoder (frozen encoder) {seg_ms:.3f} ms; "
+          f"recon best val mse {recon.best['loss']:.6f} ({card})")
 
 
 def print_ptxas_report(log: str) -> None:
@@ -1233,14 +1479,21 @@ def main() -> int:
           f"in {time.time() - t0:.2f} s")
     print_ptxas_report(log)
 
-    timing = phase_kernels(A, M, D, card)
-    launches, eng, clip = phase_serving(A, M, card)
-    launches["fused_double_conv"], unet = phase_unet(eng, card)
+    def timed(phase, *args):
+        t0 = time.time()
+        out = phase(*args)
+        print(f"[{phase.__name__}] {time.time() - t0:.1f} s")
+        return out
+
+    timing = timed(phase_kernels, A, M, D, card)
+    launches, eng, clip = timed(phase_serving, A, M, card)
+    launches["fused_double_conv"], unet = timed(phase_unet, eng, card)
     K = (A, M, D)
-    eng4 = phase_four_families(K, clip, unet, launches, card)
-    phase_batched(K, eng4, clip.vit.num_layers, launches, card)
+    eng4 = timed(phase_four_families, K, clip, unet, launches, card)
+    timed(phase_batched, K, eng4, clip.vit.num_layers, launches, card)
     del eng, eng4, clip, unet
-    phase_training(K, launches, card)
+    for phase in (phase_training, phase_unet_aug, phase_autoencoder):
+        timed(phase, K, launches, card)
     print(f"[done] every phase passed in {time.time() - start:.1f} s from the build on")
 
     sources = {"fused_attention": ("attention.cu", "image_segmentation_tpu/ops/pallas/attention.py:99"),

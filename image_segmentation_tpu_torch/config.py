@@ -1,21 +1,24 @@
 """Experiment configs, model construction, and the training recipe.
 
 Counterpart of image_segmentation_tpu/config.py: the `clipunet`,
-`unet_noaug`, `autoencoder` and `prompt` configs, `build_model`, and the
+`unet_noaug`, `unet_aug`, `recon_ae`, `autoencoder` and `prompt`
+configs, `build_model`, and the
 training half (`ExperimentConfig`'s training fields, config.py:30-66;
 `build_loss`, `build_optimizer`, `build_lr_schedule`). On an accelerator
 the JAX package runs its models in bfloat16 (config.py:60,117-146); the
 port does the same on CUDA — bfloat16 compute, float32 parameters, and
 the hand-written kernels (K3 and K4 for the clip family and the prompt
 model's clip branch, K1 for the UNet's eval forward and the prompt
-model's selection UNet; the autoencoder reaches no kernel, in JAX or
+model's selection UNet; the two autoencoders reach no kernel, in JAX or
 here) — and runs float32 with the plain versions on the CPU. BatchNorm
 statistics and the losses stay float32 everywhere.
 
 The reference's recipe (notebooks, cell 0): FullWeight class weights,
 Dice + CE with train smooth 1 and no ignore index, AdamW lr 1e-3 wd
 0.01, micro-batch 8 accumulated to an effective batch of 64, no LR
-scheduler. Only `unet_noaug` trains in the port so far (run.py).
+scheduler. The port trains `unet_noaug`, `unet_aug` (online or offline
+augmentation) and the two-stage autoencoder (`recon_ae`, then
+`autoencoder` with the encoder transferred and frozen) through run.py.
 """
 from __future__ import annotations
 
@@ -27,7 +30,10 @@ import torch
 
 from image_segmentation_tpu_torch import EVAL_IGNORE_INDEX, NUM_CLASSES
 from image_segmentation_tpu_torch.losses import DiceCELoss, DiceNLLLoss
-from image_segmentation_tpu_torch.models.autoencoder import SegmentationAutoencoder
+from image_segmentation_tpu_torch.models.autoencoder import (
+    ReconstructionAutoencoder,
+    SegmentationAutoencoder,
+)
 from image_segmentation_tpu_torch.models.clip_unet import ClipUNet
 from image_segmentation_tpu_torch.models.prompt import PromptModel
 from image_segmentation_tpu_torch.models.unet import UNet
@@ -58,6 +64,11 @@ class ExperimentConfig:
     epochs: int = 100
     batch_size: int = 8  # the micro-batch
     effective_batch: int = 64  # accumulation = effective // batch
+    augment: bool = False
+    augment_online: bool = True  # on-device augmentation, else offline
+    # freeze the pretrained encoder; read by run.py for the autoencoder (JAX
+    # also hands it to the clipunet and prompt models, not trained here yet)
+    freeze_encoder: bool = True
     seed: int = 0
 
     @property
@@ -66,15 +77,23 @@ class ExperimentConfig:
 
 
 UNET_NOAUG = ExperimentConfig(name="unet_noaug", model="unet", target_size=256)
-AUTOENCODER = ExperimentConfig(name="autoencoder", model="autoencoder", target_size=256)
+UNET_AUG = ExperimentConfig(name="unet_aug", model="unet", target_size=256, augment=True)
+# stage 1: plain MSE reconstruction
+RECON_AE = ExperimentConfig(name="recon_ae", model="recon", target_size=256,
+                            class_weights=None)
+AUTOENCODER = ExperimentConfig(name="autoencoder", model="autoencoder", target_size=256,
+                               freeze_encoder=True)
 CLIPUNET = ExperimentConfig(name="clipunet", model="clipunet", target_size=224)
 # the reference prompt run's class weights are uniform (prompt.ipynb cell 0)
 PROMPT = ExperimentConfig(name="prompt", model="prompt", target_size=224,
-                          class_weights=None)
+                          freeze_encoder=False, class_weights=None)
+
+CONFIGS = {c.name: c for c in (UNET_NOAUG, UNET_AUG, RECON_AE, AUTOENCODER, CLIPUNET, PROMPT)}
 
 # model name → (class, whether it reaches a hand-written kernel)
 MODELS = {"unet": (UNet, True), "autoencoder": (SegmentationAutoencoder, False),
-          "clipunet": (ClipUNet, True), "prompt": (PromptModel, True)}
+          "recon": (ReconstructionAutoencoder, False), "clipunet": (ClipUNet, True),
+          "prompt": (PromptModel, True)}
 
 
 def build_model(cfg: ExperimentConfig, device, generator: torch.Generator,
@@ -89,8 +108,9 @@ def build_model(cfg: ExperimentConfig, device, generator: torch.Generator,
     if cfg.model not in MODELS:
         raise ValueError(f"model {cfg.model!r} is not ported yet")
     cls, has_kernels = MODELS[cfg.model]
-    kwargs = dict(num_classes=cfg.num_classes,
-                  dtype=torch.bfloat16 if on_cuda else torch.float32)
+    kwargs = dict(dtype=torch.bfloat16 if on_cuda else torch.float32)
+    if cfg.model != "recon":  # the reconstruction's output is the image
+        kwargs["num_classes"] = cfg.num_classes
     if has_kernels:
         kwargs["use_kernels"] = cfg.use_kernels and on_cuda
     model = cls(**kwargs, **overrides)

@@ -1,9 +1,10 @@
-"""The segmentation autoencoder, eval-mode forward.
+"""The two autoencoders: stage 1 reconstruction, stage 2 segmentation.
 
 Counterpart of image_segmentation_tpu/models/autoencoder.py
-(`EncoderBlock`, `AEEncoder`, `DecoderBlockWithSkips`,
-`SegmentationAutoencoder`; reference autoencoder/autoencoder.py:6-93,
-271-305): a 3-block encoder of bias-free [conv3×3 → BN → ReLU]×2 with
+(`EncoderBlock`, `AEEncoder`, `DecoderBlockNoSkips`,
+`DecoderBlockWithSkips`, `ReconstructionAutoencoder`,
+`SegmentationAutoencoder`; reference autoencoder/autoencoder.py:6-200,
+271-305). `SegmentationAutoencoder`: a 3-block encoder of bias-free [conv3×3 → BN → ReLU]×2 with
 channels base·{1, 2, 4}, each block returning its max-pooled output and
 its pre-pool activation as a skip; a decoder of 3 blocks (transpose conv
 ×2, centre crop of the skip when the sizes differ, concat [up, skip],
@@ -11,12 +12,18 @@ bias-free double conv) to 2b, b, b channels; a 1×1 head to `num_classes`
 float32 logits. Submodules take the reference's names (`encoder.
 encoderPart{1,2,3}`, `decoder.decoderBlock{1,2,3}`, `finalConv`).
 
+`ReconstructionAutoencoder` has the same `AEEncoder` under the same
+`encoder.` prefix, so the encoder keys of the two state dicts match and
+stage 2 takes stage 1's encoder (`train.checkpoint.load_subtree`); its
+decoder is three skip-free up blocks 4b → 2b → b → b (transpose conv ×2,
+bias-free double conv), then a 3×3 head with bias (`decoderOut.0`, the
+reference's name) and a sigmoid in float32.
+
 The JAX package runs no Pallas kernel here, and neither does the port:
 the convolutions are PyTorch's (cuDNN on a card), in `dtype` with
 float32 parameters, as flax does. Input NHWC float in [0, 1], output NHWC
-float32 logits; inside, NCHW tensors in channels_last memory. The
-reconstruction stage (`ReconstructionAutoencoder`, `DecoderBlockNoSkips`)
-comes with the autoencoder training slice.
+float32 (logits, or the reconstruction); inside, NCHW tensors in
+channels_last memory.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from image_segmentation_tpu_torch.models.layers import (
     UpConv,
     center_crop_to,
     conv1x1,
+    conv_kernel_init_,
     init_conv1x1_,
 )
 
@@ -111,6 +119,70 @@ class AEDecoder(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         for block in (self.decoderBlock1, self.decoderBlock2, self.decoderBlock3):
             block.init_weights(generator)
+
+
+class DecoderBlockNoSkips(nn.Module):
+    """Transpose conv ×2 to `features`, then a bias-free double conv; no
+    concat (reference autoencoder/autoencoder.py:117-146)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.up = UpConv(in_features, features)
+        self.conv1 = ConvBNRelu(features, features, use_bias=False)
+        self.conv2 = ConvBNRelu(features, features, use_bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(self.conv1(self.up(x)))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.up.init_weights(generator)
+        self.conv1.init_weights(generator)
+        self.conv2.init_weights(generator)
+
+
+class AEDecoderNoSkips(nn.Module):
+    def __init__(self, base: int):
+        super().__init__()
+        b = base
+        self.decoderBlock1 = DecoderBlockNoSkips(4 * b, 2 * b)
+        self.decoderBlock2 = DecoderBlockNoSkips(2 * b, b)
+        self.decoderBlock3 = DecoderBlockNoSkips(b, b)
+
+    def forward(self, bottleneck: torch.Tensor) -> torch.Tensor:
+        return self.decoderBlock3(self.decoderBlock2(self.decoderBlock1(bottleneck)))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        for block in (self.decoderBlock1, self.decoderBlock2, self.decoderBlock3):
+            block.init_weights(generator)
+
+
+class ReconstructionAutoencoder(nn.Module):
+    """forward(x (N, H, W, 3) float in [0, 1]) → the reconstruction
+    (N, H, W, dout) f32 in (0, 1), for H and W multiples of 8."""
+
+    def __init__(self, dout: int = 3, base: int = 64, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.encoder = AEEncoder(base)
+        self.decoder = AEDecoderNoSkips(base)
+        self.decoderOut = nn.Sequential(nn.Conv2d(base, dout, 3, padding=1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bottleneck, *_ = self.encoder(x.to(self.dtype).permute(0, 3, 1, 2))
+        y = self.decoder(bottleneck)
+        head = self.decoderOut[0]
+        y = F.conv2d(y, head.weight.to(y.dtype), head.bias.to(y.dtype), padding=1)
+        return torch.sigmoid(y.float()).permute(0, 2, 3, 1)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "ReconstructionAutoencoder":
+        """Random init with the JAX package's distributions, from `generator`."""
+        self.encoder.init_weights(generator)
+        self.decoder.init_weights(generator)
+        head = self.decoderOut[0]
+        conv_kernel_init_(head.weight, head.weight[0].numel(), generator)
+        nn.init.zeros_(head.bias)
+        return self
 
 
 class SegmentationAutoencoder(nn.Module):

@@ -1,7 +1,8 @@
 """JAX (flax) variables → the port's state_dict, in numpy and torch only.
 
 `from_jax_variables` takes the flax `{'params', 'batch_stats'}` tree of a
-ClipUNet, a UNet, a SegmentationAutoencoder or a PromptModel, or the
+ClipUNet, a UNet, a SegmentationAutoencoder, a ReconstructionAutoencoder
+or a PromptModel, or the
 `{'params'}` tree of a bare ClipViT, as nested dicts of numpy arrays, and
 returns the state_dict of the port's module:
 
@@ -123,13 +124,16 @@ def _clip_unet(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def _autoencoder(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
+def _autoencoder(params: Mapping, stats: Mapping, skips: bool = True
+                 ) -> Dict[str, torch.Tensor]:
     """encoder/EncoderBlock_k → encoder.encoderPart{k+1},
-    DecoderBlockWithSkips_k → decoder.decoderBlock{k+1}, Conv_0 → finalConv;
-    inside them ConvBNRelu_{0,1} → conv{1,2} and UpConv_0 → up."""
-    sd = _prefixed("finalConv", _conv(params["Conv_0"]))
+    DecoderBlockWithSkips_k (or DecoderBlockNoSkips_k) → decoder.decoderBlock{k+1},
+    Conv_0 → finalConv (or the reconstruction's decoderOut.0); inside them
+    ConvBNRelu_{0,1} → conv{1,2} and UpConv_0 → up."""
+    sd = _prefixed("finalConv" if skips else "decoderOut.0", _conv(params["Conv_0"]))
+    block = "DecoderBlockWithSkips" if skips else "DecoderBlockNoSkips"
     for k in range(3):
-        e, d = f"EncoderBlock_{k}", f"DecoderBlockWithSkips_{k}"
+        e, d = f"EncoderBlock_{k}", f"{block}_{k}"
         for pre, p, s in ((f"encoder.encoderPart{k + 1}", params["encoder"][e],
                            stats["encoder"][e]),
                           (f"decoder.decoderBlock{k + 1}", params[d], stats[d])):
@@ -143,10 +147,12 @@ def _autoencoder(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
 
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     """The port's state_dict for a JAX ClipUNet, UNet, SegmentationAutoencoder,
-    PromptModel or bare ClipViT tree, told apart by what the tree holds:
-    a ClipUNet has `encoder/class_embedding`, an autoencoder
-    `encoder/EncoderBlock_0`, a PromptModel `clip` and `mask`, a UNet
-    `DoubleConv_0`, a bare ClipViT `class_embedding`. Any other tree raises."""
+    ReconstructionAutoencoder, PromptModel or bare ClipViT tree, told apart
+    by what the tree holds: a ClipUNet has `encoder/class_embedding`, an
+    autoencoder `encoder/EncoderBlock_0` (the reconstruction one
+    `DecoderBlockNoSkips_0` beside it), a PromptModel `clip` and `mask`, a
+    UNet `DoubleConv_0`, a bare ClipViT `class_embedding`. Any other tree
+    raises."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     encoder = params.get("encoder", {})
@@ -158,9 +164,9 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     if "class_embedding" in encoder:
         return _clip_unet(params, stats)
     if "EncoderBlock_0" in encoder:
-        return _autoencoder(params, stats)
+        return _autoencoder(params, stats, skips="DecoderBlockNoSkips_0" not in params)
     if "class_embedding" in params:
         return _vit(params)
     raise ValueError(
         f"unknown JAX variables tree (top-level params {sorted(params)}): not a "
-        f"ClipUNet, UNet, SegmentationAutoencoder, PromptModel or ClipViT")
+        f"ClipUNet, UNet, autoencoder, PromptModel or ClipViT")

@@ -2,21 +2,37 @@
 
 Counterpart of image_segmentation_tpu/run.py (the reference notebooks'
 cell-0 "main": datasets, model, loss, AdamW, accumulation, start()).
-Only `unet_noaug` trains in the port so far; the JAX package's other
-configs are refused as not ported yet.
+The port trains `unet_noaug`, `unet_aug` and the two-stage autoencoder
+(`recon_ae`, then `autoencoder`); the JAX package's other configs are
+refused as not ported yet.
 
   python -m image_segmentation_tpu_torch.run --config unet_noaug \
       --data-root /data/pet --save-dir runs/ [--epochs N] [--batch-size N]
-  python -m image_segmentation_tpu_torch.run --config unet_noaug --synthetic 64 \
-      --epochs 2 --target-size 64 --device cpu   # no dataset needed
+  python -m image_segmentation_tpu_torch.run --config unet_aug --synthetic 64 \
+      --epochs 2 --target-size 64 --device cpu   # online augmentation
+  python -m image_segmentation_tpu_torch.run --config unet_aug --offline-aug ...
+  python -m image_segmentation_tpu_torch.run --config recon_ae --synthetic 64 ...
+  python -m image_segmentation_tpu_torch.run --config autoencoder --synthetic 64 \
+      --pretrained-encoder runs/recon_ae ...   # encoder transferred and frozen
   python -m image_segmentation_tpu_torch.run --config unet_noaug --synthetic 64 \
       --evaluate runs/MO_unet_noaug --split Val
 
 Data layout: {root}/{split}/{color,label}/ (class-id PNG labels with the
 255 boundary sentinel). `--device` is cuda by default and the run refuses
 to start without a card; the CPU is an explicit `--device cpu`. On CUDA
-the model computes in bfloat16 with float32 parameters, and its eval
-forwards run K1.
+the model computes in bfloat16 with float32 parameters, and a UNet's
+eval forwards run K1.
+
+Augmentation (`unet_aug`, or `--augment on`): online by default, on the
+device, one augmenter or none per sample of every step batch
+(ops/augment.py; every family but the prompt, JAX run.py:543-548); with
+`--offline-aug` the train set is expanded once on the host before the
+label remap (data/augment.py). `recon_ae` trains with Adam (no weight
+decay) on the MSE against the input and checkpoints the best val MSE;
+`autoencoder --pretrained-encoder CKPT` takes its encoder (parameters and
+BN statistics), frozen out of the optimizer when the config's
+`freeze_encoder` is set. The frozen encoder still runs in train mode, so
+its BN statistics move, as JAX's mutable batch_stats do.
 """
 from __future__ import annotations
 
@@ -27,12 +43,12 @@ import os
 import numpy as np
 import torch
 
+# the configs the port trains
+TRAINED = ("unet_noaug", "unet_aug", "recon_ae", "autoencoder")
 # the JAX package's configs whose training is not in the port yet
-NOT_PORTED = ("unet_aug", "recon_ae", "autoencoder", "clipunet", "clipunet_noskips",
-              "prompt")
+NOT_PORTED = ("clipunet", "clipunet_noskips", "prompt")
 # flags of JAX run.py paths the port does not have yet
-REFUSED_FLAGS = ("multihost", "cache_features", "init_weights", "pretrained_encoder",
-                 "clip_weights", "tensorboard", "profile_dir")
+REFUSED_FLAGS = ("multihost", "cache_features", "clip_weights", "tensorboard", "profile_dir")
 
 
 def _synthetic_items(n: int, seed: int = 0):
@@ -89,10 +105,29 @@ def _parser() -> argparse.ArgumentParser:
                         "validated on and anything else a held-out synthetic set")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain versions)")
+    p.add_argument("--augment", default=None, choices=["on", "off"],
+                   help="override the config's augmentation flag")
+    p.add_argument("--offline-aug", action="store_true",
+                   help="with augmentation on: expand the train set offline on the host "
+                        "instead of augmenting each step batch on the device")
+    p.add_argument("--init-weights", default=None, metavar="CKPT",
+                   help="initialise parameters and BN statistics from a checkpoint of "
+                        "this port (full or MO_), then train")
+    p.add_argument("--pretrained-encoder", default=None, metavar="CKPT",
+                   help="autoencoder: take the encoder of a recon_ae checkpoint")
     for flag in REFUSED_FLAGS:
         p.add_argument("--" + flag.replace("_", "-"), default=None, nargs="?",
                        const=True, help="not ported yet (refused)")
     return p
+
+
+def _check_checkpoint(flag: str, path: str) -> None:
+    from image_segmentation_tpu_torch.train import checkpoint as ckpt
+
+    if not any(os.path.exists(os.path.join(path, f)) for f in (ckpt.WEIGHTS_FILE,
+                                                               ckpt.STATE_FILE)):
+        raise SystemExit(f"{flag} {path}: not a checkpoint of this port (no "
+                         f"{ckpt.WEIGHTS_FILE} or {ckpt.STATE_FILE} there)")
 
 
 def main(argv=None):
@@ -103,30 +138,33 @@ def main(argv=None):
             "--" + f.replace("_", "-") for f in refused))
     if args.config in NOT_PORTED:
         raise SystemExit(f"config {args.config!r}: training is not ported yet "
-                         f"(the port trains 'unet_noaug')")
-    if args.config != "unet_noaug":
-        raise SystemExit(f"unknown config {args.config!r}; have ['unet_noaug']")
+                         f"(the port trains {list(TRAINED)})")
+    if args.config not in TRAINED:
+        raise SystemExit(f"unknown config {args.config!r}; have {list(TRAINED)}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available "
                          f"(pass --device cpu to run on the CPU)")
     if not args.synthetic and not args.data_root:
         raise SystemExit("--data-root or --synthetic required")
+    for flag in ("init_weights", "pretrained_encoder"):
+        if getattr(args, flag) is not None:
+            _check_checkpoint("--" + flag.replace("_", "-"), getattr(args, flag))
 
     from image_segmentation_tpu_torch import config as C
     from image_segmentation_tpu_torch.data.dataset import ArrayDataset, SegmentationDataset
     from image_segmentation_tpu_torch.data.labels import target_remap
     from image_segmentation_tpu_torch.data.loader import materialize
-    from image_segmentation_tpu_torch.losses.host import dice_ce_loss_np
-    from image_segmentation_tpu_torch.train import checkpoint as ckpt
-    from image_segmentation_tpu_torch.train.loop import evaluate, fit
-    from image_segmentation_tpu_torch.train.state import TrainState
 
-    cfg = C.UNET_NOAUG
+    cfg = C.CONFIGS[args.config]
     overrides = {k: v for k, v in (("epochs", args.epochs), ("batch_size", args.batch_size),
                                    ("target_size", args.target_size),
                                    ("lr_schedule", args.lr_schedule),
                                    ("warmup_steps", args.warmup_steps)) if v is not None}
+    if args.augment is not None:
+        overrides["augment"] = args.augment == "on"
+    if args.offline_aug:
+        overrides["augment_online"] = False
     cfg = dataclasses.replace(cfg, **overrides)
     print(f"[run] config={cfg.name} device={device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
@@ -141,26 +179,73 @@ def main(argv=None):
         val_raw = ArrayDataset(_synthetic_items(n_val, val_seed))
     else:
         mk = lambda split: SegmentationDataset(os.path.join(args.data_root, split, "color"),
-                                               os.path.join(args.data_root, split, "label"),
-                                               target_transform=target_remap)
+                                               os.path.join(args.data_root, split, "label"))
         train_raw, val_raw = (None, mk(args.split)) if eval_only else (mk("Train"), mk("Val"))
+    if cfg.augment and not cfg.augment_online and not eval_only:
+        from image_segmentation_tpu_torch.data.augment import generate_augmented_dataset
+
+        print("[run] materialising offline augmentation …")
+        train_raw = generate_augmented_dataset(train_raw, seed=cfg.seed, size=cfg.target_size)
     for ds in (train_raw, val_raw):
-        if isinstance(ds, ArrayDataset):
+        # in place: a full-scale offline set is ~23k samples, and a remapped
+        # copy would double host memory
+        if isinstance(ds, SegmentationDataset):
+            ds.target_transform = target_remap
+        elif isinstance(ds, ArrayDataset):
             ds.map_labels(target_remap)
     n_train = 0 if eval_only else len(train_raw)
     print(f"[run] materialising {n_train} train / {len(val_raw)} "
           f"{'eval' if eval_only else 'val'} items at {cfg.target_size}px …")
     train_data = None if eval_only else materialize(train_raw, cfg.target_size)
     val_data = materialize(val_raw, cfg.target_size, keep_orig_labels=True)
-
     model = C.build_model(cfg, device, torch.Generator().manual_seed(cfg.seed))
+    if cfg.model == "recon":
+        return _run_reconstruction(args, cfg, model, device, train_data, val_data, val_raw)
+    return _run_segmentation(args, cfg, model, device, train_data, val_data, len(val_raw))
+
+
+def _run_reconstruction(args, cfg, model, device, train_data, val_data, val_raw):
+    """Stage 1 of the autoencoder (JAX run.py:300-350)."""
+    from image_segmentation_tpu_torch.train import checkpoint as ckpt
+    from image_segmentation_tpu_torch.train.loop import (
+        evaluate_reconstruction,
+        fit_reconstruction,
+    )
+    from image_segmentation_tpu_torch.train.state import TrainState, make_adamw
+
+    originals = [np.asarray(val_raw[i][0]) for i in range(len(val_raw))]
+    if args.evaluate is not None:
+        model.load_state_dict(ckpt.load_model_state(args.evaluate, device))
+        print(f"[run] evaluating {args.evaluate} on {args.split} ({len(val_raw)} images) …")
+        mse = evaluate_reconstruction(TrainState(model), val_data, originals=originals,
+                                      batch_size=cfg.batch_size)
+        print(f"[run] {args.split} eval: mse={mse:.6f}")
+        return {"loss": mse}
+    # the reference's stage 1 is Adam with no weight decay, lr 1e-3
+    opt, _ = make_adamw(model.parameters(), learning_rate=cfg.learning_rate, weight_decay=0.0)
+    accum = max(1, min(cfg.accum_steps, len(train_data) // cfg.batch_size))
+    result = fit_reconstruction(
+        TrainState(model, opt), train_data, val_data, originals=originals, epochs=cfg.epochs,
+        batch_size=cfg.batch_size * accum, accum_steps=accum, save_dir=args.save_dir,
+        name=cfg.name, resume=args.resume, seed=cfg.seed)
+    print(f"[run] done: best {result.best}")
+    return result
+
+
+def _run_segmentation(args, cfg, model, device, train_data, val_data, n_val: int):
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.losses.host import dice_ce_loss_np
+    from image_segmentation_tpu_torch.train import checkpoint as ckpt
+    from image_segmentation_tpu_torch.train.loop import evaluate, fit
+    from image_segmentation_tpu_torch.train.state import TrainState, freeze_
+
     loss_fn = C.build_loss(cfg)
     val_loss_fn = C.build_val_loss(cfg)
     host_loss = lambda lg, lb: dice_ce_loss_np(lg, lb, val_loss_fn)  # noqa: E731
 
-    if eval_only:
+    if args.evaluate is not None:
         model.load_state_dict(ckpt.load_model_state(args.evaluate, device))
-        print(f"[run] evaluating {args.evaluate} on {args.split} ({len(val_raw)} images, "
+        print(f"[run] evaluating {args.evaluate} on {args.split} ({n_val} images, "
               f"protocol={args.eval_protocol}) …")
         res = evaluate(TrainState(model), val_data, host_loss_fn=host_loss,
                        num_classes=cfg.num_classes, eval_ignore_index=cfg.eval_ignore_index,
@@ -170,6 +255,23 @@ def main(argv=None):
               f"dice={res['dice']:.4f} miou={res['iou']:.4f}")
         return res
 
+    if args.init_weights:
+        model.load_state_dict(ckpt.load_model_state(args.init_weights, device))
+        print(f"[run] initialised weights from {args.init_weights}")
+    frozen = ()
+    if cfg.model == "autoencoder" and args.pretrained_encoder:
+        ckpt.load_subtree(args.pretrained_encoder, model, "encoder", "encoder")
+        print("[run] loaded pretrained AE encoder (params + BN stats)")
+        if cfg.freeze_encoder:
+            frozen = ("encoder",)
+            freeze_(model, frozen)
+    augment_fn = None
+    if cfg.augment and cfg.augment_online:
+        from image_segmentation_tpu_torch.ops.augment import random_augment_batch
+
+        augment_fn = random_augment_batch
+        print("[run] online on-device augmentation enabled")
+
     # fit takes the step batch (the reference's effective batch of 64) and
     # splits it into accum micro-batches; tiny sets shrink both
     micro = min(cfg.batch_size, len(train_data))
@@ -178,7 +280,7 @@ def main(argv=None):
     accum = max(1, min(cfg.accum_steps, len(train_data) // micro))
     # the decay horizon in optimizer steps (one per effective batch)
     total_steps = cfg.epochs * max(1, len(train_data) // (cfg.batch_size * cfg.accum_steps))
-    opt, sched = C.build_optimizer(cfg, model, total_steps=total_steps)
+    opt, sched = C.build_optimizer(cfg, model, total_steps=total_steps, frozen_prefixes=frozen)
     state = TrainState(model=model, optimizer=opt, scheduler=sched)
     result = fit(
         state, train_data, val_data, loss_fn=loss_fn, epochs=cfg.epochs,
@@ -187,7 +289,7 @@ def main(argv=None):
         eval_ignore_index=cfg.eval_ignore_index, eval_batch_size=cfg.batch_size,
         resume=args.resume, seed=cfg.seed, eval_protocol=args.eval_protocol,
         eval_loss_cfg=val_loss_fn, checkpoint_every=args.ckpt_every,
-        early_stop_patience=args.early_stop_patience)
+        early_stop_patience=args.early_stop_patience, augment_fn=augment_fn)
     print(f"[run] done: best {result.best}")
     return result
 

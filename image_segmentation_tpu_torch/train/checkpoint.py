@@ -8,7 +8,9 @@ reference's contract, utils/training.py:453-618):
     metrics history, notes);
   * the weights-only `MO_<name>` directory holds `weights.pt`, the
     model's state_dict (parameters and BN statistics), for serving;
-  * a missing or unreadable meta degrades to a fresh history.
+  * a missing or unreadable meta degrades to a fresh history;
+  * `load_subtree` grafts one prefix of a checkpoint into another model
+    (the autoencoder's encoder transfer).
 JSON replaces JAX's msgpack and torch.save replaces orbax: neither
 msgpack nor orbax is on the card's machine.
 
@@ -95,6 +97,38 @@ def load_model_state(path: str, device="cpu") -> dict:
         return torch.load(weights, map_location=device, weights_only=True)
     return torch.load(os.path.join(path, STATE_FILE), map_location=device,
                       weights_only=True)["model"]
+
+
+def load_subtree(path: str, model: torch.nn.Module, src_prefix: str = "",
+                 dst_prefix: str = "") -> int:
+    """Graft the checkpoint's entries under `src_prefix` (a full checkpoint
+    or an `MO_` directory) into `model` under `dst_prefix`: parameters AND
+    BatchNorm running statistics, as JAX `load_subtree_variables`
+    (checkpoint.py:325-360) carries both. A frozen branch restored without
+    its statistics would normalise with init statistics forever. Raises
+    KeyError on a key the model lacks or an empty prefix, ValueError on a
+    shape mismatch; the model is unchanged then. Returns the entries
+    grafted."""
+    device = next(model.parameters()).device
+    src = load_model_state(path, device)
+    dst = model.state_dict()
+    sp, dp = src_prefix.rstrip("."), dst_prefix.rstrip(".")
+    grafted = {}
+    for k, v in src.items():
+        if sp and not (k == sp or k.startswith(sp + ".")):
+            continue
+        suffix = k[len(sp):].lstrip(".") if sp else k
+        dk = f"{dp}.{suffix}".strip(".") if dp else suffix
+        if dk not in dst:
+            raise KeyError(f"checkpoint key {k!r} has no destination {dk!r}")
+        if tuple(v.shape) != tuple(dst[dk].shape):
+            raise ValueError(f"shape mismatch grafting {k!r}->{dk!r}: "
+                             f"{tuple(v.shape)} vs {tuple(dst[dk].shape)}")
+        grafted[dk] = v
+    if not grafted:
+        raise KeyError(f"no keys under src_prefix={src_prefix!r} in {path}")
+    model.load_state_dict({**dst, **grafted})
+    return len(grafted)
 
 
 def restore_checkpoint(path: str, state: TrainState):

@@ -18,9 +18,21 @@ Where the port departs from the JAX loop, it does what that loop meant:
   * `history["stopped_early"]` is written before the history is saved
     (JAX sets it after the save, loop.py:961, so it never reached the
     file).
+
+`fit(augment_fn=...)` augments each step batch on the device with draws
+from a CPU generator seeded `seed * 100003 + epoch` per epoch (JAX seeds its
+`aug_key` so, loop.py:861): a resumed run draws what the uninterrupted
+run would have. `fit_reconstruction` and `evaluate_reconstruction` are
+the autoencoder's stage 1 (loop.py:1012-1158): MSE against the input,
+the original-size reconstruction MSE, a best-val-loss checkpoint.
+
+The train set's device budget is `ISTPU_TRAIN_DEVICE_CACHE_MB`, read at
+call time as JAX reads it (loop.py:801,1080); unset, it follows the
+device (`train_device_budget`).
+
 Not ported: the TPU dispatch chunking (`_dispatch_epoch_chunked`), the
 per-batch streaming train path (a train set that fits the device budget
-in no dtype is refused), `fit_reconstruction`, meshes and multihost.
+in no dtype is refused), meshes and multihost.
 """
 from __future__ import annotations
 
@@ -53,9 +65,11 @@ from image_segmentation_tpu_torch.train.steps import (
     train_step,
 )
 
-# Device memory the resident train set may take (the JAX default of
-# ISTPU_TRAIN_DEVICE_CACHE_MB); past it the set is held as uint8.
-TRAIN_DEVICE_BUDGET = 4096 << 20
+# The variable that sets the resident train set's device budget, in MB,
+# and its default on a device that is not a CUDA card (JAX's default,
+# loop.py:801, sized for a TPU's HBM).
+BUDGET_ENV = "ISTPU_TRAIN_DEVICE_CACHE_MB"
+CPU_TRAIN_DEVICE_BUDGET_MB = 4096
 # The eval protocol's (B, Hc, Wc, C + 1) f32 canvases per batch stay under
 # this (JAX loop.py:209-214); the batch halves until they do.
 EVAL_BATCH_BYTES = 2**31
@@ -82,6 +96,46 @@ def _save_history(save_dir: str, name: str, history: Dict[str, list]) -> None:
 
 def _device_of(state: TrainState) -> torch.device:
     return next(state.model.parameters()).device
+
+
+def train_device_budget(device) -> int:
+    """Bytes of `device` memory the resident train set may take: the
+    `ISTPU_TRAIN_DEVICE_CACHE_MB` variable when it is set, read at each
+    call as JAX's fit reads it; else, on a CUDA card, a quarter of its
+    memory (`total_memory` // 4: 20 GB of an 80 GB H100), and elsewhere
+    4096 MB, as in JAX. Past the budget the set is held as uint8, and past
+    four times it the set is refused (`resident_plan`)."""
+    mb = os.environ.get(BUDGET_ENV, "")
+    if mb:
+        return int(float(mb) * 2**20)
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory // 4
+    return CPU_TRAIN_DEVICE_BUDGET_MB << 20
+
+
+def _resident_train_set(train_data: MaterializedDataset, device, *, reconstruction: bool,
+                        verbose: bool) -> ResidentTrainSet:
+    """The train set on the device, float32 when it fits the budget, else
+    uint8; kept on the dataset object for later fits on the same device.
+    A reconstruction set holds its images only."""
+    f32_bytes = train_data.images.nbytes + (0 if reconstruction else train_data.labels.nbytes)
+    budget = train_device_budget(device)
+    fits, quantize = resident_plan(f32_bytes, budget)
+    if not fits:
+        raise ValueError(f"train set of {f32_bytes} bytes (float32) does not fit the "
+                         f"device budget of {budget} bytes ({budget / 2**20:.0f} MB) even "
+                         f"as uint8; {BUDGET_ENV} sets the budget in MB")
+    key = (device, quantize, reconstruction)
+    cached = train_data.device_train_cache
+    if cached is None or cached[0] != key:
+        if quantize and verbose:
+            print(f"[fit] uint8 device residency ({f32_bytes / 2**20:.0f} MB float32 > "
+                  f"{budget / 2**20:.0f} MB budget)")
+        train_data.device_train_cache = (key, ResidentTrainSet(
+            train_data.images, None if reconstruction else train_data.labels, device,
+            quantize))
+    return train_data.device_train_cache[1]
 
 
 def _metas_on(metas: G.ResizeMeta, device) -> dict:
@@ -249,6 +303,7 @@ def fit(
     eval_loss_cfg=None,
     checkpoint_every: int = 1,
     early_stop_patience: Optional[int] = None,
+    augment_fn: Optional[Callable] = None,
 ) -> FitResult:
     """Train with per-epoch original-resolution validation and
     best-val-mIoU checkpointing (reference utils/training.py:453-618).
@@ -258,7 +313,10 @@ def fit(
     (an epoch with a new best always saves, to `name`, `name_last` and
     `MO_name`). `eval_state_fn(state)` gives the state to evaluate.
     `early_stop_patience=N` stops after N epochs without a val-mIoU gain
-    and records the epoch in history['stopped_early']. SIGTERM and SIGINT
+    and records the epoch in history['stopped_early']. `augment_fn(images,
+    labels, generator)` (e.g. `ops.augment.random_augment_batch`, with the
+    epoch's CPU generator) transforms every step batch before its
+    micro-batch split. SIGTERM and SIGINT
     stop the run after the current epoch, with its checkpoint written.
     Returns once every checkpoint is on disk."""
     if eval_loss_cfg is None and host_loss_fn is None and isinstance(
@@ -297,21 +355,16 @@ def fit(
     if nsteps == 0:
         raise ValueError(f"epoch produced zero training batches: dataset size {n} < "
                          f"batch_size {batch_size} (drop_last needs one full batch)")
+    if augment_fn is not None and train_data.has_heatmaps:
+        # JAX's words (loop.py:781-790)
+        raise ValueError(
+            "augment_fn is not supported for prompt (heatmap) datasets; "
+            "generate augmented prompt triplets offline instead "
+            "(data.prompts.generate_prompt_dataset over an augmented "
+            "dataset, reference utils/augmentation.ipynb cell 23)")
     if train_data.has_heatmaps:
         raise NotImplementedError("prompt (heatmap) training is not ported yet")
-    f32_bytes = train_data.images.nbytes + train_data.labels.nbytes
-    fits, quantize = resident_plan(f32_bytes, TRAIN_DEVICE_BUDGET)
-    if not fits:
-        raise ValueError(f"train set of {f32_bytes} bytes (float32) does not fit the "
-                         f"device budget of {TRAIN_DEVICE_BUDGET} bytes even as uint8")
-    cached = train_data.device_train_cache
-    if cached is None or cached[0] != (device, quantize):
-        if quantize and verbose:
-            print(f"[fit] uint8 device residency ({f32_bytes / 2**20:.0f} MB float32 > "
-                  f"{TRAIN_DEVICE_BUDGET / 2**20:.0f} MB budget)")
-        train_data.device_train_cache = ((device, quantize), ResidentTrainSet(
-            train_data.images, train_data.labels, device, quantize))
-    resident = train_data.device_train_cache[1]
+    resident = _resident_train_set(train_data, device, reconstruction=False, verbose=verbose)
 
     # the shuffle, seeded as the JAX loop seeds a fresh run, replayed to the
     # epoch a resumed run starts at
@@ -340,8 +393,11 @@ def fit(
             if verbose:
                 print(f"Epoch {epoch + 1}/{epochs} [{name}]")
             idx_mat = torch.from_numpy(epoch_order(rng, n, batch_size)).to(device)
+            aug_gen = None if augment_fn is None else torch.Generator().manual_seed(
+                seed * 100003 + epoch)
             losses = torch.stack([
-                train_step(state, loss_fn, *resident.batch(idx_mat[s]), accum_steps)
+                train_step(state, loss_fn, *resident.batch(idx_mat[s]), accum_steps,
+                           augment_fn, aug_gen)
                 for s in range(nsteps)])
             train_loss = float(losses.mean())
             if verbose:
@@ -405,4 +461,110 @@ def fit(
     finally:
         for sig, h in prev_handlers.items():
             signal.signal(sig, h)
+    return FitResult(state=state, history=history, best=best)
+
+
+def evaluate_reconstruction(state: TrainState, val_data: MaterializedDataset, *,
+                            originals: list, batch_size: int = 8,
+                            verbose: bool = True) -> float:
+    """Reconstruction eval at the original resolution (reference
+    utils/training.py:202-239): each reconstruction is inverted to its
+    image's own size on the host, and the MSE is taken against the
+    untouched image truncated to 3 channels (JAX loop.py:1032). Returns
+    the mean of the per-image MSEs."""
+    device = _device_of(state)
+    losses = []
+    for inputs, _, metas, _, count in eval_batches(val_data, batch_size):
+        out = eval_forward(state.model, torch.from_numpy(inputs[0]).to(device))
+        out = out.float().cpu().numpy()
+        metas_list = G.metas_to_list(metas)
+        base = len(losses)
+        for i in range(count):
+            inv = G.invert_resize_padding_np(out[i], metas_list[i], method="linear")
+            orig = originals[base + i][:, :, :3]
+            losses.append(float(((inv - orig) ** 2).mean()))
+    val = float(np.mean(losses))
+    if verbose:
+        print(f"  val recon mse={val:.6f}")
+    return val
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean((pred - target) ** 2)
+
+
+def fit_reconstruction(
+    state: TrainState,
+    train_data: MaterializedDataset,
+    val_data: MaterializedDataset,
+    *,
+    originals: list,
+    epochs: int,
+    batch_size: int,
+    accum_steps: int = 1,
+    save_dir: str,
+    name: str,
+    resume: bool = False,
+    seed: int = 0,
+    verbose: bool = True,
+) -> FitResult:
+    """Autoencoder stage 1 (reference autoencoder.ipynb cell 0; JAX
+    loop.py:1041-1158): MSE of the reconstruction against the resized
+    input, from a device-resident set whose one image buffer is input and
+    target; the original-resolution val MSE each epoch; a checkpoint at
+    `save_dir/name` whenever the val MSE falls (no `_last`, no `MO_`), and
+    resume from it. As in JAX, the shuffle is seeded `seed + start_epoch`
+    and an epoch is max(1, n // batch_size) steps. `originals` are the
+    raw val images at their own sizes."""
+    os.makedirs(save_dir, exist_ok=True)
+    ckpt_path = os.path.join(save_dir, name)
+    device = _device_of(state)
+    history = {"train_loss": [], "val_loss": [], "epoch_time_s": []}
+    best = {"loss": float("inf")}
+    start_epoch = 0
+    if resume and os.path.isdir(ckpt_path):
+        state, meta = ckpt.restore_checkpoint(ckpt_path, state)
+        start_epoch = int(meta.get("epoch", 0)) + 1
+        best.update(meta.get("best", {}))
+        for k in history:
+            if k in meta.get("history", {}):
+                history[k] = list(meta["history"][k])
+
+    resident = _resident_train_set(train_data, device, reconstruction=True, verbose=verbose)
+    n = len(train_data)
+    nsteps = max(1, n // batch_size)
+    rng = np.random.default_rng(seed + start_epoch)
+    writer = ckpt.CheckpointWriter()
+    try:
+        for epoch in range(start_epoch, epochs):
+            t0 = time.time()
+            if verbose:
+                print(f"Epoch {epoch + 1}/{epochs} [{name}]")
+            order = rng.permutation(n)[: nsteps * batch_size]
+            idx_mat = torch.from_numpy(order.reshape(nsteps, -1)).to(device)
+            losses = torch.stack([
+                train_step(state, mse_loss, *resident.batch(idx_mat[s]), accum_steps)
+                for s in range(nsteps)])
+            train_loss = float(losses.mean())
+            if verbose:
+                print(f"  train: mse={train_loss:.6f}")
+            val_loss = evaluate_reconstruction(state, val_data, originals=originals,
+                                               batch_size=batch_size, verbose=verbose)
+            history["train_loss"].append(train_loss)
+            history["val_loss"].append(val_loss)
+            history["epoch_time_s"].append(time.time() - t0)
+            _save_history(save_dir, name, history)
+            if val_loss < best["loss"]:
+                best = {"loss": val_loss}
+                ckpt.save_checkpoint_async(writer, ckpt_path, state, epoch=epoch, best=best,
+                                           history=history, slot="best")
+                if verbose:
+                    print(f"  saved checkpoint (new best val mse {val_loss:.6f})")
+        writer.wait()
+    except BaseException:
+        try:
+            writer.wait()
+        except Exception as save_err:
+            print(f"[fit] async save also failed: {save_err!r}")
+        raise
     return FitResult(state=state, history=history, best=best)

@@ -36,6 +36,17 @@ def trainable_parameters(model: nn.Module, frozen_prefixes: Sequence[str] = ()):
     return [p for name, p in model.named_parameters() if not frozen(name)]
 
 
+def freeze_(model: nn.Module, frozen_prefixes: Sequence[str]) -> None:
+    """Stop the gradient of every parameter under `frozen_prefixes` (JAX
+    masks them out of the optimizer and stops their gradient). The modules
+    keep the caller's train mode, so BatchNorm under a frozen prefix still
+    updates its running statistics, as JAX's mutable batch_stats do."""
+    trainable = {id(p) for p in trainable_parameters(model, frozen_prefixes)}
+    for p in model.parameters():
+        if id(p) not in trainable:
+            p.requires_grad_(False)
+
+
 def make_adamw(params, learning_rate: float = 1e-3, weight_decay: float = 0.01,
                schedule: Optional[Callable[[int], float]] = None
                ) -> Tuple[torch.optim.Optimizer, Optional[torch.optim.lr_scheduler.LambdaLR]]:

@@ -16,11 +16,18 @@ to the device once and gathers each step's batch there; `ResidentTrainSet`
 does the same, in float32 when it fits the budget, else as uint8 images
 (round to nearest of x·255) and uint8 labels, decoded per gathered batch
 (`_resident_plan`, `_quantize_u8`, `_labels_u8`). Nothing per epoch
-crosses the host link but the index matrix and the losses.
+crosses the host link but the index matrix and the losses. In
+reconstruction mode (`labels=None`, JAX loop.py:1085-1092) one image
+buffer is input and target, so under uint8 residency both are decoded
+from it and stay equal.
+
+`train_step(augment_fn=...)` augments the whole step batch (micro ×
+accum rows) before the micro-batch split, as JAX train/steps.py:228-231
+does, with draws from the caller's `generator`.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,28 +73,39 @@ def resident_plan(f32_bytes: int, budget: int) -> Tuple[bool, bool]:
 
 class ResidentTrainSet:
     """A train set uploaded to `device` once; `batch(idx)` gathers a step
-    batch there as (float32 NHWC images, int64 labels)."""
+    batch there as (float32 NHWC images, int64 labels), or, with
+    `labels=None` (reconstruction), as (images, the same images)."""
 
-    def __init__(self, images: np.ndarray, labels: np.ndarray, device, quantize: bool):
+    def __init__(self, images: np.ndarray, labels: Optional[np.ndarray], device,
+                 quantize: bool):
         self.quantize = quantize
         if quantize:
-            images, labels = quantize_u8(images), labels_u8(labels)
+            images = quantize_u8(images)
+            labels = None if labels is None else labels_u8(labels)
         self.images = torch.from_numpy(np.ascontiguousarray(images)).to(device)
-        self.labels = torch.from_numpy(np.ascontiguousarray(labels)).to(device)
+        self.labels = (None if labels is None
+                       else torch.from_numpy(np.ascontiguousarray(labels)).to(device))
 
     def batch(self, idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = self.images.index_select(0, idx)
         if self.quantize:
             x = x.float() * (1.0 / 255.0)
+        if self.labels is None:
+            return x, x
         return x, self.labels.index_select(0, idx).long()
 
 
 def train_step(state: TrainState, loss_fn: Callable, images: torch.Tensor,
-               targets: torch.Tensor, accum_steps: int = 1) -> torch.Tensor:
+               targets: torch.Tensor, accum_steps: int = 1,
+               augment_fn: Optional[Callable] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """One optimizer step on a step batch of accum_steps × micro rows:
     micro-batch i is rows [i·micro, (i+1)·micro), as JAX's reshape takes
-    them. Returns the mean of the micro-batches' losses, a 0-d f32 tensor
-    on the device (no host sync)."""
+    them. `augment_fn(images, targets, generator)` first transforms the
+    whole step batch. Returns the mean of the micro-batches' losses, a 0-d
+    f32 tensor on the device (no host sync)."""
+    if augment_fn is not None:
+        images, targets = augment_fn(images, targets, generator)
     model, opt = state.model, state.optimizer
     model.train()
     opt.zero_grad(set_to_none=True)

@@ -11,6 +11,7 @@ plain version round at the same points and sum in another order, so an
 output, or an intermediate it depends on, can land one step apart.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -480,3 +481,63 @@ def test_write_behind_checkpoint_holds_the_state_of_its_epoch(cuda, tmp_path):
                for (a, b), (c, d) in zip(got_opt, want_opt))
     mo = ckpt.load_model_state(str(tmp_path / "MO_c"))
     assert all(torch.equal(mo[k], want[k]) for k in want)
+
+
+def test_augment_batch_on_the_card_matches_the_cpu(cuda):
+    """The same drawn parameters through apply_augment_batch on the card and
+    on the CPU. Only the rotation's cos and sin may differ (the float64
+    values rounded on the card, the C library's cosf and sinf on the CPU,
+    one ulp apart for about 2% of angles), which moves a sample by up to
+    ~1e-4 px at 256 px: in the rotated rows whose cos or sin differ, images
+    within 1e-3 and label pixels on at most 1e-3 of their pixels (rounding
+    ties); every other row within 1e-5, its labels equal. Neither the draws
+    nor the call wait on the card: the rows are grouped on the host."""
+    from image_segmentation_tpu_torch.ops import augment as Aug
+
+    n, size = 64, 256
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(0, 1, (n, size, size, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 4, (n, size, size)))
+    params = Aug.draw_augment_params(n, size, torch.Generator().manual_seed(1))
+    on_card = Aug.AugmentParams(params.sel, params.use, *(t.to(cuda) for t in params[2:]))
+    xc, yc = x.to(cuda), y.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = Aug.apply_augment_batch(xc, yc, on_card)
+        # the values drawn on the card's generator, the gate on the host
+        p = Aug.draw_augment_params(4096, 32, torch.Generator().manual_seed(0), cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = Aug.apply_augment_batch(x, y, params)
+    rad = params.angle * (math.pi / 180.0)
+    cos_sin = [t.cpu() for t in Aug._cos_sin(rad.to(cuda))]
+    odd = params.use & (params.sel == Aug.AUGMENTER_NAMES.index("rotation")) & (
+        (cos_sin[0] != Aug._cos_sin(rad)[0]) | (cos_sin[1] != Aug._cos_sin(rad)[1]))
+    err = (got[0].cpu() - want[0]).abs().flatten(1).amax(1)
+    differ = (got[1].cpu() != want[1]).flatten(1).sum(1)
+    assert err[~odd].max().item() <= 1e-5 and differ[~odd].sum() == 0
+    assert (err[odd] <= 1e-3).all() and (differ[odd] <= 1e-3 * size * size).all()
+    assert p.angle.is_cuda and not p.use.is_cuda
+    assert abs((~p.use).float().mean().item() - 0.5) <= 0.03
+
+
+def test_recon_forward_in_bf16_on_the_card_is_near_the_cpu_f32(cuda):
+    """The full-width ReconstructionAutoencoder (base 64, 256 px) in bf16 on
+    the card against the same weights in f32 on the CPU, eval mode: each of
+    its 20 conv layers rounds its inputs and weights at 2^-9 relative, and
+    the sigmoid's slope is at most 1/4: the outputs within 2^-5, their mean
+    difference within 2^-9."""
+    from image_segmentation_tpu_torch import config as C
+
+    card = C.build_model(C.RECON_AE, cuda, torch.Generator().manual_seed(0))
+    cpu = C.build_model(C.RECON_AE, "cpu", torch.Generator().manual_seed(0))
+    assert card.dtype == torch.bfloat16 and cpu.dtype == torch.float32
+    x = torch.from_numpy(np.random.default_rng(2).uniform(0, 1, (2, 256, 256, 3))
+                         .astype(np.float32))
+    with torch.no_grad():
+        got, want = card(x.to(cuda)).float().cpu(), cpu(x)
+    assert got.shape == want.shape == (2, 256, 256, 3) and torch.isfinite(got).all()
+    diff = (got - want).abs()
+    assert diff.max().item() <= 2.0**-5 and diff.mean().item() <= 2.0**-9, \
+        (diff.max().item(), diff.mean().item())

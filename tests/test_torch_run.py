@@ -57,10 +57,10 @@ def test_resume_continues_the_history(trained, tmp_path):
 
 @pytest.mark.parametrize("argv,message", [
     (["--config", "nope", "--synthetic", "8", "--device", "cpu"], "unknown config"),
-    (["--config", "unet_aug", "--synthetic", "8", "--device", "cpu"], "not ported yet"),
+    (["--config", "clipunet", "--synthetic", "8", "--device", "cpu"], "not ported yet"),
     (["--config", "unet_noaug", "--device", "cpu"], "--data-root or --synthetic"),
     (TINY + ["--multihost"], "--multihost"),
-    (TINY + ["--init-weights", "w.safetensors"], "--init-weights"),
+    (TINY + ["--init-weights", "w.safetensors"], "--init-weights"),  # not a checkpoint
     (TINY + ["--tensorboard", "tb"], "--tensorboard"),
 ])
 def test_refused_with_a_message(argv, message):

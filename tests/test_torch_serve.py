@@ -324,6 +324,8 @@ def test_port_imports_no_jax():
     code = (
         "import pkgutil, sys, importlib, image_segmentation_tpu_torch as p\n"
         "import image_segmentation_tpu_torch.serve.app\n"
+        "import image_segmentation_tpu_torch.ops.augment, image_segmentation_tpu_torch.run\n"
+        "import image_segmentation_tpu_torch.data.augment\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
