@@ -74,9 +74,25 @@ Phases (each prints its lines; any failure ends the run non-zero):
      encoder equals the recon checkpoint's after the transfer and its
      parameters are unchanged after the frozen stage 2; each stage's
      step ms;
- 11. the last line is {"ok": true, "device": {...}}.
+ 11. CLIP training at full width (ViT-B/16, decoder 1024..64, 224 px,
+     seeded random weights, bf16, K3/K4 on) through `run.main`: a random
+     ViT converted to a CLIP .npz by the port's converter; `clipunet` for
+     2 epochs on 128 synthetic images with `--clip-weights` (the run's ViT
+     must equal the file's), the same run with `--cache-features` (step
+     1's loss must be equal in both), `clipunet_noskips` for 1 epoch. K3
+     and K4 launch 12 times per train micro-batch forward and per eval
+     batch in line, per encode batch and per eval batch cached, K1 never.
+     Then the in-line and the cached step at batch 64 (8 x 8): ms,
+     images/s, device busy share, peak memory; and the encode's ms an
+     image;
+ 12. prompt training at full width through `run.main`: `prompt
+     --clipunet-checkpoint` on phase 11's MO_ for 1 epoch; the grafted
+     clip branch equals the checkpoint, its ViT is unchanged by training,
+     K1 launches 9 times per eval batch and K3/K4 12 times per eval batch
+     and per train micro-batch; the step's ms;
+ 13. the last line is {"ok": true, "device": {...}}.
 
-The launch counts of phases 4-10 are each set to 0 just before the path
+The launch counts of phases 4-12 are each set to 0 just before the path
 is driven and read just after; the kernels line sums them.
 
 Run from the repository root: python3 chip_smoke.py (no arguments).
@@ -971,14 +987,20 @@ def phase_batched(K, eng, n_layers: int, launches: dict, card: str) -> None:
         be.close()
 
 
-def _eval_batches(n_val: int, seed: int, batch: int = 8) -> int:
+def _eval_batches(n_val: int, seed: int, batch: int = 8, prompt: bool = False) -> int:
     """The eval batches of one device-protocol epoch over run.py's
-    synthetic val set: its canvas-size buckets, each cut into batches."""
+    synthetic val set (its prompt triplets, seeded as run.py seeds them,
+    with `prompt`): its canvas-size buckets, each cut into batches."""
+    from image_segmentation_tpu_torch.data.dataset import ArrayDataset
+    from image_segmentation_tpu_torch.data.prompts import generate_prompt_dataset
     from image_segmentation_tpu_torch.run import _synthetic_items
     from image_segmentation_tpu_torch.train.fast_eval import plan_size_buckets
 
-    labels = [lab for _, lab in _synthetic_items(n_val, seed)]
-    plan = plan_size_buckets(labels) if n_val >= 16 else [range(n_val)]
+    items = _synthetic_items(n_val, seed)
+    if prompt:
+        items = generate_prompt_dataset(ArrayDataset(items), seed=seed).items
+    labels = [item[-1] for item in items]
+    plan = plan_size_buckets(labels) if len(labels) >= 16 else [range(len(labels))]
     return sum(-(-len(b) // batch) for b in plan)
 
 
@@ -1438,6 +1460,241 @@ def phase_autoencoder(K, launches: dict, card: str) -> None:
           f"recon best val mse {recon.best['loss']:.6f} ({card})")
 
 
+# The CLIP steps' device time by kind: the ViT's two kernels first (K4's
+# reduction before the generic reductions), then phase 8's kinds, whose
+# GEMM group here also holds cuBLAS's linear layers.
+CLIP_STEP_KINDS = ((("K3", ("attention_kernel",)),
+                    ("K4", ("mlp_fc1_kernel", "mlp_fc2_kernel", "mlp_reduce_kernel")))
+                   + tuple((("GEMM and conv (cuBLAS, cuDNN)" if k == "conv (cuDNN)" else k), w)
+                           for k, w in STEP_KERNEL_KINDS))
+
+
+def _step_report(step, batch: int) -> dict:
+    """A train step's median ms of 10 (CUDA events, after 2 warm-up
+    steps), images/s, peak device memory, and its device ms under
+    torch.profiler (2 steps), by kind too, with the share of the
+    unprofiled step that the device is busy."""
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _cuda_ms(step, iters=10, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    rows = _profile_session(step, 2)
+    device_ms = sum(t for _, t in rows.values()) / 2e3
+    kinds = {}
+    for key, (_, t) in rows.items():
+        kind = next((k for k, words in CLIP_STEP_KINDS if any(w in key for w in words)), "other")
+        kinds[kind] = round(kinds.get(kind, 0.0) + t / 2e3, 3)
+    return {"ms": round(ms, 3), "images/s": round(batch / ms * 1e3, 1),
+            "device ms": round(device_ms, 3), "busy": round(device_ms / ms, 4),
+            "peak bytes": peak, "device ms by kind": kinds}
+
+
+class _FirstLoss:
+    """Wraps train.loop's train_step while a run lasts and keeps the loss of
+    its first call: the first optimizer step's loss."""
+
+    def __init__(self):
+        from image_segmentation_tpu_torch.train import loop
+
+        self.loop, self.real, self.losses = loop, loop.train_step, []
+
+    def __enter__(self):
+        def spy(*args, **kwargs):
+            loss = self.real(*args, **kwargs)
+            self.losses.append(loss)
+            return loss
+
+        self.loop.train_step = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.train_step = self.real
+
+    @property
+    def first(self) -> float:
+        return float(self.losses[0])
+
+
+def _write_clip_npz(tmp: str, seed: int) -> str:
+    """A seeded random full-width ViT saved as an HF-layout state dict,
+    converted to the CLIP .npz by the port's converter; returns its path."""
+    import os
+
+    from image_segmentation_tpu_torch.models.clip_vit import ClipViT
+    from image_segmentation_tpu_torch.utils import convert_clip_weights
+
+    vit = ClipViT()
+    vit.init_weights(torch.Generator().manual_seed(seed))
+    pt, npz = os.path.join(tmp, "vit.pt"), os.path.join(tmp, "clip_vit_b16.npz")
+    torch.save({f"vision_model.{k}": v for k, v in vit.state_dict().items()}, pt)
+    if convert_clip_weights.main(["--torch-state-dict", pt, "--out", npz]) != 0:
+        raise AssertionError("the CLIP weight converter failed")
+    return npz
+
+
+def phase_clip_training(K, launches: dict, card: str, tmp: str) -> str:
+    """clipunet and clipunet_noskips at full width (ViT-B/16, decoder
+    1024..64, 224 px, bf16, K3/K4 on) through run.main: clipunet for 2
+    epochs on 128 synthetic images with --clip-weights from a converted
+    random ViT, the same run with --cache-features, clipunet_noskips for 1;
+    then the in-line and the cached step and the encode. Returns the
+    in-line run's MO_ directory."""
+    import os
+
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch import run as R
+    from image_segmentation_tpu_torch.models.clip_vit import load_pretrained_clip_state
+    from image_segmentation_tpu_torch.train import feature_cache as FC
+    from image_segmentation_tpu_torch.train.state import TrainState, freeze_
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    cfg = C.CLIPUNET
+    n_train, n_val, epochs = 128, 32, 2
+    micro_fwd = epochs * (n_train // (cfg.batch_size * cfg.accum_steps)) * cfg.accum_steps
+    encode = -(-n_train // cfg.batch_size)
+    eval_b = _eval_batches(n_val, cfg.seed + 1, cfg.batch_size)
+    npz = _write_clip_npz(tmp, seed=11)
+    want_vit = load_pretrained_clip_state(npz)
+    runs = {}
+    for name, extra, want in (
+            ("in line", [], 12 * (micro_fwd + epochs * eval_b)),
+            ("cached", ["--cache-features"], 12 * (encode + epochs * eval_b))):
+        _zero(K)
+        t0 = time.time()
+        with _FirstLoss() as first:
+            res = R.main(["--config", "clipunet", "--synthetic", str(n_train), "--epochs",
+                          str(epochs), "--clip-weights", npz, "--device", "cuda",
+                          "--save-dir", os.path.join(tmp, name.replace(" ", "_"))] + extra)
+        counts = _counts(K)
+        _add(launches, K)
+        runs[name] = first.first
+        losses = res.history["train_loss"]
+        full = res.state.model if name == "in line" else None
+        print(f"[clip] clipunet {name}, {epochs} epochs, {n_train} train / {n_val} val "
+              f"synthetic images at 224 px, micro 8 x accum 8: {time.time() - t0:.1f} s; "
+              f"step 1 loss {first.first!r}; train loss {losses}; val mIoU "
+              f"{res.history['val_iou']}; launches (attention, mlp, double_conv) {counts}, "
+              f"want ({want}, {want}, 0) ({card})")
+        if not all(np.isfinite(losses)) or counts != (want, want, 0):
+            raise AssertionError(f"clipunet {name}: losses {losses}, launches {counts}")
+        mo = os.path.join(tmp, name.replace(" ", "_"), "MO_clipunet")
+        saved = torch.load(os.path.join(mo, "weights.pt"), map_location="cpu")
+        vit_equal = all(torch.equal(saved[f"vision_model.{k}"], v) for k, v in want_vit.items())
+        if full is not None:
+            vit_equal &= all(torch.equal(v.cpu(), want_vit[k])
+                             for k, v in full.vision_model.state_dict().items())
+        print(f"[clip] {name}: the run's ViT and its MO_'s equal the converted .npz "
+              f"{vit_equal}; MO_ entries {len(saved)}")
+        if not vit_equal:
+            raise AssertionError(f"clipunet {name}: the ViT is not the --clip-weights ViT")
+    print(f"[clip] step 1 loss, in line {runs['in line']!r}, cached {runs['cached']!r}")
+    if runs["in line"] != runs["cached"]:
+        raise AssertionError(f"step 1 losses differ: {runs}")
+
+    _zero(K)
+    t0 = time.time()
+    res = R.main(["--config", "clipunet_noskips", "--synthetic", str(n_train), "--epochs", "1",
+                  "--device", "cuda", "--save-dir", os.path.join(tmp, "noskips")])
+    counts = _counts(K)
+    _add(launches, K)
+    want = 12 * (micro_fwd // epochs + eval_b)
+    print(f"[clip] clipunet_noskips 1 epoch: {time.time() - t0:.1f} s; train loss "
+          f"{res.history['train_loss']}; launches {counts}, want ({want}, {want}, 0) ({card})")
+    if not np.isfinite(res.history["train_loss"][0]) or counts != (want, want, 0):
+        raise AssertionError(f"clipunet_noskips: {res.history}, launches {counts}")
+
+    # the step at batch 64 (8 x 8), in line and on cached features, and
+    # the encode
+    model = C.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
+    freeze_(model, ("vision_model",))
+    loss_fn = C.build_loss(cfg)
+    x, y = _full_batch(64, side=224, seed=6)
+    st = TrainState(model, *C.build_optimizer(cfg, model, frozen_prefixes=("vision_model",)))
+    inline = _step_report(lambda: train_step(st, loss_fn, x, y, 8), 64)
+    images = x.cpu().numpy()
+    FC.encode_clip_features(model, images[:8], batch_size=8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = FC.encode_clip_features(model, images, batch_size=8)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    x8 = x[:8]
+    with torch.no_grad():
+        encode_dev = _device_ms(lambda: model.encode(x8), iters=5) / 8
+    dev_feats = torch.from_numpy(feats).cuda()
+    decoder = model.decoder_only()
+    sd = TrainState(decoder, *C.build_optimizer(cfg, decoder))
+    cached = _step_report(lambda: train_step(sd, loss_fn, dev_feats, y, 8), 64)
+    print(f"[clip] train step, full width, batch 64 (8 x 8), bf16: in line {inline}; on "
+          f"cached features {cached}; encode {encode_ms / 64:.3f} ms an image (64 images in "
+          f"batches of 8, host to host, {feats.nbytes} bytes of float32 features), of which "
+          f"the ViT's device time {encode_dev:.4f} ms an image (torch.profiler, batch 8) "
+          f"({card})")
+    print(f"[clip] the card's total memory {torch.cuda.get_device_properties(0).total_memory} "
+          f"bytes; default train-set budget (a quarter) "
+          f"{torch.cuda.get_device_properties(0).total_memory // 4} bytes")
+    return os.path.join(tmp, "in_line", "MO_clipunet")
+
+
+def phase_prompt_training(K, launches: dict, card: str, clipunet_mo: str, tmp: str) -> None:
+    """prompt at full width through run.main, its clip branch grafted from
+    phase 11's ClipUNet: 1 epoch on the triplets of 64 synthetic images;
+    the graft, the frozen ViT and the launches; then the step's ms."""
+    import os
+
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch import run as R
+    from image_segmentation_tpu_torch.data.dataset import ArrayDataset
+    from image_segmentation_tpu_torch.data.prompts import generate_prompt_dataset
+    from image_segmentation_tpu_torch.train import checkpoint as ckpt
+    from image_segmentation_tpu_torch.train.state import TrainState, freeze_
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    cfg = C.PROMPT
+    n_images, n_val = 64, 16
+    n_trip = len(generate_prompt_dataset(ArrayDataset(R._synthetic_items(n_images, cfg.seed)),
+                                         seed=cfg.seed))
+    want_clip = ckpt.load_model_state(clipunet_mo, "cuda")
+    fresh = C.build_model(cfg, "cuda", torch.Generator().manual_seed(3))
+    n = ckpt.load_subtree(clipunet_mo, fresh, "", "clip")
+    got = fresh.state_dict()
+    grafted = n == len(want_clip) and all(torch.equal(got[f"clip.{k}"], v)
+                                          for k, v in want_clip.items())
+    del fresh, got
+    eval_b = _eval_batches(n_val, cfg.seed + 1, cfg.batch_size, prompt=True)
+    _zero(K)
+    t0 = time.time()
+    res = R.main(["--config", "prompt", "--synthetic", str(n_images), "--epochs", "1",
+                  "--clipunet-checkpoint", clipunet_mo, "--device", "cuda",
+                  "--save-dir", os.path.join(tmp, "prompt")])
+    counts = _counts(K)
+    _add(launches, K)
+    micro_fwd = (n_trip // (cfg.batch_size * cfg.accum_steps)) * cfg.accum_steps
+    want = (12 * (eval_b + micro_fwd),) * 2 + (9 * eval_b,)
+    after = res.state.model.state_dict()
+    vit_kept = all(torch.equal(after[f"clip.{k}"], v) for k, v in want_clip.items()
+                   if k.startswith("vision_model."))
+    print(f"[prompt] prompt 1 epoch, {n_trip} train triplets, {eval_b} eval batches: "
+          f"{time.time() - t0:.1f} s; train loss {res.history['train_loss']}; val mIoU "
+          f"{res.history['val_iou']}; clip branch equal to the ClipUNet checkpoint after the "
+          f"graft {grafted} ({n} entries); clip.vision_model unchanged by training "
+          f"{vit_kept}; launches {counts}, want {want} ({card})")
+    if not (np.isfinite(res.history["train_loss"][0]) and grafted and vit_kept
+            and counts == want):
+        raise AssertionError(f"prompt: {res.history}, graft {grafted}, ViT kept {vit_kept}, "
+                             f"launches {counts} against {want}")
+    model = C.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
+    freeze_(model, ("clip.vision_model",))
+    st = TrainState(model, *C.build_optimizer(cfg, model, frozen_prefixes=("clip.vision_model",)))
+    x, y = _full_batch(64, side=224, seed=8)
+    hm = torch.rand(64, 224, 224, 1, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(8))
+    rep = _step_report(lambda: train_step(st, C.build_loss(cfg), (x, hm), y, 8), 64)
+    print(f"[prompt] train step, full width (freeze_clip False: the clip decoder and the "
+          f"selection UNet train), batch 64 (8 x 8), bf16: {rep} ({card})")
+
+
 def print_ptxas_report(log: str) -> None:
     """One line per kernel from ptxas's -v report: registers, spills."""
     import re
@@ -1494,6 +1751,11 @@ def main() -> int:
     del eng, eng4, clip, unet
     for phase in (phase_training, phase_unet_aug, phase_autoencoder):
         timed(phase, K, launches, card)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mo = timed(phase_clip_training, K, launches, card, tmp)
+        timed(phase_prompt_training, K, launches, card, mo, tmp)
     print(f"[done] every phase passed in {time.time() - start:.1f} s from the build on")
 
     sources = {"fused_attention": ("attention.cu", "image_segmentation_tpu/ops/pallas/attention.py:99"),

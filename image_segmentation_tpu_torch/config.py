@@ -1,8 +1,8 @@
 """Experiment configs, model construction, and the training recipe.
 
-Counterpart of image_segmentation_tpu/config.py: the `clipunet`,
-`unet_noaug`, `unet_aug`, `recon_ae`, `autoencoder` and `prompt`
-configs, `build_model`, and the
+Counterpart of image_segmentation_tpu/config.py: its seven configs
+(`unet_noaug`, `unet_aug`, `recon_ae`, `autoencoder`, `clipunet`,
+`clipunet_noskips`, `prompt`), `build_model`, and the
 training half (`ExperimentConfig`'s training fields, config.py:30-66;
 `build_loss`, `build_optimizer`, `build_lr_schedule`). On an accelerator
 the JAX package runs its models in bfloat16 (config.py:60,117-146); the
@@ -16,9 +16,11 @@ statistics and the losses stay float32 everywhere.
 The reference's recipe (notebooks, cell 0): FullWeight class weights,
 Dice + CE with train smooth 1 and no ignore index, AdamW lr 1e-3 wd
 0.01, micro-batch 8 accumulated to an effective batch of 64, no LR
-scheduler. The port trains `unet_noaug`, `unet_aug` (online or offline
-augmentation) and the two-stage autoencoder (`recon_ae`, then
-`autoencoder` with the encoder transferred and frozen) through run.py.
+scheduler. The port trains all seven through run.py: `unet_noaug`,
+`unet_aug` (online or offline augmentation), the two-stage autoencoder
+(`recon_ae`, then `autoencoder` with the encoder transferred and frozen),
+`clipunet` and `clipunet_noskips` on a frozen ViT (in line, or as cached
+features), and `prompt`.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from image_segmentation_tpu_torch.models.autoencoder import (
     ReconstructionAutoencoder,
     SegmentationAutoencoder,
 )
-from image_segmentation_tpu_torch.models.clip_unet import ClipUNet
+from image_segmentation_tpu_torch.models.clip_unet import ClipUNet, ClipUNetNoSkips
 from image_segmentation_tpu_torch.models.prompt import PromptModel
 from image_segmentation_tpu_torch.models.unet import UNet
 from image_segmentation_tpu_torch.train.state import make_adamw, trainable_parameters
@@ -66,8 +68,8 @@ class ExperimentConfig:
     effective_batch: int = 64  # accumulation = effective // batch
     augment: bool = False
     augment_online: bool = True  # on-device augmentation, else offline
-    # freeze the pretrained encoder; read by run.py for the autoencoder (JAX
-    # also hands it to the clipunet and prompt models, not trained here yet)
+    # freeze the pretrained encoder: the autoencoder's (run.py), the
+    # ClipUNets' ViT, and the prompt model's whole clip branch
     freeze_encoder: bool = True
     seed: int = 0
 
@@ -84,16 +86,19 @@ RECON_AE = ExperimentConfig(name="recon_ae", model="recon", target_size=256,
 AUTOENCODER = ExperimentConfig(name="autoencoder", model="autoencoder", target_size=256,
                                freeze_encoder=True)
 CLIPUNET = ExperimentConfig(name="clipunet", model="clipunet", target_size=224)
+CLIPUNET_NOSKIPS = ExperimentConfig(name="clipunet_noskips", model="clipunet_noskips",
+                                    target_size=224)
 # the reference prompt run's class weights are uniform (prompt.ipynb cell 0)
 PROMPT = ExperimentConfig(name="prompt", model="prompt", target_size=224,
                           freeze_encoder=False, class_weights=None)
 
-CONFIGS = {c.name: c for c in (UNET_NOAUG, UNET_AUG, RECON_AE, AUTOENCODER, CLIPUNET, PROMPT)}
+CONFIGS = {c.name: c for c in (UNET_NOAUG, UNET_AUG, RECON_AE, AUTOENCODER, CLIPUNET,
+                               CLIPUNET_NOSKIPS, PROMPT)}
 
 # model name → (class, whether it reaches a hand-written kernel)
 MODELS = {"unet": (UNet, True), "autoencoder": (SegmentationAutoencoder, False),
           "recon": (ReconstructionAutoencoder, False), "clipunet": (ClipUNet, True),
-          "prompt": (PromptModel, True)}
+          "clipunet_noskips": (ClipUNetNoSkips, True), "prompt": (PromptModel, True)}
 
 
 def build_model(cfg: ExperimentConfig, device, generator: torch.Generator,
@@ -102,7 +107,9 @@ def build_model(cfg: ExperimentConfig, device, generator: torch.Generator,
     generator), in eval mode on `device`. `overrides` (keyword arguments of
     the model: `base` for the UNet and the autoencoder; `vit`,
     `skip_indices`, ... for the ClipUNet; those and `unet_base` for the
-    prompt model) cut the model to size for tests and the demo."""
+    prompt model) cut the model to size for tests and the demo. The
+    config's `freeze_encoder` goes to the ClipUNets as `freeze_encoder` and
+    to the prompt model as `freeze_clip` (JAX config.py:127-146)."""
     device = torch.device(device)
     on_cuda = device.type == "cuda"
     if cfg.model not in MODELS:
@@ -113,6 +120,10 @@ def build_model(cfg: ExperimentConfig, device, generator: torch.Generator,
         kwargs["num_classes"] = cfg.num_classes
     if has_kernels:
         kwargs["use_kernels"] = cfg.use_kernels and on_cuda
+    if cfg.model in ("clipunet", "clipunet_noskips"):
+        kwargs["freeze_encoder"] = cfg.freeze_encoder
+    elif cfg.model == "prompt":
+        kwargs["freeze_clip"] = cfg.freeze_encoder
     model = cls(**kwargs, **overrides)
     model.init_weights(generator)
     return model.to(device=device, memory_format=torch.channels_last).eval()

@@ -1,4 +1,5 @@
-"""Label semantics for serving: boundary remap and the webapp colour map.
+"""Label semantics: boundary remap, the prompt task's ids and the webapp
+colour map.
 
 On-disk labels are class-id PNGs (0 background, 1 cat, 2 dog, 255
 boundary); the boundary sentinel maps to class 3. Counterpart of
@@ -24,3 +25,13 @@ def colorize_mask(mask: np.ndarray, color_map: np.ndarray = COLOR_MAP) -> np.nda
     """HxW class ids → HxWx3 uint8 RGB."""
     mask = np.clip(np.asarray(mask), 0, len(color_map) - 1).astype(np.int64)
     return color_map[mask]
+
+
+def remap_for_prompt_task(label: np.ndarray) -> np.ndarray:
+    """Segmentation ids {0 bg, 1 cat, 2 dog, 255 boundary} → prompt-task ids
+    {1 bg + boundary, 2 cat, 3 dog}, 0 kept for 'deactivated' (JAX
+    labels.py:44; reference augmentation.ipynb cell 23: 255 → 3, 3 → 0,
+    then + 1)."""
+    label = target_remap(label)
+    label = np.where(label == 3, 0, label)
+    return (label + 1).astype(label.dtype)

@@ -31,6 +31,9 @@ class MaterializedDataset:
     metas: G.ResizeMeta  # arrays of shape (N,)
     heatmaps: Optional[np.ndarray] = None
     orig_labels: Optional[List[np.ndarray]] = None
+    # `images` holds packed ViT features (train/feature_cache.py), which the
+    # trainer keeps on the device as float32 or not at all
+    packed_features: bool = False
     # packed by train.fast_eval for the device eval protocol
     label_canvases: Optional[np.ndarray] = None
     # (device, arrays) uploaded once by train.loop's device eval and by

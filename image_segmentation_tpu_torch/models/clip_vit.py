@@ -16,16 +16,24 @@ plain versions themselves.
 
 Parameters are float32; the compute dtype is the dtype of the pixels the
 ClipViT is given (the ClipUNet casts them).
+
+Pretrained weights travel as the `.npz` that the JAX package's converter
+writes (flat '/'-joined flax names, `block_0/attn/q_proj/kernel`, ...;
+JAX clip_vit.py:255-342): `hf_vision_npz_arrays` makes that layout from
+an HF-layout state dict, and `load_pretrained_clip_state` reads it back
+as this module's state dict. One file serves both packages.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Dict, List, Mapping, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from image_segmentation_tpu_torch.models.convert import _vit
 from image_segmentation_tpu_torch.models.layers import lecun_normal_
 from image_segmentation_tpu_torch.ops.kernels.attention import (
     attention_reference,
@@ -54,8 +62,9 @@ class ClipViTConfig:
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-    """LayerNorm with f32 statistics, result in x's dtype."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+    """LayerNorm with f32 statistics, result in x's dtype (a float64 model
+    runs its LayerNorms in f32 too, as the plain MLP does)."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(), ln.bias.float(),
                         ln.eps).to(x.dtype)
 
 
@@ -181,3 +190,48 @@ class ClipViT(nn.Module):
 def tokens_to_grid(tokens: torch.Tensor, grid: int) -> torch.Tensor:
     """(N, 1+G², H) → (N, G, G, H): drop CLS, reshape to the grid."""
     return tokens[:, 1:, :].reshape(tokens.shape[0], grid, grid, tokens.shape[-1])
+
+
+def hf_vision_npz_arrays(state_dict: Mapping) -> Dict[str, np.ndarray]:
+    """An HF CLIPVisionModel state dict (tensors or numpy arrays, with or
+    without the `vision_model.` prefix) → the flat arrays of the JAX
+    converter's `.npz` (JAX `convert_hf_vision_state_dict` then
+    `flatten_dict(sep='/')`): linear weights (out, in) → kernel (in, out),
+    the patch conv OIHW → HWIO, LayerNorm weight → scale. Other entries
+    (position_ids, post_layernorm) are left out, as there."""
+    sd = {k.replace("vision_model.", ""): np.asarray(
+              v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
+          for k, v in state_dict.items()}
+    out = {"patch_embedding/kernel":
+               sd["embeddings.patch_embedding.weight"].transpose(2, 3, 1, 0),
+           "class_embedding": sd["embeddings.class_embedding"],
+           "position_embedding": sd["embeddings.position_embedding.weight"],
+           "pre_layernorm/scale": sd["pre_layrnorm.weight"],
+           "pre_layernorm/bias": sd["pre_layrnorm.bias"]}
+    n_layers = 1 + max(int(k.split(".")[2]) for k in sd if k.startswith("encoder.layers."))
+    for i in range(n_layers):
+        src, dst = f"encoder.layers.{i}.", f"block_{i}/"
+        for hf, flax in (("layer_norm1", "ln1"), ("layer_norm2", "ln2")):
+            out[f"{dst}{flax}/scale"] = sd[f"{src}{hf}.weight"]
+            out[f"{dst}{flax}/bias"] = sd[f"{src}{hf}.bias"]
+        linears = [(f"self_attn.{n}", f"attn/{n}")
+                   for n in ("q_proj", "k_proj", "v_proj", "out_proj")]
+        for hf, flax in linears + [("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")]:
+            out[f"{dst}{flax}/kernel"] = sd[f"{src}{hf}.weight"].T
+            out[f"{dst}{flax}/bias"] = sd[f"{src}{hf}.bias"]
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}
+
+
+def load_pretrained_clip_state(path: str) -> Dict[str, torch.Tensor]:
+    """The ClipViT state dict (HF key names, float32) of a converted CLIP
+    `.npz`, the file JAX's `load_pretrained_clip_params(cache_path=...)`
+    reads."""
+    tree: dict = {}
+    with np.load(path) as npz:
+        for key in npz.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = npz[key]
+    return _vit(tree)

@@ -1,8 +1,8 @@
 """JAX (flax) variables → the port's state_dict, in numpy and torch only.
 
 `from_jax_variables` takes the flax `{'params', 'batch_stats'}` tree of a
-ClipUNet, a UNet, a SegmentationAutoencoder, a ReconstructionAutoencoder
-or a PromptModel, or the
+ClipUNet, a ClipUNetNoSkips, a ClipUNetDecoderOnly, a UNet, a
+SegmentationAutoencoder, a ReconstructionAutoencoder or a PromptModel, or the
 `{'params'}` tree of a bare ClipViT, as nested dicts of numpy arrays, and
 returns the state_dict of the port's module:
 
@@ -106,8 +106,10 @@ def _prefixed(prefix: str, sd: Mapping) -> Dict[str, torch.Tensor]:
     return {f"{prefix}.{k}": v for k, v in sd.items()}
 
 
-def _clip_unet(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
-    sd = _prefixed("vision_model", _vit(params["encoder"]))
+def _clip_decoder(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
+    """init_conv, dec_i and head of any of the three ClipUNet modules; a
+    block with `skip_proj` is a skip block, one without a no-skip block."""
+    sd = {}
     for name in ("init_conv", "head"):
         sd.update(_prefixed(name, _conv(params[name])))
     n_blocks = sum(1 for k in params if k.startswith("dec_"))
@@ -115,13 +117,20 @@ def _clip_unet(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
         p, s, pre = params[f"dec_{i}"], stats[f"dec_{i}"], f"dec.{i}."
         parts = {
             "up.up": _conv_transpose(p["UpConv_0"]["ConvTranspose_0"]),
-            "skip_proj": _conv(p["skip_proj"]),
             "conv1": _conv_bn_relu(p["ConvBNRelu_0"], s["ConvBNRelu_0"]),
             "conv2": _conv_bn_relu(p["ConvBNRelu_1"], s["ConvBNRelu_1"]),
         }
+        if "skip_proj" in p:
+            parts["skip_proj"] = _conv(p["skip_proj"])
         for name, tensors in parts.items():
             sd.update({f"{pre}{name}.{k}": v for k, v in tensors.items()})
     return sd
+
+
+def _clip_unet(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
+    """A ClipUNet or a ClipUNetNoSkips: the ViT under `vision_model`."""
+    return {**_prefixed("vision_model", _vit(params["encoder"])),
+            **_clip_decoder(params, stats)}
 
 
 def _autoencoder(params: Mapping, stats: Mapping, skips: bool = True
@@ -146,13 +155,15 @@ def _autoencoder(params: Mapping, stats: Mapping, skips: bool = True
 
 
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's state_dict for a JAX ClipUNet, UNet, SegmentationAutoencoder,
+    """The port's state_dict for a JAX ClipUNet, ClipUNetNoSkips,
+    ClipUNetDecoderOnly, UNet, SegmentationAutoencoder,
     ReconstructionAutoencoder, PromptModel or bare ClipViT tree, told apart
-    by what the tree holds: a ClipUNet has `encoder/class_embedding`, an
-    autoencoder `encoder/EncoderBlock_0` (the reconstruction one
-    `DecoderBlockNoSkips_0` beside it), a PromptModel `clip` and `mask`, a
-    UNet `DoubleConv_0`, a bare ClipViT `class_embedding`. Any other tree
-    raises."""
+    by what the tree holds: a ClipUNet or ClipUNetNoSkips has
+    `encoder/class_embedding` (the two differ in their blocks' `skip_proj`),
+    a ClipUNetDecoderOnly `init_conv` and no encoder, an autoencoder
+    `encoder/EncoderBlock_0` (the reconstruction one `DecoderBlockNoSkips_0`
+    beside it), a PromptModel `clip` and `mask`, a UNet `DoubleConv_0`, a
+    bare ClipViT `class_embedding`. Any other tree raises."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     encoder = params.get("encoder", {})
@@ -163,10 +174,13 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         return _unet(params, stats)
     if "class_embedding" in encoder:
         return _clip_unet(params, stats)
+    if "init_conv" in params and "encoder" not in params:
+        return _clip_decoder(params, stats)
     if "EncoderBlock_0" in encoder:
         return _autoencoder(params, stats, skips="DecoderBlockNoSkips_0" not in params)
     if "class_embedding" in params:
         return _vit(params)
     raise ValueError(
         f"unknown JAX variables tree (top-level params {sorted(params)}): not a "
-        f"ClipUNet, UNet, autoencoder, PromptModel or ClipViT")
+        f"ClipUNet, ClipUNetNoSkips, ClipUNetDecoderOnly, UNet, autoencoder, "
+        f"PromptModel or ClipViT")

@@ -2,9 +2,9 @@
 
 Counterpart of image_segmentation_tpu/run.py (the reference notebooks'
 cell-0 "main": datasets, model, loss, AdamW, accumulation, start()).
-The port trains `unet_noaug`, `unet_aug` and the two-stage autoencoder
-(`recon_ae`, then `autoencoder`); the JAX package's other configs are
-refused as not ported yet.
+The port trains all seven of the JAX package's configs: `unet_noaug`,
+`unet_aug`, the two-stage autoencoder (`recon_ae`, then `autoencoder`),
+`clipunet`, `clipunet_noskips` and `prompt`.
 
   python -m image_segmentation_tpu_torch.run --config unet_noaug \
       --data-root /data/pet --save-dir runs/ [--epochs N] [--batch-size N]
@@ -16,6 +16,10 @@ refused as not ported yet.
       --pretrained-encoder runs/recon_ae ...   # encoder transferred and frozen
   python -m image_segmentation_tpu_torch.run --config unet_noaug --synthetic 64 \
       --evaluate runs/MO_unet_noaug --split Val
+  python -m image_segmentation_tpu_torch.run --config clipunet --synthetic 16 \
+      --smoke-vit --device cpu [--cache-features] [--clip-weights clip.npz]
+  python -m image_segmentation_tpu_torch.run --config prompt --synthetic 16 \
+      --smoke-vit --device cpu --clipunet-checkpoint runs/MO_clipunet
 
 Data layout: {root}/{split}/{color,label}/ (class-id PNG labels with the
 255 boundary sentinel). `--device` is cuda by default and the run refuses
@@ -33,6 +37,23 @@ decay) on the MSE against the input and checkpoints the best val MSE;
 BN statistics), frozen out of the optimizer when the config's
 `freeze_encoder` is set. The frozen encoder still runs in train mode, so
 its BN statistics move, as JAX's mutable batch_stats do.
+
+The CLIP family (JAX run.py:355-382, 484-611): the ViT is frozen out of
+AdamW (`vision_model` for the ClipUNets; the whole `clip` branch for a
+frozen prompt model, else `clip.vision_model`). `--clip-weights NPZ`
+loads a converted CLIP ViT (utils/convert_clip_weights.py) into
+`vision_model` (or `clip.vision_model`); `prompt --clipunet-checkpoint
+CKPT` grafts a trained ClipUNet into the `clip` branch (parameters and BN
+statistics). `--cache-features` (`clipunet` with a frozen encoder and no
+online augmentation; ignored with a note otherwise, as JAX ignores it)
+encodes the train set through the frozen ViT once and trains the decoder
+alone on the features; validation and every checkpoint use the whole
+ClipUNet, so `--evaluate` and `--clipunet-checkpoint` read its `MO_`.
+The prompt config trains on prompt triplets (data/prompts.py: train
+seeded `seed`, val `seed + 1`), Dice + NLL on probabilities.
+`--smoke-vit` shrinks the ViT to JAX's smoke geometry (hidden 64, 4
+layers, 4 heads, MLP 128) for the CPU; its head dim 16 is not one K3
+takes, so it refuses `--device cuda`.
 """
 from __future__ import annotations
 
@@ -43,12 +64,12 @@ import os
 import numpy as np
 import torch
 
-# the configs the port trains
-TRAINED = ("unet_noaug", "unet_aug", "recon_ae", "autoencoder")
-# the JAX package's configs whose training is not in the port yet
-NOT_PORTED = ("clipunet", "clipunet_noskips", "prompt")
+# the configs the port trains: all of the JAX package's
+TRAINED = ("unet_noaug", "unet_aug", "recon_ae", "autoencoder", "clipunet",
+           "clipunet_noskips", "prompt")
+CLIP_CONFIGS = ("clipunet", "clipunet_noskips", "prompt")
 # flags of JAX run.py paths the port does not have yet
-REFUSED_FLAGS = ("multihost", "cache_features", "clip_weights", "tensorboard", "profile_dir")
+REFUSED_FLAGS = ("multihost", "tensorboard", "profile_dir")
 
 
 def _synthetic_items(n: int, seed: int = 0):
@@ -115,6 +136,18 @@ def _parser() -> argparse.ArgumentParser:
                         "this port (full or MO_), then train")
     p.add_argument("--pretrained-encoder", default=None, metavar="CKPT",
                    help="autoencoder: take the encoder of a recon_ae checkpoint")
+    p.add_argument("--clip-weights", default=None, metavar="NPZ",
+                   help="CLIP configs: load a converted CLIP ViT .npz (the file "
+                        "utils/convert_clip_weights.py writes) into the ViT")
+    p.add_argument("--clipunet-checkpoint", default=None, metavar="CKPT",
+                   help="prompt: graft a trained ClipUNet checkpoint of this port "
+                        "(full or MO_) into the clip branch")
+    p.add_argument("--cache-features", action="store_true",
+                   help="clipunet: encode the train set through the frozen ViT once "
+                        "and train the decoder alone on the features")
+    p.add_argument("--smoke-vit", action="store_true",
+                   help="CLIP configs: JAX's smoke ViT (hidden 64, 4 layers, 4 heads, "
+                        "MLP 128) and a narrow decoder, for the CPU")
     for flag in REFUSED_FLAGS:
         p.add_argument("--" + flag.replace("_", "-"), default=None, nargs="?",
                        const=True, help="not ported yet (refused)")
@@ -136,20 +169,22 @@ def main(argv=None):
     if refused:
         raise SystemExit("not ported yet, refused: " + ", ".join(
             "--" + f.replace("_", "-") for f in refused))
-    if args.config in NOT_PORTED:
-        raise SystemExit(f"config {args.config!r}: training is not ported yet "
-                         f"(the port trains {list(TRAINED)})")
     if args.config not in TRAINED:
         raise SystemExit(f"unknown config {args.config!r}; have {list(TRAINED)}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available "
                          f"(pass --device cpu to run on the CPU)")
+    if args.smoke_vit and device.type == "cuda":
+        raise SystemExit("--smoke-vit: its head dim 16 is not one the attention kernel "
+                         "takes (64); run it with --device cpu")
     if not args.synthetic and not args.data_root:
         raise SystemExit("--data-root or --synthetic required")
-    for flag in ("init_weights", "pretrained_encoder"):
+    for flag in ("init_weights", "pretrained_encoder", "clipunet_checkpoint"):
         if getattr(args, flag) is not None:
             _check_checkpoint("--" + flag.replace("_", "-"), getattr(args, flag))
+    if args.clip_weights is not None and not os.path.isfile(args.clip_weights):
+        raise SystemExit(f"--clip-weights {args.clip_weights}: no such file")
 
     from image_segmentation_tpu_torch import config as C
     from image_segmentation_tpu_torch.data.dataset import ArrayDataset, SegmentationDataset
@@ -186,7 +221,13 @@ def main(argv=None):
 
         print("[run] materialising offline augmentation …")
         train_raw = generate_augmented_dataset(train_raw, seed=cfg.seed, size=cfg.target_size)
-    for ds in (train_raw, val_raw):
+    if cfg.model == "prompt":
+        from image_segmentation_tpu_torch.data.prompts import generate_prompt_dataset
+
+        # triplets from the raw labels (the prompt remap happens there)
+        train_raw = None if eval_only else generate_prompt_dataset(train_raw, seed=cfg.seed)
+        val_raw = generate_prompt_dataset(val_raw, seed=cfg.seed + 1)
+    for ds in () if cfg.model == "prompt" else (train_raw, val_raw):
         # in place: a full-scale offline set is ~23k samples, and a remapped
         # copy would double host memory
         if isinstance(ds, SegmentationDataset):
@@ -198,10 +239,30 @@ def main(argv=None):
           f"{'eval' if eval_only else 'val'} items at {cfg.target_size}px …")
     train_data = None if eval_only else materialize(train_raw, cfg.target_size)
     val_data = materialize(val_raw, cfg.target_size, keep_orig_labels=True)
-    model = C.build_model(cfg, device, torch.Generator().manual_seed(cfg.seed))
+    model = C.build_model(cfg, device, torch.Generator().manual_seed(cfg.seed),
+                          **(_smoke_vit_overrides(cfg) if args.smoke_vit else {}))
     if cfg.model == "recon":
         return _run_reconstruction(args, cfg, model, device, train_data, val_data, val_raw)
     return _run_segmentation(args, cfg, model, device, train_data, val_data, len(val_raw))
+
+
+def _smoke_vit_overrides(cfg) -> dict:
+    """JAX run.py:355-382: a ViT of hidden 64, 4 layers, 4 heads, MLP 128 at
+    the target size, skips (1, 2, 3, 4), decoder channels max(8, 64 >> i)
+    over the four doublings from the 16 px patch grid, and a selection UNet
+    of base 8 for the prompt model."""
+    from image_segmentation_tpu_torch.models.clip_vit import ClipViTConfig
+
+    if cfg.model not in CLIP_CONFIGS:
+        return {}
+    vit = ClipViTConfig(image_size=cfg.target_size, patch_size=16, hidden_size=64,
+                        num_layers=4, num_heads=4, mlp_dim=128)
+    out = dict(vit=vit, decoder_channels=tuple(max(8, 64 >> i) for i in range(5)))
+    if cfg.model != "clipunet_noskips":
+        out["skip_indices"] = (1, 2, 3, 4)
+    if cfg.model == "prompt":
+        out["unet_base"] = 8
+    return out
 
 
 def _run_reconstruction(args, cfg, model, device, train_data, val_data, val_raw):
@@ -234,14 +295,15 @@ def _run_reconstruction(args, cfg, model, device, train_data, val_data, val_raw)
 
 def _run_segmentation(args, cfg, model, device, train_data, val_data, n_val: int):
     from image_segmentation_tpu_torch import config as C
-    from image_segmentation_tpu_torch.losses.host import dice_ce_loss_np
+    from image_segmentation_tpu_torch.losses.host import dice_ce_loss_np, dice_nll_loss_np
     from image_segmentation_tpu_torch.train import checkpoint as ckpt
     from image_segmentation_tpu_torch.train.loop import evaluate, fit
     from image_segmentation_tpu_torch.train.state import TrainState, freeze_
 
     loss_fn = C.build_loss(cfg)
     val_loss_fn = C.build_val_loss(cfg)
-    host_loss = lambda lg, lb: dice_ce_loss_np(lg, lb, val_loss_fn)  # noqa: E731
+    host_np = dice_nll_loss_np if cfg.model == "prompt" else dice_ce_loss_np
+    host_loss = lambda lg, lb: host_np(lg, lb, val_loss_fn)  # noqa: E731
 
     if args.evaluate is not None:
         model.load_state_dict(ckpt.load_model_state(args.evaluate, device))
@@ -264,9 +326,26 @@ def _run_segmentation(args, cfg, model, device, train_data, val_data, n_val: int
         print("[run] loaded pretrained AE encoder (params + BN stats)")
         if cfg.freeze_encoder:
             frozen = ("encoder",)
-            freeze_(model, frozen)
+    if cfg.model in CLIP_CONFIGS and args.clip_weights:
+        from image_segmentation_tpu_torch.models.clip_vit import load_pretrained_clip_state
+
+        vit = model.clip.vision_model if cfg.model == "prompt" else model.vision_model
+        vit.load_state_dict(load_pretrained_clip_state(args.clip_weights))
+        print(f"[run] loaded pretrained CLIP ViT weights from {args.clip_weights}")
+    if cfg.model == "prompt" and args.clipunet_checkpoint:
+        n = ckpt.load_subtree(args.clipunet_checkpoint, model, "", "clip")
+        print(f"[run] grafted the ClipUNet of {args.clipunet_checkpoint} into the prompt "
+              f"model's clip branch ({n} entries: params + BN stats)")
+    if cfg.model in ("clipunet", "clipunet_noskips") and cfg.freeze_encoder:
+        # no_grad gives the ViT no gradient; out of AdamW, no decay shrinks it
+        frozen = ("vision_model",)
+    elif cfg.model == "prompt":
+        # the fine-tuned variant trains the clip decoder and the selection
+        # UNet; the ViT inside stays frozen (JAX run.py:515-522)
+        frozen = ("clip",) if cfg.freeze_encoder else ("clip.vision_model",)
+    freeze_(model, frozen)
     augment_fn = None
-    if cfg.augment and cfg.augment_online:
+    if cfg.augment and cfg.augment_online and cfg.model != "prompt":
         from image_segmentation_tpu_torch.ops.augment import random_augment_batch
 
         augment_fn = random_augment_batch
@@ -282,6 +361,15 @@ def _run_segmentation(args, cfg, model, device, train_data, val_data, n_val: int
     total_steps = cfg.epochs * max(1, len(train_data) // (cfg.batch_size * cfg.accum_steps))
     opt, sched = C.build_optimizer(cfg, model, total_steps=total_steps, frozen_prefixes=frozen)
     state = TrainState(model=model, optimizer=opt, scheduler=sched)
+    eval_state_fn = None
+    if args.cache_features:
+        if cfg.model == "clipunet" and cfg.freeze_encoder and augment_fn is None:
+            state, train_data, eval_state_fn = _cached_feature_training(cfg, state, train_data,
+                                                                        total_steps)
+        else:
+            print(f"[run] --cache-features ignored: it needs the clipunet config with a "
+                  f"frozen encoder and no online augmentation (config {cfg.name}, "
+                  f"online augmentation {augment_fn is not None})")
     result = fit(
         state, train_data, val_data, loss_fn=loss_fn, epochs=cfg.epochs,
         batch_size=micro * accum, accum_steps=accum, save_dir=args.save_dir,
@@ -289,9 +377,32 @@ def _run_segmentation(args, cfg, model, device, train_data, val_data, n_val: int
         eval_ignore_index=cfg.eval_ignore_index, eval_batch_size=cfg.batch_size,
         resume=args.resume, seed=cfg.seed, eval_protocol=args.eval_protocol,
         eval_loss_cfg=val_loss_fn, checkpoint_every=args.ckpt_every,
-        early_stop_patience=args.early_stop_patience, augment_fn=augment_fn)
+        early_stop_patience=args.early_stop_patience, augment_fn=augment_fn,
+        eval_state_fn=eval_state_fn)
     print(f"[run] done: best {result.best}")
     return result
+
+
+def _cached_feature_training(cfg, state, train_data, total_steps: int):
+    """--cache-features (JAX run.py:556-611): the train set's features
+    through the frozen ViT once; a state over the decoder-only view of the
+    ClipUNet (its own modules) with an optimizer over the decoder alone;
+    and an `eval_state_fn` that hands fit the whole ClipUNet, which it
+    validates and checkpoints."""
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.train import feature_cache as FC
+    from image_segmentation_tpu_torch.train.state import TrainState
+
+    full = state.model
+    print("[run] caching frozen-CLIP features for the train set …")
+    feats = FC.encode_clip_features(full, train_data.images, batch_size=cfg.batch_size,
+                                    verbose=True)
+    decoder = full.decoder_only()
+    opt, sched = C.build_optimizer(cfg, decoder, total_steps=total_steps)
+    print(f"[run] training decoder-only on cached features ({feats.nbytes} bytes, "
+          f"float32)")
+    return (TrainState(decoder, opt, sched), FC.features_dataset(train_data, feats),
+            lambda s: TrainState(full, s.optimizer, s.scheduler, s.step))
 
 
 if __name__ == "__main__":

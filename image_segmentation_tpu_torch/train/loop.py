@@ -17,7 +17,10 @@ Where the port departs from the JAX loop, it does what that loop meant:
     would have (JAX reseeds with seed + start_epoch);
   * `history["stopped_early"]` is written before the history is saved
     (JAX sets it after the save, loop.py:961, so it never reached the
-    file).
+    file);
+  * the checkpoints hold the state `eval_state_fn` gives, the one that
+    was validated (JAX saves the trained `state`, loop.py:972-990, which
+    in a cached-feature ClipUNet run is the decoder alone).
 
 `fit(augment_fn=...)` augments each step batch on the device with draws
 from a CPU generator seeded `seed * 100003 + epoch` per epoch (JAX seeds its
@@ -117,15 +120,23 @@ def train_device_budget(device) -> int:
 def _resident_train_set(train_data: MaterializedDataset, device, *, reconstruction: bool,
                         verbose: bool) -> ResidentTrainSet:
     """The train set on the device, float32 when it fits the budget, else
-    uint8; kept on the dataset object for later fits on the same device.
-    A reconstruction set holds its images only."""
-    f32_bytes = train_data.images.nbytes + (0 if reconstruction else train_data.labels.nbytes)
+    uint8 (images and heatmaps in [0, 1], labels); kept on the dataset
+    object for later fits on the same device. A reconstruction set holds
+    its images only. A set of packed ViT features is float32 or refused:
+    uint8 in [0, 1] would destroy them (train/feature_cache.py)."""
+    has_heat = train_data.has_heatmaps and not reconstruction
+    f32_bytes = (train_data.images.nbytes
+                 + (0 if reconstruction else train_data.labels.nbytes)
+                 + (train_data.heatmaps.nbytes if has_heat else 0))
     budget = train_device_budget(device)
-    fits, quantize = resident_plan(f32_bytes, budget)
+    features = train_data.packed_features
+    fits, quantize = resident_plan(f32_bytes, budget, quantizable=not features)
     if not fits:
-        raise ValueError(f"train set of {f32_bytes} bytes (float32) does not fit the "
-                         f"device budget of {budget} bytes ({budget / 2**20:.0f} MB) even "
-                         f"as uint8; {BUDGET_ENV} sets the budget in MB")
+        what = ("of packed ViT features (float32 only: features are never quantised "
+                "to uint8)" if features else "(float32) even as uint8")
+        raise ValueError(f"train set of {f32_bytes} bytes {what} does not fit the device "
+                         f"budget of {budget} bytes ({budget / 2**20:.0f} MB); {BUDGET_ENV} "
+                         f"sets the budget in MB")
     key = (device, quantize, reconstruction)
     cached = train_data.device_train_cache
     if cached is None or cached[0] != key:
@@ -134,7 +145,7 @@ def _resident_train_set(train_data: MaterializedDataset, device, *, reconstructi
                   f"{budget / 2**20:.0f} MB budget)")
         train_data.device_train_cache = (key, ResidentTrainSet(
             train_data.images, None if reconstruction else train_data.labels, device,
-            quantize))
+            quantize, heatmaps=train_data.heatmaps if has_heat else None))
     return train_data.device_train_cache[1]
 
 
@@ -311,7 +322,14 @@ def fit(
     `batch_size` is the step batch (micro-batch × `accum_steps`).
     `checkpoint_every` sets the `_last` checkpoint's cadence in epochs
     (an epoch with a new best always saves, to `name`, `name_last` and
-    `MO_name`). `eval_state_fn(state)` gives the state to evaluate.
+    `MO_name`). `eval_state_fn(state)` gives the state to evaluate, and
+    the one each checkpoint holds and a resume restores into: for a
+    cached-feature ClipUNet run, whose step trains the decoder-only view,
+    the whole ClipUNet with the same optimizer. (JAX's fit evaluates
+    `eval_state_fn(state)` but saves `state`, so the checkpoints of its
+    cached-feature runs hold the decoder alone, which its `--evaluate`
+    cannot load into a ClipUNet, and from which `--clipunet-checkpoint`
+    grafts no ViT.)
     `early_stop_patience=N` stops after N epochs without a val-mIoU gain
     and records the epoch in history['stopped_early']. `augment_fn(images,
     labels, generator)` (e.g. `ops.augment.random_augment_batch`, with the
@@ -339,7 +357,9 @@ def fit(
         # reference's resume, utils/training.py:502-544)
         source = last_path if os.path.isdir(last_path) else ckpt_path
         if os.path.isdir(source):
-            state, meta = ckpt.restore_checkpoint(source, state)
+            target = eval_state_fn(state) if eval_state_fn is not None else state
+            _, meta = ckpt.restore_checkpoint(source, target)
+            state.step = target.step
             start_epoch = int(meta.get("epoch", 0)) + 1
             best.update(meta.get("best", {}))
             saved = meta.get("history", {})
@@ -362,8 +382,6 @@ def fit(
             "generate augmented prompt triplets offline instead "
             "(data.prompts.generate_prompt_dataset over an augmented "
             "dataset, reference utils/augmentation.ipynb cell 23)")
-    if train_data.has_heatmaps:
-        raise NotImplementedError("prompt (heatmap) training is not ported yet")
     resident = _resident_train_set(train_data, device, reconstruction=False, verbose=verbose)
 
     # the shuffle, seeded as the JAX loop seeds a fresh run, replayed to the
@@ -403,9 +421,9 @@ def fit(
             if verbose:
                 print(f"  train: loss={train_loss:.4f}")
 
-            val = evaluate(eval_state_fn(state) if eval_state_fn is not None else state,
-                           val_data, host_loss_fn=host_loss_fn, num_classes=num_classes,
-                           eval_ignore_index=eval_ignore_index,
+            eval_state = eval_state_fn(state) if eval_state_fn is not None else state
+            val = evaluate(eval_state, val_data, host_loss_fn=host_loss_fn,
+                           num_classes=num_classes, eval_ignore_index=eval_ignore_index,
                            batch_size=eval_batch_size or batch_size, agg=agg,
                            verbose=verbose, protocol=eval_protocol, loss_cfg=eval_loss_cfg)
             history["train_loss"].append(train_loss)
@@ -437,14 +455,14 @@ def fit(
                         or epoch == epochs - 1 or stop["flag"])
             if improved:
                 ckpt.save_checkpoint_async(
-                    writer, ckpt_path, state, epoch=epoch, best=best, history=history,
+                    writer, ckpt_path, eval_state, epoch=epoch, best=best, history=history,
                     notes=notes,
                     params_only_path=weights_path,
                     extra_paths=(last_path,), slot="best")
                 if verbose:
                     print(f"  saved checkpoint (new best miou {val['iou']:.4f})")
             elif last_due:
-                ckpt.save_checkpoint_async(writer, last_path, state, epoch=epoch, best=best,
+                ckpt.save_checkpoint_async(writer, last_path, eval_state, epoch=epoch, best=best,
                                            history=history, notes=notes, slot="last")
             if stop["flag"]:
                 if verbose:

@@ -14,12 +14,17 @@ the count once, as JAX divides its summed gradients.
 The JAX whole-epoch trainer (`make_train_epoch`) uploads the train set
 to the device once and gathers each step's batch there; `ResidentTrainSet`
 does the same, in float32 when it fits the budget, else as uint8 images
-(round to nearest of x·255) and uint8 labels, decoded per gathered batch
-(`_resident_plan`, `_quantize_u8`, `_labels_u8`). Nothing per epoch
-crosses the host link but the index matrix and the losses. In
-reconstruction mode (`labels=None`, JAX loop.py:1085-1092) one image
-buffer is input and target, so under uint8 residency both are decoded
-from it and stay equal.
+and heatmaps (round to nearest of x·255; both lie in [0, 1]) and uint8
+labels, decoded per gathered batch (`_resident_plan`, `_quantize_u8`,
+`_labels_u8`). Packed ViT features are never quantised (`resident_plan`
+with `quantizable=False`). Nothing per epoch crosses the host link but
+the index matrix and the losses. In reconstruction mode (`labels=None`,
+JAX loop.py:1085-1092) one image buffer is input and target, so under
+uint8 residency both are decoded from it and stay equal.
+
+A prompt set's batch is ((images, heatmaps), labels), and `train_step`
+applies `model(images, heatmaps)` to each micro-batch (JAX
+steps.py:75-79).
 
 `train_step(augment_fn=...)` augments the whole step batch (micro ×
 accum rows) before the micro-batch split, as JAX train/steps.py:228-231
@@ -27,7 +32,7 @@ does, with draws from the caller's `generator`.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -62,58 +67,73 @@ def labels_u8(labels: np.ndarray) -> np.ndarray:
     return labels.astype(np.uint8)
 
 
-def resident_plan(f32_bytes: int, budget: int) -> Tuple[bool, bool]:
+def resident_plan(f32_bytes: int, budget: int, quantizable: bool = True
+                  ) -> Tuple[bool, bool]:
     """(fits, quantize): float32 residency when the set fits `budget`,
     uint8 (a quarter of the bytes) when only that fits (JAX `_resident_plan`
-    with resident_dtype 'auto')."""
+    with resident_dtype 'auto'). A set that is not `quantizable` (ViT
+    features, which uint8 in [0, 1] would destroy) fits as float32 or not
+    at all."""
     if f32_bytes <= budget:
         return True, False
+    if not quantizable:
+        return False, False
     return f32_bytes // 4 <= budget, True
 
 
 class ResidentTrainSet:
     """A train set uploaded to `device` once; `batch(idx)` gathers a step
-    batch there as (float32 NHWC images, int64 labels), or, with
-    `labels=None` (reconstruction), as (images, the same images)."""
+    batch there as (float32 NHWC images, int64 labels), with heatmaps as
+    ((images, heatmaps), labels), or, with `labels=None`
+    (reconstruction), as (images, the same images)."""
 
     def __init__(self, images: np.ndarray, labels: Optional[np.ndarray], device,
-                 quantize: bool):
+                 quantize: bool, heatmaps: Optional[np.ndarray] = None):
         self.quantize = quantize
         if quantize:
             images = quantize_u8(images)
+            heatmaps = None if heatmaps is None else quantize_u8(heatmaps)
             labels = None if labels is None else labels_u8(labels)
-        self.images = torch.from_numpy(np.ascontiguousarray(images)).to(device)
-        self.labels = (None if labels is None
-                       else torch.from_numpy(np.ascontiguousarray(labels)).to(device))
+        upload = lambda a: (None if a is None  # noqa: E731
+                            else torch.from_numpy(np.ascontiguousarray(a)).to(device))
+        self.images, self.heatmaps, self.labels = upload(images), upload(heatmaps), upload(labels)
 
-    def batch(self, idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self.images.index_select(0, idx)
-        if self.quantize:
-            x = x.float() * (1.0 / 255.0)
+    def _gather(self, a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        x = a.index_select(0, idx)
+        return x.float() * (1.0 / 255.0) if self.quantize else x
+
+    def batch(self, idx: torch.Tensor):
+        x = self._gather(self.images, idx)
         if self.labels is None:
             return x, x
+        if self.heatmaps is not None:
+            x = (x, self._gather(self.heatmaps, idx))
         return x, self.labels.index_select(0, idx).long()
 
 
-def train_step(state: TrainState, loss_fn: Callable, images: torch.Tensor,
+def train_step(state: TrainState, loss_fn: Callable,
+               images: Union[torch.Tensor, Tuple[torch.Tensor, ...]],
                targets: torch.Tensor, accum_steps: int = 1,
                augment_fn: Optional[Callable] = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """One optimizer step on a step batch of accum_steps × micro rows:
     micro-batch i is rows [i·micro, (i+1)·micro), as JAX's reshape takes
-    them. `augment_fn(images, targets, generator)` first transforms the
-    whole step batch. Returns the mean of the micro-batches' losses, a 0-d
-    f32 tensor on the device (no host sync)."""
+    them. `images` is the model's input, or a tuple of its inputs (the
+    prompt model's images and heatmaps), each cut the same way.
+    `augment_fn(images, targets, generator)` first transforms the whole
+    step batch. Returns the mean of the micro-batches' losses, a 0-d f32
+    tensor on the device (no host sync)."""
     if augment_fn is not None:
         images, targets = augment_fn(images, targets, generator)
+    inputs = images if isinstance(images, tuple) else (images,)
     model, opt = state.model, state.optimizer
     model.train()
     opt.zero_grad(set_to_none=True)
-    micro = images.shape[0] // accum_steps
+    micro = targets.shape[0] // accum_steps
     total = None
     for i in range(accum_steps):
         rows = slice(i * micro, (i + 1) * micro)
-        loss = loss_fn(model(images[rows]), targets[rows])
+        loss = loss_fn(model(*(x[rows] for x in inputs)), targets[rows])
         loss.backward()
         total = loss.detach() if total is None else total + loss.detach()
     if accum_steps > 1:

@@ -541,3 +541,106 @@ def test_recon_forward_in_bf16_on_the_card_is_near_the_cpu_f32(cuda):
     diff = (got - want).abs()
     assert diff.max().item() <= 2.0**-5 and diff.mean().item() <= 2.0**-9, \
         (diff.max().item(), diff.mean().item())
+
+
+def _clip_step_setup(cuda, cfg, use_kernels=True, **extra):
+    """A reduced model of a CLIP config as build_model builds it on CUDA
+    (bf16; K3/K4 on unless `use_kernels` is False), its ViT frozen out of
+    AdamW as run.py freezes it, and its train state."""
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.serve.app import DEMO_VIT
+    from image_segmentation_tpu_torch.train.state import TrainState, freeze_
+
+    kw = dict(vit=DEMO_VIT, skip_indices=(0, 1, 2, 3), decoder_channels=(64, 32, 16, 8, 8),
+              **extra)
+    model = C.build_model(dataclasses.replace(cfg, use_kernels=use_kernels), cuda,
+                          torch.Generator().manual_seed(0), **kw)
+    frozen = ("clip.vision_model",) if cfg.model == "prompt" else ("vision_model",)
+    freeze_(model, frozen)
+    return model, TrainState(model, *C.build_optimizer(cfg, model, frozen_prefixes=frozen))
+
+
+def _clip_batch(cuda, n=16, side=64, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(0, 1, (n, side, side, 3)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.integers(0, 4, (n, side, side))).to(cuda)
+    return x, y
+
+
+def test_clipunet_train_step_with_kernels_matches_the_plain_versions(cuda):
+    """One clipunet train step (micro 8 x accum 2, bf16) through K3/K4 and the
+    same step through their plain versions, from the same weights: one
+    launch of each kernel per block and micro-batch, none on the plain path; the losses within two bf16 steps (2^-6, relative), and the whole
+    decoder gradient within 5% relative L2 (the ViT's features differ by
+    at most a bf16 step here and there, and the bf16 decoder carries that
+    through four train-mode BatchNorms)."""
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.serve.app import DEMO_VIT
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    x, y = _clip_batch(cuda)
+    out = {}
+    for kernels in (True, False):
+        model, st = _clip_step_setup(cuda, C.CLIPUNET, use_kernels=kernels)
+        a, m = K3.LAUNCHES, K4.LAUNCHES
+        loss = train_step(st, C.build_loss(C.CLIPUNET), x, y, 2)
+        torch.cuda.synchronize()
+        launches = (K3.LAUNCHES - a, K4.LAUNCHES - m)
+        grads = torch.cat([p.grad.float().flatten() for n, p in model.named_parameters()
+                           if not n.startswith("vision_model.")])
+        out[kernels] = (float(loss), launches, grads)
+    (lk, nk, gk), (lp, np_, gp) = out[True], out[False]
+    assert nk == (2 * DEMO_VIT.num_layers,) * 2 and np_ == (0, 0)
+    assert math.isfinite(lk) and abs(lk - lp) <= 2.0**-6 * abs(lp), (lk, lp)
+    assert torch.isfinite(gk).all()
+    rel = ((gk - gp).norm() / gp.norm()).item()
+    assert rel <= 0.05, rel
+
+
+def test_cached_and_in_line_first_step_losses_are_equal(cuda):
+    """The first step's loss of the in-line frozen clipunet step and of the
+    decoder-only step on features from `encode_clip_features` (batches of
+    8 = the micro-batches), from the same weights on the same batch: equal,
+    as the features are the in-line ViT's own values (bf16, stored as f32)."""
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.train import feature_cache as FC
+    from image_segmentation_tpu_torch.train.state import TrainState
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    x, y = _clip_batch(cuda)
+    model, st = _clip_step_setup(cuda, C.CLIPUNET)
+    inline = train_step(st, C.build_loss(C.CLIPUNET), x, y, 2)
+    model, _ = _clip_step_setup(cuda, C.CLIPUNET)
+    before = K3.LAUNCHES
+    feats = FC.encode_clip_features(model, x.cpu().numpy(), batch_size=8)
+    assert K3.LAUNCHES - before == 2 * model.vit.num_layers and feats.dtype == np.float32
+    decoder = model.decoder_only()
+    sd = TrainState(decoder, *C.build_optimizer(C.CLIPUNET, decoder))
+    cached = train_step(sd, C.build_loss(C.CLIPUNET), torch.from_numpy(feats).to(cuda), y, 2)
+    assert float(inline) == float(cached), (float(inline), float(cached))
+
+
+def test_prompt_train_step_on_the_card(cuda):
+    """One step of the prompt config (freeze_clip False: the clip decoder
+    and the selection UNet train; the ViT stays frozen) on images and
+    heatmaps: K3/K4 once a block per micro-batch, K1 not at all (the
+    selection UNet trains on the module path); finite loss, no .grad in
+    clip.vision_model, finite ones elsewhere."""
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    x, y = _clip_batch(cuda, seed=1)
+    hm = torch.rand(16, 64, 64, 1, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(1))
+    model, st = _clip_step_setup(cuda, C.PROMPT, unet_base=8)
+    assert not model.freeze_clip and model.clip.freeze_encoder
+    counts = (K3.LAUNCHES, K4.LAUNCHES, K1.LAUNCHES)
+    loss = train_step(st, C.build_loss(C.PROMPT), (x, hm), y, 2)
+    assert torch.isfinite(loss)
+    delta = tuple(k.LAUNCHES - c for k, c in zip((K3, K4, K1), counts))
+    assert delta == (6, 6, 0), delta
+    for n, p in model.named_parameters():
+        if n.startswith("clip.vision_model."):
+            assert p.grad is None, n
+        else:
+            assert p.grad is not None and torch.isfinite(p.grad).all(), n

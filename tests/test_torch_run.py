@@ -57,7 +57,7 @@ def test_resume_continues_the_history(trained, tmp_path):
 
 @pytest.mark.parametrize("argv,message", [
     (["--config", "nope", "--synthetic", "8", "--device", "cpu"], "unknown config"),
-    (["--config", "clipunet", "--synthetic", "8", "--device", "cpu"], "not ported yet"),
+    (TINY + ["--profile-dir", "prof"], "--profile-dir"),
     (["--config", "unet_noaug", "--device", "cpu"], "--data-root or --synthetic"),
     (TINY + ["--multihost"], "--multihost"),
     (TINY + ["--init-weights", "w.safetensors"], "--init-weights"),  # not a checkpoint

@@ -107,11 +107,18 @@ def test_init_weights_starts_from_the_checkpoint(two_stage, tmp_path):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--config", "clipunet"] + BASE, "not ported yet"),
-    (["--config", "clipunet_noskips"] + BASE, "not ported yet"),
-    (["--config", "prompt"] + BASE, "not ported yet"),
+    (["--config", "clipunet", "--clip-weights", "nowhere.npz"] + BASE,
+     "--clip-weights nowhere.npz: no such file"),
+    (["--config", "clipunet_noskips", "--init-weights", "nowhere"] + BASE,
+     "not a checkpoint of this port"),
+    (["--config", "prompt", "--clipunet-checkpoint", "nowhere"] + BASE,
+     "not a checkpoint of this port"),
 ] + [(["--config", "unet_aug", "--" + f.replace("_", "-"), "x"] + BASE,
       "--" + f.replace("_", "-")) for f in run.REFUSED_FLAGS] + [
+    (["--config", "clipunet_wide"] + BASE, "unknown config"),
+    (["--config", "unet_aug", "--multihost", "--tensorboard", "tb"] + BASE,
+     "--multihost, --tensorboard"),
+] + [
     (["--config", "autoencoder", "--pretrained-encoder", "nowhere"] + BASE,
      "not a checkpoint of this port"),
 ])

@@ -326,6 +326,9 @@ def test_port_imports_no_jax():
         "import image_segmentation_tpu_torch.serve.app\n"
         "import image_segmentation_tpu_torch.ops.augment, image_segmentation_tpu_torch.run\n"
         "import image_segmentation_tpu_torch.data.augment\n"
+        "import image_segmentation_tpu_torch.train.feature_cache\n"
+        "import image_segmentation_tpu_torch.data.prompts\n"
+        "import image_segmentation_tpu_torch.utils.convert_clip_weights\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
