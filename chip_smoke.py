@@ -90,10 +90,32 @@ Phases (each prints its lines; any failure ends the run non-zero):
      clip branch equals the checkpoint, its ViT is unchanged by training,
      K1 launches 9 times per eval batch and K3/K4 12 times per eval batch
      and per train micro-batch; the step's ms;
- 13. the last line is {"ok": true, "device": {...}}.
+ 13. serving what phases 8 and 10-12 trained (MO_unet_noaug, MO_autoencoder,
+     MO_clipunet, MO_prompt, kept in one models directory), at full width:
+     `build_engine_from_checkpoints` on cuda, each family at phase 6's
+     image sizes with phase 6's launches a request (unet K1 9; clip K3/K4
+     12/12; prompt_model 12/12/9 on a first click, 0/0/9 on a repeat); the
+     same state_dicts on the plain versions in bf16 and in f32: the scores
+     no farther from the f32 forward than the plain bf16 forward's (1.5x,
+     relative L2), argmax agreement with it >= 0.99; the HTTP app in a thread on 127.0.0.1 (GET
+     / is the template, GET /static/script.js, one POST /segment a family,
+     a box prompt for prompt_model); `predict.main` over 16 synthetic PNGs
+     of mixed sizes with class-id labels, each family (images/s; the mIoU
+     is of smoke weights); `export_registry` on cuda and
+     `register_exported` of each program: scores within 2^-6 of the live
+     engine's and the same K1/K3/K4 launches a request as the live path's
+     first (each program's bytes and load seconds); then each family's
+     single-request latency, p50 and p90 over 20 requests after warm-up,
+     live, exported, and exported in a fresh process (as `serve.app
+     --exports-dir` starts), with the host and device time of one
+     program dispatch;
+ 14. the last line is {"ok": true, "device": {...}}.
 
-The launch counts of phases 4-12 are each set to 0 just before the path
-is driven and read just after; the kernels line sums them.
+Phase 3 also prints each kernel's host dispatch at one request's shape
+through its wrapper's direct path and through its torch op (the path of
+an exported program). The launch counts of phases 4-13 are each set to 0
+just before the path is driven and read just after; the kernels line
+sums them.
 
 Run from the repository root: python3 chip_smoke.py (no arguments).
 """
@@ -397,8 +419,50 @@ def fastmath_gap(card: str) -> dict:
     return out
 
 
+def _host_us(fn, calls: int = 200) -> float:
+    """µs a call on the host's clock: `calls` back-to-back calls, then one
+    sync. At one request's shapes each call enqueues more slowly than the
+    card runs it, so this is the host's dispatch."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / calls * 1e6
+
+
+def op_dispatch_us(A, M, D, card: str) -> None:
+    """Each kernel at one request's shape through its wrapper's direct path
+    (eager serving) and through its torch.library op (the path an exported
+    program takes): host µs a call, the same bits, one launch a call."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    q, k, v = (rnd(1, 197, 12, 64).bfloat16() for _ in range(3))
+    x = (0.5 * rnd(1, 197, 768)).bfloat16()
+    mlp_args = (x, 1.0 + 0.1 * rnd(768), 0.1 * rnd(768), (0.03 * rnd(3072, 768)).bfloat16(),
+                0.1 * rnd(3072), (0.03 * rnd(768, 3072)).bfloat16(), 0.1 * rnd(768), 1e-5)
+    dc_args = _k1_args(g, (1, 16, 16, 512), 1024, 0.0)
+    cases = (("fused_attention", A, (q, k, v), A.fused_attention, A.attention_op),
+             ("fused_mlp", M, mlp_args, M.fused_mlp, M.mlp_op),
+             ("fused_double_conv", D, dc_args, D.fused_double_conv, D.double_conv_op))
+    for name, mod, args, direct, op in cases:
+        before = mod.LAUNCHES
+        same = torch.equal(direct(*args), op(*args))
+        counted = mod.LAUNCHES - before
+        d_us, o_us = _host_us(lambda: direct(*args)), _host_us(lambda: op(*args))
+        print(f"[kernels] {name} host dispatch at one request's shape: direct {d_us:.1f} us a "
+              f"call, torch op {o_us:.1f} us (+{o_us - d_us:.1f}); the op's bits equal the "
+              f"direct call's {same}; launches counted for one call each {counted} ({card})")
+        if not same or counted != 2:
+            raise AssertionError(f"{name}: op and direct call differ ({same}) or "
+                                 f"counted {counted} launches for 2 calls")
+
+
 def phase_kernels(A, M, D, card: str) -> dict:
     fastmath_gap(card)
+    op_dispatch_us(A, M, D, card)
     return {"fused_attention": phase_attention(A, card), "fused_mlp": phase_mlp(M, card),
             "fused_double_conv": phase_double_conv(D, card)}
 
@@ -766,6 +830,49 @@ def unet_forward_device(model, plain, x1: torch.Tensor, card: str) -> None:
                   f"{module:.4f} ms; bound: forward {bound['forward']:.5f} ms, K2's eight "
                   f"blocks {bound['k2']:.5f} ms, K1's nine double convs {bound['k1']:.5f} ms "
                   f"({card})")
+            fused, blocks = k2_blocks_device_ms(model, plain, xb)
+            print(f"[unet] K2's eight blocks at batch {b} (4 down: pool + K1; 4 up: transpose "
+                  f"conv + K1 reading the concat), on the forward's activations, device time "
+                  f"(torch.profiler, 5 calls): {fused:.4f} ms; the module path's eight blocks "
+                  f"(cuDNN conv -> BN -> ReLU) {blocks:.4f} ms; bound {bound['k2']:.5f} ms "
+                  f"({card})")
+
+
+def k2_blocks_device_ms(model, plain, xb: torch.Tensor) -> tuple:
+    """Device ms of K2's eight blocks of one UNet forward (`fused_down_block`
+    x4, `fused_up_block` x4, their folded weights made beforehand, as the
+    blocks take them) and of the module path's eight blocks (`Down`, `Up`),
+    each on the activations its own forward gives it. Call under inference
+    mode."""
+    from image_segmentation_tpu_torch.models.fused_unet import _dc_args
+    from image_segmentation_tpu_torch.ops.kernels.blocks import fused_down_block, fused_up_block
+    from image_segmentation_tpu_torch.ops.kernels.double_conv import fused_double_conv
+
+    dt = model.dtype
+    x1 = fused_double_conv(xb.to(dt).contiguous(), *_dc_args(model.down1, dt))
+    downs = [_dc_args(d.conv, dt) for d in (model.down2, model.down3, model.down4, model.down5)]
+    ups = [(u.up.up.weight, u.up.up.bias, *_dc_args(u.conv, dt))
+           for u in (model.up1, model.up2, model.up3, model.up4)]
+
+    def k2():
+        feats = [x1]
+        for args in downs:
+            feats.append(fused_down_block(feats[-1], *args))
+        v = feats[-1]
+        for args, skip in zip(ups, reversed(feats[:-1])):
+            v = fused_up_block(skip, v, *args)
+        return v
+
+    p1 = plain.down1(xb.to(plain.dtype).permute(0, 3, 1, 2))
+
+    def module_blocks():
+        x2 = plain.down2(p1)
+        x3 = plain.down3(x2)
+        x4 = plain.down4(x3)
+        y = plain.up1(x4, plain.down5(x4))
+        return plain.up4(p1, plain.up3(x2, plain.up2(x3, y)))
+
+    return _device_ms(k2, iters=5), _device_ms(module_blocks, iters=5)
 
 
 KERNEL_NAMES = ("fused_attention", "fused_mlp", "fused_double_conv")
@@ -1102,11 +1209,13 @@ STEP_KERNEL_KINDS = (("batch norm", ("batch_norm",)), ("reductions", ("reduce_ke
                                                                              "Memset")))
 
 
-def phase_training(K, launches: dict, card: str) -> None:
+def phase_training(K, launches: dict, card: str, models_dir: str) -> None:
     """unet_noaug training on the card: the full-width fit through run.py
-    and a resume, a bf16-vs-f32 step at narrow width, the trainer's eval
-    through K1 against the module path, and the train step's throughput."""
+    and a resume (its MO_ kept in `models_dir` for phase 13), a
+    bf16-vs-f32 step at narrow width, the trainer's eval through K1 against
+    the module path, and the train step's throughput."""
     import os
+    import shutil
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -1156,6 +1265,8 @@ def phase_training(K, launches: dict, card: str) -> None:
         if len(hist) != 4 or hist[:3] != losses or counts != (0, 0, per_epoch):
             raise AssertionError(f"resumed history {hist} from {losses}, launches {counts}")
         state = res.state
+        shutil.copytree(os.path.join(tmp, "MO_unet_noaug"),
+                        os.path.join(models_dir, "MO_unet_noaug"))
 
     # 2. one step at narrow width on the card against the same step in f32
     # on the CPU, in f32 and in bf16 (and the CPU's own bf16 step beside)
@@ -1395,11 +1506,13 @@ def phase_unet_aug(K, launches: dict, card: str) -> None:
     print(f"[unet_aug] K1 launches so far on the main paths: {launches['fused_double_conv']}")
 
 
-def phase_autoencoder(K, launches: dict, card: str) -> None:
+def phase_autoencoder(K, launches: dict, card: str, models_dir: str) -> None:
     """The two-stage autoencoder on the card: recon_ae for 2 epochs through
-    run.main, then autoencoder --pretrained-encoder for 2; the encoder as
-    transferred and as left by the frozen stage 2; each stage's step."""
+    run.main, then autoencoder --pretrained-encoder for 2 (its MO_ kept in
+    `models_dir` for phase 13); the encoder as transferred and as left by
+    the frozen stage 2; each stage's step."""
     import os
+    import shutil
     import tempfile
 
     from image_segmentation_tpu_torch import config as C
@@ -1443,6 +1556,8 @@ def phase_autoencoder(K, launches: dict, card: str) -> None:
               f"statistics moved {moved} of {sum('running' in k for k in enc)}")
         if not (transferred and kept and moved):
             raise AssertionError("the encoder transfer or freeze does not hold")
+        shutil.copytree(os.path.join(tmp, "MO_autoencoder"),
+                        os.path.join(models_dir, "MO_autoencoder"))
 
     x, _ = _full_batch(64, seed=4)
     _, y = _full_batch(64, seed=5)
@@ -1695,6 +1810,332 @@ def phase_prompt_training(K, launches: dict, card: str, clipunet_mo: str, tmp: s
           f"selection UNet train), batch 64 (8 x 8), bf16: {rep} ({card})")
 
 
+FAMILIES = ("autoencoder", "clip", "prompt_model", "unet")
+
+
+def _pct(xs, q: float) -> float:
+    """The q-quantile of xs (nearest rank)."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+class GcClock:
+    """Python's garbage collections while it is entered (`gc.callbacks`):
+    their count and ms by generation."""
+
+    def __init__(self):
+        self.count, self.ms, self._t0 = [0, 0, 0], [0.0, 0.0, 0.0], 0.0
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.count[info["generation"]] += 1
+            self.ms[info["generation"]] += (time.perf_counter() - self._t0) * 1e3
+
+    def __enter__(self):
+        import gc
+
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self)
+
+    def __str__(self):
+        return f"{self.count[2]} full collections, {self.ms[2]:.1f} ms ({sum(self.ms):.1f} ms all)"
+
+
+def _synthetic_pngs(root: str, n: int, seed: int):
+    """n images of mixed sizes and their class-id labels (0..2 and the 255
+    boundary sentinel) as PNG files, written with the port's own codec
+    (PIL need not be installed)."""
+    import os
+
+    from image_segmentation_tpu_torch.data import png
+
+    rng = np.random.default_rng(seed)
+    imgs, labels = os.path.join(root, "images"), os.path.join(root, "labels")
+    os.makedirs(imgs)
+    os.makedirs(labels)
+    for i in range(n):
+        h, w = int(rng.integers(96, 520)), int(rng.integers(96, 520))
+        lab = rng.integers(0, 3, (h, w)).astype(np.uint8)
+        img = (rng.uniform(0, 128, (h, w, 3)) + 60 * lab[..., None]).astype(np.uint8)
+        lab[: h // 8] = 255
+        with open(os.path.join(imgs, f"im{i:02d}.png"), "wb") as f:
+            f.write(png.encode_png(img))
+        with open(os.path.join(labels, f"im{i:02d}.png"), "wb") as f:
+            f.write(png.encode_png(lab))
+    return imgs, labels
+
+
+def phase_checkpoints(K, launches: dict, card: str, models_dir: str, tmp: str) -> None:
+    """Serving what phases 8-12 trained, at full width, through the entry
+    points users start: the --models-dir registry, the HTTP app with its
+    frontend, predict.py, and the exported programs of serve/export.py."""
+    import base64
+    import os
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from image_segmentation_tpu_torch import predict as P
+    from image_segmentation_tpu_torch.serve import app
+    from image_segmentation_tpu_torch.serve import export as X
+    from image_segmentation_tpu_torch.serve.engine import InferenceEngine, stage_request
+    from image_segmentation_tpu_torch.serve.render import render_points
+
+    # 1. the checkpoint registry on the card
+    t0 = time.time()
+    eng = app.build_engine_from_checkpoints(models_dir, "cuda")
+    print(f"[ckpt] build_engine_from_checkpoints({sorted(os.listdir(models_dir))}) on cuda: "
+          f"{eng.available()} in {time.time() - t0:.1f} s ({card})")
+    if tuple(eng.available()) != FAMILIES:
+        raise AssertionError(f"registry {eng.available()}, want {FAMILIES}")
+    n = 12
+    want = {"unet": (0, 0, 9), "autoencoder": (0, 0, 0), "clip": (n, n, 0),
+            "prompt_model": (n, n, 9)}
+    images = _images()
+
+    def click(im):
+        return render_points([{"x": im.shape[1] // 2, "y": im.shape[0] // 2}], im.shape[:2])
+
+    warm = np.random.default_rng(99).uniform(0.0, 1.0, (300, 300, 3)).astype(np.float32)
+    for name in FAMILIES:  # warm-up (cuDNN plans, allocator) on an image of its own
+        eng.segment(warm, name, click(warm) if name == "prompt_model" else None)
+    torch.cuda.synchronize()
+    _zero(K)
+    deltas = {}
+    for name in FAMILIES:
+        for im in images:
+            pm = click(im) if name == "prompt_model" else None
+            reqs = 2 if name == "prompt_model" else 1  # a first click, then a repeat
+            for _ in range(reqs):
+                before = _counts(K)
+                out = eng.segment(im, name, pm)
+                deltas.setdefault(name, []).append(
+                    tuple(a - b for a, b in zip(_counts(K), before)))
+                _check_mask(name, out["mask"], im.shape[:2])
+    _add(launches, K)
+    print(f"[ckpt] launches (attention, mlp, double_conv) per request at "
+          f"{[im.shape[:2] for im in images]}: {deltas}")
+    for name, got in deltas.items():
+        expect = ([want[name], (0, 0, 9)] * len(images) if name == "prompt_model"
+                  else [want[name]] * len(images))
+        if got != expect:
+            raise AssertionError(f"{name}: launches {got}, want {expect}")
+
+    # the same state_dicts in models on the plain versions (module path UNet,
+    # plain attention and MLP), in bf16 as served and in float32. A kernel
+    # and its plain version agree within 2^-6 a call (phase 3), but a
+    # model stacks 24 ViT kernel calls and a decoder on one residual
+    # stream, and their bf16 roundings compound: the served scores are
+    # held to the float32 forward, no farther from it than the plain
+    # versions' bf16 forward is (relative L2, at most 1.5 times, the
+    # bound phase 8 holds the bf16 train step to), and to the plain bf16
+    # forward's argmax on >= 0.99 of the pixels.
+    plain = InferenceEngine(device="cuda")
+    exact = InferenceEngine(device="cuda", fast_transfer=False)
+    for name in FAMILIES:
+        path, cfg = app.find_checkpoint(models_dir, name)
+        for target, f32 in ((plain, False), (exact, True)):
+            model = app.load_family_model(
+                path, dataclasses.replace(cfg, use_kernels=False), "cuda",
+                **app.FAMILY_SPECS[name].overrides.get(cfg.model, {}))
+            for m in model.modules() if f32 else ():
+                if isinstance(getattr(m, "dtype", None), torch.dtype):
+                    m.dtype = torch.float32  # compute in f32 (TF32 is off, main())
+            if name == "prompt_model":
+                target.register_prompt_composed(name, model, eng.models[name].target_size)
+            else:
+                target.register(name, model, eng.models[name].target_size)
+    rel_l2 = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))  # noqa: E731
+    for name in FAMILIES:
+        diffs, k_err, p_err, agree, total = [], [], [], 0, 0
+        for im in images:
+            inputs, _ = stage_request(im, eng.models[name],
+                                      click(im) if name == "prompt_model" else None,
+                                      eng.fast_transfer)
+            batch = [a[None] for a in inputs]
+            got = eng.forward(name, *batch)[0]
+            ref = plain.forward(name, *batch)[0]
+            f32 = exact.forward(name, *batch)[0]
+            if not np.isfinite(got).all():
+                raise AssertionError(f"{name}: scores not finite")
+            diffs.append(float(np.abs(got - ref).max()) / max(float(np.abs(ref).max()), 1e-30))
+            k_err.append(rel_l2(got, f32))
+            p_err.append(rel_l2(ref, f32))
+            agree += int((got.argmax(-1) == ref.argmax(-1)).sum())
+            total += got.shape[0] * got.shape[1]
+        print(f"[ckpt] {name}: trained checkpoint, relative L2 to the f32 forward: kernels "
+              f"{max(k_err):.4g}, plain versions in bf16 {max(p_err):.4g} (tol 1.5x); argmax "
+              f"agreement with the plain bf16 forward {agree / total:.6f} of {total} pixels "
+              f"(tol 0.99); max |kernels - plain| / max |plain| {max(diffs):.4g} "
+              f"(2^-6 = {REL_TOL:.4g} a kernel call in phase 3)")
+        if max(k_err) > 1.5 * max(p_err) or agree / total < 0.99:
+            raise AssertionError(f"{name}: kernels {max(k_err)} vs plain {max(p_err)} from "
+                                 f"f32, agreement {agree / total}")
+    del plain, exact
+
+    # 2. the HTTP app over the registry, in a thread on 127.0.0.1
+    server = ThreadingHTTPServer(("127.0.0.1", 0), app.make_handler(eng))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        with urllib.request.urlopen(base + "/", timeout=60) as r:
+            page = r.read()
+        with open(os.path.join(app.TEMPLATE_DIR, "index.html"), "rb") as f:
+            if page != f.read():
+                raise AssertionError("GET / is not the template's bytes")
+        with urllib.request.urlopen(base + "/static/script.js", timeout=60) as r:
+            js = (r.status, len(r.read()))
+        img = (images[0] * 255).astype(np.uint8)
+        body = {"image": base64.b64encode(app.encode_png(img)).decode()}
+        codes = {}
+        for name in FAMILIES:
+            req = dict(body, model=name)
+            if name == "prompt_model":
+                req.update(prompt_type="bbox",
+                           prompt_data={"x": 120, "y": 80, "width": 200, "height": 180})
+            t = time.perf_counter()
+            r = urllib.request.urlopen(urllib.request.Request(
+                base + "/segment", data=json.dumps(req).encode(), method="POST",
+                headers={"Content-Type": "application/json"}), timeout=120)
+            out = json.loads(r.read())
+            mask = app._decode_upload(base64.b64decode(out["output_mask"]))
+            codes[name] = (r.status, mask.shape, round((time.perf_counter() - t) * 1e3, 1))
+            if r.status != 200 or mask.shape != img.shape:
+                raise AssertionError(f"POST /segment {name}: {r.status}, mask {mask.shape}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    print(f"[ckpt] HTTP on 127.0.0.1: GET / = the template ({len(page)} bytes), GET "
+          f"/static/script.js {js}; POST /segment (status, mask shape, ms) {codes}")
+
+    # 3. predict.py over 16 synthetic PNGs of mixed sizes, each family
+    imgs, labels = _synthetic_pngs(os.path.join(tmp, "predict"), 16, seed=13)
+    for name in FAMILIES:
+        _zero(K)
+        argv = ["--models-dir", models_dir, "--input", imgs, "--labels", labels,
+                "--output", os.path.join(tmp, "predict", name), "--model", name]
+        summary = P.main(argv + (["--point", "48,48"] if name == "prompt_model" else []))
+        counts = _counts(K)
+        _add(launches, K)
+        n_masks = len([f for f in os.listdir(os.path.join(tmp, "predict", name))
+                       if f.endswith("_mask.png")])
+        print(f"[ckpt] predict {name}: {summary['images']} images, {n_masks} masks written, "
+              f"{summary['images_per_sec']} images/s after the first; mIoU "
+              f"{summary.get('mean_iou')} on synthetic labels (smoke weights: not a quality "
+              f"number); launches {counts} ({card})")
+        if n_masks != 16 or summary.get("scored") != 16 or counts != tuple(
+                16 * c for c in want[name]):
+            raise AssertionError(f"predict {name}: {summary}, launches {counts}")
+
+    # 4. export the registry on the card, then serve the programs
+    t0 = time.time()
+    written = X.export_registry(models_dir, os.path.join(tmp, "exports"), device="cuda")
+    print(f"[ckpt] export_registry on cuda: {len(written)} programs in "
+          f"{time.time() - t0:.1f} s")
+    aot = InferenceEngine(device="cuda")
+    for path in written:
+        t0 = time.perf_counter()
+        name = aot.register_exported(path)
+        print(f"[ckpt] exported {name}: {os.path.getsize(path)} bytes, loaded in "
+              f"{time.perf_counter() - t0:.2f} s")
+    for name in FAMILIES:  # warm-up
+        aot.segment(warm, name, click(warm) if name == "prompt_model" else None)
+    _zero(K)
+    for name in FAMILIES:
+        errs, agree, total, got_launches = [], 0, 0, []
+        for im in images:
+            pm = click(im) if name == "prompt_model" else None
+            before = _counts(K)
+            aot.segment(im, name, pm)
+            got_launches.append(tuple(a - b for a, b in zip(_counts(K), before)))
+            inputs, _ = stage_request(im, eng.models[name], pm, eng.fast_transfer)
+            got = aot.forward(name, *(a[None] for a in inputs))[0]
+            ref = eng.forward(name, *(a[None] for a in inputs))[0]
+            errs.append(float(np.abs(got - ref).max()) / max(float(np.abs(ref).max()), 1e-30))
+            agree += int((got.argmax(-1) == ref.argmax(-1)).sum())
+            total += got.shape[0] * got.shape[1]
+        print(f"[ckpt] exported {name} vs the live engine: max |diff| / max |live| "
+              f"{max(errs):.3g} (tol 2^-6); argmax agreement {agree / total:.6f}; launches "
+              f"per segment() {got_launches}, the live path's first request {want[name]}")
+        if max(errs) > REL_TOL or set(got_launches) != {want[name]}:
+            raise AssertionError(f"exported {name}: {max(errs)}, launches {got_launches}")
+    _add(launches, K)
+
+    # 5. single-request latency, live and exported, after warm-up; then the
+    # exported programs in a fresh process, as `serve.app --exports-dir`
+    # starts them, and the host and device time of one program call
+    im = images[0]
+    np.save(os.path.join(tmp, "latency_image.npy"), im)
+    np.save(os.path.join(tmp, "latency_click.npy"), click(im))
+    dev = "cuda"
+    fresh = subprocess.run([sys.executable, "-c", f"""
+import gc, json, os, time, numpy as np
+from chip_smoke import GcClock
+from image_segmentation_tpu_torch.serve.engine import InferenceEngine
+eng = InferenceEngine({dev!r})
+for path in {written!r}:
+    eng.register_exported(path)
+im = np.load({os.path.join(tmp, "latency_image.npy")!r})
+pm = np.load({os.path.join(tmp, "latency_click.npy")!r})
+out = {{"objects": len(gc.get_objects())}}
+for name in eng.available():
+    lat = []
+    with GcClock() as clock:
+        for _ in range(24):
+            t = time.perf_counter()
+            eng.segment(im, name, pm if name == "prompt_model" else None)
+            lat.append((time.perf_counter() - t) * 1e3)
+    out[name] = (sorted(lat[4:]), str(clock))
+print(json.dumps(out))
+"""], capture_output=True, text=True, timeout=600, check=True)
+    fresh_lat = json.loads(fresh.stdout.strip().splitlines()[-1])
+    import gc
+
+    print(f"[ckpt] objects the garbage collector tracks: {len(gc.get_objects())} in this "
+          f"process, {fresh_lat['objects']} in a fresh one serving the programs")
+    for name in FAMILIES:
+        pm = click(im) if name == "prompt_model" else None
+        row, gcs = {}, {}
+        for label, e in (("live", eng), ("exported", aot)):
+            lat = []
+            with GcClock() as gcs[label]:
+                for _ in range(24):
+                    t = time.perf_counter()
+                    e.segment(im, name, pm)
+                    lat.append((time.perf_counter() - t) * 1e3)
+            lat = lat[4:]
+            row[label] = (round(_pct(lat, 0.5), 3), round(_pct(lat, 0.9), 3))
+        fresh_ms, gcs["fresh"] = fresh_lat[name]
+        row["fresh"] = tuple(round(_pct(fresh_ms, q), 3) for q in (0.5, 0.9))
+        inputs, _ = stage_request(im, aot.models[name], pm, aot.fast_transfer)
+        batch = [a[None] for a in inputs]
+        dispatch = aot.models[name].dispatch
+        enqueue = []
+        for _ in range(10):
+            t = time.perf_counter()
+            _, ready = dispatch(*batch)
+            enqueue.append((time.perf_counter() - t) * 1e3)
+            ready.synchronize()
+        device = sum(_device_profile(lambda: dispatch(*batch)[0], iters=5).values())
+        note = (" (live: repeat clicks on one image, clip branch cached; exported: the whole "
+                "prompt model each request)" if name == "prompt_model" else "")
+        print(f"[ckpt] {name} segment() 375x500, p50 / p90 ms over 20 requests after 4 "
+              f"warm-up: live {row['live']}, exported {row['exported']}, exported in a fresh "
+              f"process {row['fresh']}{note}; the program's dispatch alone: host "
+              f"{statistics.median(enqueue):.3f} ms a call (median of 10), device "
+              f"{device:.3f} ms; garbage collection over the 24 requests: live "
+              f"{gcs['live']}, exported {gcs['exported']}, fresh {gcs['fresh']} ({card})")
+
+
 def print_ptxas_report(log: str) -> None:
     """One line per kernel from ptxas's -v report: registers, spills."""
     import re
@@ -1749,13 +2190,24 @@ def main() -> int:
     eng4 = timed(phase_four_families, K, clip, unet, launches, card)
     timed(phase_batched, K, eng4, clip.vit.num_layers, launches, card)
     del eng, eng4, clip, unet
-    for phase in (phase_training, phase_unet_aug, phase_autoencoder):
-        timed(phase, K, launches, card)
+    import os
+    import shutil
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
+        # the MO_ directories of phases 8 and 10-12, served by phase 13
+        models_dir = os.path.join(tmp, "models")
+        os.makedirs(models_dir)
+        timed(phase_training, K, launches, card, models_dir)
+        timed(phase_unet_aug, K, launches, card)
+        timed(phase_autoencoder, K, launches, card, models_dir)
         mo = timed(phase_clip_training, K, launches, card, tmp)
         timed(phase_prompt_training, K, launches, card, mo, tmp)
+        shutil.copytree(mo, os.path.join(models_dir, "MO_clipunet"))
+        shutil.copytree(os.path.join(tmp, "prompt", "MO_prompt"),
+                        os.path.join(models_dir, "MO_prompt"))
+        torch.cuda.empty_cache()
+        timed(phase_checkpoints, K, launches, card, models_dir, tmp)
     print(f"[done] every phase passed in {time.time() - start:.1f} s from the build on")
 
     sources = {"fused_attention": ("attention.cu", "image_segmentation_tpu/ops/pallas/attention.py:99"),

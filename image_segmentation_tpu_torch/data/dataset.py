@@ -8,8 +8,9 @@ optional target_transform (the 255 → 3 boundary remap) applies to labels
 (reference utils/dataset.py:6-103). The training path materialises a
 dataset once into fixed-shape arrays (data/loader.py).
 
-PIL is imported only when a file is decoded: the card's machine has no
-PIL, and the in-memory datasets need none.
+PIL is imported only when a file is decoded, and need not be installed:
+without it PNG files decode with the port's codec (`data/png.py`), and
+the in-memory datasets need neither.
 """
 from __future__ import annotations
 
@@ -20,14 +21,22 @@ import numpy as np
 
 
 def _decode_image(path: str) -> np.ndarray:
-    """Decode to (H, W, C) uint8 (RGB kept as it is; palettes expanded)."""
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise RuntimeError(
-            f"decoding {path} needs PIL (Pillow), which is not installed; "
-            "file datasets need it, in-memory ones (ArrayDataset, --synthetic) do not"
-        ) from e
+    """Decode to (H, W, C) uint8 (RGB kept as it is; palettes expanded).
+    Without PIL, PNGs decode with the port's codec (`data/png.py`) and any
+    other format raises."""
+    from image_segmentation_tpu_torch.data import png
+
+    if not png.pil_available():
+        with open(path, "rb") as f:
+            raw = f.read()
+        if not raw.startswith(png.SIGNATURE):
+            raise RuntimeError(
+                f"decoding {path} needs PIL (Pillow), which is not installed; without it "
+                "only PNG files decode, and in-memory datasets (ArrayDataset, --synthetic) "
+                "need none")
+        return png.decode_png(raw)
+    from PIL import Image
+
     with Image.open(path) as im:
         if im.mode == "P":
             im = im.convert("RGB")

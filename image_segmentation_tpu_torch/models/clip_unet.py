@@ -57,7 +57,10 @@ def resize_linear(x: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:
 
     wy = weights(x.shape[2], out_hw[0])
     wx = weights(x.shape[3], out_hw[1])
-    return torch.einsum("oh,nchw,pw->ncop", wy, x, wx)
+    # rows, then columns: two products, the order a three-operand einsum
+    # took, without its path search, which fixes the batch size in a trace
+    y = torch.einsum("oh,nchw->ncow", wy, x)
+    return torch.einsum("ncow,pw->ncop", y, wx)
 
 
 class ClipDecoderBlock(nn.Module):

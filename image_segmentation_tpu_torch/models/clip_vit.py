@@ -222,16 +222,28 @@ def hf_vision_npz_arrays(state_dict: Mapping) -> Dict[str, np.ndarray]:
     return {k: np.ascontiguousarray(v) for k, v in out.items()}
 
 
+def _vit_state(arrays: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The flat '/'-joined arrays of a CLIP `.npz` → the ClipViT state dict."""
+    tree: dict = {}
+    for key, value in arrays.items():
+        *parents, leaf = key.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return _vit(tree)
+
+
 def load_pretrained_clip_state(path: str) -> Dict[str, torch.Tensor]:
     """The ClipViT state dict (HF key names, float32) of a converted CLIP
     `.npz`, the file JAX's `load_pretrained_clip_params(cache_path=...)`
     reads."""
-    tree: dict = {}
     with np.load(path) as npz:
-        for key in npz.files:
-            *parents, leaf = key.split("/")
-            node = tree
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = npz[key]
-    return _vit(tree)
+        return _vit_state({key: npz[key] for key in npz.files})
+
+
+def hf_vision_state(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """An HF CLIPVisionModel state dict → the ClipViT state dict, through
+    the `.npz` layout, so both keep exactly the entries the JAX converter
+    keeps."""
+    return _vit_state(hf_vision_npz_arrays(state_dict))

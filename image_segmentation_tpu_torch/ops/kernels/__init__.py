@@ -12,6 +12,13 @@ where it stands in the port (paths under image_segmentation_tpu/):
 | K2 `ops/pallas/blocks.py` `fused_down_block` :40, `fused_up_block` :63 | reach `double_conv.py:185` | maxpool 2×2 → K1; transpose-conv 2×2 s2 + bias → concat[skip, up] → K1 | UNet levels, N ≤ 8 | ported: `blocks.py`; the pool and the transpose conv are torch ops, as the JAX package keeps them on XLA; the concat is in K1's load stage (`fused_double_conv_cat`) |
 | `models/fused_unet.py` `fused_unet_forward` :56 | reaches `double_conv.py:185` | a whole UNet inference forward from K1/K2 + 1×1 head (f32 product of bf16 operands + f32 bias) | 256 px UNet, base 64 (unet family); 224 px, 4 → 1 channels (prompt `mask`); N ≤ 8 | ported: `models/fused_unet.py`, the forward of `models/unet.py` `UNet(use_kernels=True)` |
 
+Each kernel (and K1's concat entry) is also a `torch.library` op,
+`istpu::fused_attention`, `istpu::fused_mlp`, `istpu::fused_double_conv`
+and `istpu::fused_double_conv_cat`: the plain version on the CPU, the
+same launcher on CUDA. The wrappers emit the ops only while torch.export
+traces, so exported programs (serve/export.py) launch the kernels and
+eager calls pay no op dispatch.
+
 The kernels build on first CUDA use (`_build.py`); importing this
 package compiles nothing.
 """

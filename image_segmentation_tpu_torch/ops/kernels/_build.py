@@ -9,7 +9,10 @@ is newer than it (the rule of image_segmentation_tpu/ops/native_codec.py).
 A missing compiler or a failed build raises with the compiler's output:
 there is no fallback for a CUDA tensor. Nor does a wrapper drop a
 gradient: the kernels have no backward, so `refuse_grad` raises when one
-would be asked for.
+would be asked for. While torch.export traces (`tracing`), the wrappers
+emit each kernel as a `torch.library` op in the `istpu` namespace, whose
+CUDA implementation is the same launcher, so an exported program
+launches the same kernels.
 
 The TMA tensor maps are encoded on the host by the driver's
 cuTensorMapEncodeTiled, which csrc/hopper.cuh looks up at run time through
@@ -132,6 +135,15 @@ def refuse_grad(op: str, *tensors) -> None:
         raise RuntimeError(
             f"{op}: the CUDA kernel has no backward, and an argument requires grad; run "
             f"it under torch.no_grad() or torch.inference_mode(), or on a frozen module")
+
+
+def tracing() -> bool:
+    """True while torch.export (or torch.compile) traces the caller. The
+    wrappers then emit their kernel as a torch op (`istpu::...`), which the
+    graph can hold, instead of launching through ctypes on `data_ptr()`s,
+    which a trace cannot follow; eager calls keep the direct path and pay
+    no op dispatch."""
+    return torch.compiler.is_compiling()
 
 
 def check(rc: int, what: str) -> None:

@@ -12,7 +12,9 @@ plain PyTorch with the kernel's cast points:
 `fused_attention` takes the plain version only for tensors on the CPU.
 On a CUDA tensor it launches the kernel (bf16, D = 64) or raises; the
 kernel has no backward, so under grad mode an argument that requires
-grad is refused.
+grad is refused. While torch.export traces, it emits `attention_op`
+(`istpu::fused_attention`) instead, whose CUDA implementation is the same
+launcher.
 """
 from __future__ import annotations
 
@@ -87,12 +89,8 @@ def attention_plan(b: int, s: int, h: int) -> AttentionPlan:
     return AttentionPlan((-(-s // Q_TILE), h, b), chunks, chunks * KEY_CHUNK, smem)
 
 
-def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(QKᵀ/√D)·V for (B, S, H, D); returns (B, S, H, D) in q's dtype."""
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention runs on cpu or cuda, not {q.device}")
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The kernel on CUDA tensors: checks, the plan, one launch, the count."""
     _check_cuda_args(q, k, v)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -110,3 +108,24 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+# K3 as a torch op, for torch.export: the plain version on the CPU, the
+# launcher on CUDA, and the output's shape and dtype while tracing.
+attention_op = torch.library.custom_op(
+    "istpu::fused_attention", _launch, mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v) -> Tensor")
+attention_op.register_kernel("cpu", attention_reference)
+attention_op.register_fake(lambda q, k, v: q.new_empty(q.shape))
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(QKᵀ/√D)·V for (B, S, H, D); returns (B, S, H, D) in q's dtype."""
+    if _build.tracing():
+        _build.refuse_grad("fused_attention", q, k, v)
+        return attention_op(q, k, v)
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention runs on cpu or cuda, not {q.device}")
+    return _launch(q, k, v)

@@ -23,7 +23,10 @@ scale and bias (C,) f32. The wrappers take the plain version only for
 tensors on the CPU. On a CUDA tensor they launch the kernel (bf16,
 contiguous NHWC, which is an NCHW tensor in channels_last memory
 permuted to NHWC) or raise. The kernel has no backward: under grad mode
-a CUDA argument that requires grad is refused.
+a CUDA argument that requires grad is refused. While torch.export traces,
+they emit `double_conv_op` (`istpu::fused_double_conv`) and
+`double_conv_cat_op` (`istpu::fused_double_conv_cat`) instead, whose CUDA
+implementations are the same launcher.
 """
 from __future__ import annotations
 
@@ -194,17 +197,52 @@ def _launch(xs, w1, scale1, bias1, w2, scale2, bias2) -> torch.Tensor:
     return out
 
 
+_DC_ARGS = "Tensor w1, Tensor scale1, Tensor bias1, Tensor w2, Tensor scale2, Tensor bias2"
+
+
+def _launch_op(xs, *args) -> torch.Tensor:
+    """The launcher as an op implementation. A program replays the traced
+    layouts, so each operand is made contiguous here (free where it is)
+    rather than refused for a stride the trace did not foresee."""
+    return _launch(tuple(t.contiguous() for t in xs), *(t.contiguous() for t in args))
+
+
+# K1 and its concat entry as torch ops, for torch.export: the plain
+# versions on the CPU, the launcher on CUDA, and the output's shape and
+# dtype while tracing.
+double_conv_op = torch.library.custom_op(
+    "istpu::fused_double_conv", lambda x, *w: _launch_op((x,), *w), mutates_args=(),
+    device_types="cuda", schema=f"(Tensor x, {_DC_ARGS}) -> Tensor")
+double_conv_op.register_kernel("cpu", double_conv_reference)
+double_conv_op.register_fake(lambda x, w1, *_: x.new_empty(x.shape[:3] + (w1.shape[-1],)))
+double_conv_cat_op = torch.library.custom_op(
+    "istpu::fused_double_conv_cat", lambda skip, up, *w: _launch_op((skip, up), *w),
+    mutates_args=(), device_types="cuda",
+    schema=f"(Tensor skip, Tensor up, {_DC_ARGS}) -> Tensor")
+double_conv_cat_op.register_kernel("cpu", double_conv_cat_reference)
+double_conv_cat_op.register_fake(
+    lambda skip, up, w1, *_: skip.new_empty(skip.shape[:3] + (w1.shape[-1],)))
+
+
 def fused_double_conv(x, w1, scale1, bias1, w2, scale2, bias2) -> torch.Tensor:
     """x (N, H, W, Cin), w (3, 3, Cin, C) HWIO, scale/bias (C,) f32 →
     (N, H, W, C) in x's dtype."""
+    args = (w1, scale1, bias1, w2, scale2, bias2)
+    if _build.tracing():
+        _build.refuse_grad("fused_double_conv", x, *args)
+        return double_conv_op(x, *args)
     if x.device.type == "cpu":
-        return double_conv_reference(x, w1, scale1, bias1, w2, scale2, bias2)
-    return _launch((x,), w1, scale1, bias1, w2, scale2, bias2)
+        return double_conv_reference(x, *args)
+    return _launch((x,), *args)
 
 
 def fused_double_conv_cat(skip, up, w1, scale1, bias1, w2, scale2, bias2) -> torch.Tensor:
     """The double conv of concat [skip, up] along channels, without the
     concat: skip (N, H, W, Cs), up (N, H, W, Cu), w1 (3, 3, Cs + Cu, C)."""
+    args = (w1, scale1, bias1, w2, scale2, bias2)
+    if _build.tracing():
+        _build.refuse_grad("fused_double_conv", skip, up, *args)
+        return double_conv_cat_op(skip, up, *args)
     if skip.device.type == "cpu":
-        return double_conv_cat_reference(skip, up, w1, scale1, bias1, w2, scale2, bias2)
-    return _launch((skip, up), w1, scale1, bias1, w2, scale2, bias2)
+        return double_conv_cat_reference(skip, up, *args)
+    return _launch((skip, up), *args)

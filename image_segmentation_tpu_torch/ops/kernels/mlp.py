@@ -11,7 +11,9 @@ f32 accumulation + f32 bias → cast → residual add in x's dtype.
 Weights use the nn.Linear layout: w1 is (F, H), w2 is (H, F).
 `fused_mlp` takes the plain version only for tensors on the CPU. On a
 CUDA tensor it launches the kernel or raises; the kernel has no backward,
-so under grad mode an argument that requires grad is refused.
+so under grad mode an argument that requires grad is refused. While
+torch.export traces, it emits `mlp_op` (`istpu::fused_mlp`) instead,
+whose CUDA implementation is the same launcher.
 """
 from __future__ import annotations
 
@@ -122,12 +124,8 @@ def mlp_plan(tokens: int, hdim: int, fdim: int, sms: int) -> MlpPlan:
                    (splits, tokens, hdim) if splits > 1 else None)
 
 
-def fused_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
-    """x: (..., H); returns x + MLP(LN(x)) in x's dtype."""
-    if x.device.type == "cpu":
-        return mlp_reference(x, ln_w, ln_b, w1, b1, w2, b2, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp runs on cpu or cuda, not {x.device}")
+def _launch(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+    """The kernel on CUDA tensors: checks, the plan, one launch, the count."""
     _check_cuda_args(x, ln_w, ln_b, w1, b1, w2, b2)
     hdim, fdim = x.shape[-1], w1.shape[0]
     m = x.numel() // hdim
@@ -151,3 +149,25 @@ def fused_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+# K4 as a torch op, for torch.export: the plain version on the CPU, the
+# launcher on CUDA, and the output's shape and dtype while tracing.
+mlp_op = torch.library.custom_op(
+    "istpu::fused_mlp", _launch, mutates_args=(), device_types="cuda",
+    schema="(Tensor x, Tensor ln_w, Tensor ln_b, Tensor w1, Tensor b1, Tensor w2, "
+           "Tensor b2, float eps) -> Tensor")
+mlp_op.register_kernel("cpu", mlp_reference)
+mlp_op.register_fake(lambda x, *_: x.new_empty(x.shape))
+
+
+def fused_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
+    """x: (..., H); returns x + MLP(LN(x)) in x's dtype."""
+    if _build.tracing():
+        _build.refuse_grad("fused_mlp", x, ln_w, ln_b, w1, b1, w2, b2)
+        return mlp_op(x, ln_w, ln_b, w1, b1, w2, b2, float(eps))
+    if x.device.type == "cpu":
+        return mlp_reference(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp runs on cpu or cuda, not {x.device}")
+    return _launch(x, ln_w, ln_b, w1, b1, w2, b2, eps)

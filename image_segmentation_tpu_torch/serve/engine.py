@@ -23,7 +23,8 @@ on a copy stream that waits on the forward's event. The engine serves on
 the card unless built with device="cpu", where the same code runs
 without streams.
 
-Single-device only; the mesh and AOT artifacts come with later slices.
+`register_exported` serves a program of serve/export.py in place of a
+live model. Single-device only; the mesh comes with a later slice.
 """
 from __future__ import annotations
 
@@ -154,12 +155,18 @@ class InferenceEngine:
 
     # -- device half --------------------------------------------------------
 
-    def _to_device(self, x: np.ndarray) -> torch.Tensor:
-        """A staged host array → float [0, 1] on the device (uint8 decodes
-        there). Call on the compute stream."""
+    def _upload(self, x: np.ndarray) -> torch.Tensor:
+        """A staged host array → the device, in its own dtype. Call on the
+        compute stream."""
         t = torch.from_numpy(np.ascontiguousarray(x))
         if self.stream is not None:
             t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        """A staged host array → float [0, 1] on the device (uint8 decodes
+        there). Call on the compute stream."""
+        t = self._upload(x)
         return t.float() / 255.0 if t.dtype == torch.uint8 else t.float()
 
     def _on_device(self, forward: Callable[[], torch.Tensor]) -> Dispatched:
@@ -243,6 +250,32 @@ class InferenceEngine:
         self.models[name] = ModelEntry(
             name=name, dispatch=dispatch, target_size=target_size,
             class_names=PROMPT_CLASS_NAMES, needs_prompt=True, score_cache=cache)
+
+    def register_exported(self, path: str, name: Optional[str] = None) -> str:
+        """Register a program of serve/export.py (JAX engine.py:393-419):
+        the loaded program is the whole device forward, staged arrays in
+        (its loader adapts uint8 and float to the contract it was exported
+        with) and scores out, so no model code or checkpoint is involved,
+        and its symbolic batch serves single requests and BatchingEngine
+        buckets alike. The program must have been exported for this
+        engine's device type. A prompt program is monolithic: the clip
+        branch runs on every request (there is no score cache). Returns the
+        registered name."""
+        from image_segmentation_tpu_torch.serve.export import load_exported
+
+        call, meta = load_exported(path, self.device)
+        name = name or meta["name"]
+        if name in self.models:
+            print(f"[serve] note: exported program {path} replaces the registered "
+                  f"model {name!r}")
+
+        def dispatch(*xs: np.ndarray) -> Dispatched:
+            return self._on_device(lambda: call(*(self._upload(x) for x in xs)))
+
+        self.models[name] = ModelEntry(
+            name=name, dispatch=dispatch, target_size=int(meta["target_size"]),
+            class_names=tuple(meta["class_names"]), needs_prompt=bool(meta["needs_prompt"]))
+        return name
 
     def available(self):
         return sorted(self.models.keys())

@@ -644,3 +644,71 @@ def test_prompt_train_step_on_the_card(cuda):
             assert p.grad is None, n
         else:
             assert p.grad is not None and torch.isfinite(p.grad).all(), n
+
+
+def _launch_counts():
+    return K3.LAUNCHES, K4.LAUNCHES, K1.LAUNCHES
+
+
+def test_export_on_the_card_holds_and_launches_the_kernels(cuda):
+    """The demo clip and unet families traced on the card: the program holds
+    K3 and K4 once per ViT block and K1 nine times as `istpu::` ops, one
+    call of it launches them as often, and its scores are the eager
+    model's (the same kernels in the same order)."""
+    from image_segmentation_tpu_torch.serve import app
+    from image_segmentation_tpu_torch.serve.export import export_model
+
+    n = app.DEMO_VIT.num_layers
+    want_ops = {"clip": {"fused_attention": n, "fused_mlp": n},
+                "unet": {"fused_double_conv": 5, "fused_double_conv_cat": 4}}
+    want_launches = {"clip": (n, n, 0), "unet": (0, 0, 9)}
+    x = torch.rand(3, 64, 64, 3, generator=torch.Generator().manual_seed(2)).to(cuda)
+    for name, model, tsize, _ in app.demo_model_specs(cuda):
+        if name not in want_ops:
+            continue
+        program, meta = export_model(model, tsize, fast_transfer=False)
+        assert meta["device_type"] == "cuda" and meta["compute_dtype"] == "bfloat16"
+        ops = {}
+        for node in program.graph.nodes:
+            if node.op == "call_function" and str(node.target).startswith("istpu."):
+                op = str(node.target).split(".")[1]
+                ops[op] = ops.get(op, 0) + 1
+        assert ops == want_ops[name]
+        module = program.module()
+        before = _launch_counts()
+        with torch.inference_mode():
+            got = module(x)
+            torch.cuda.synchronize()
+            assert tuple(a - b for a, b in zip(_launch_counts(), before)) == want_launches[name]
+            _close(got, model(x).float())
+
+
+def test_register_exported_on_the_card_launches_the_kernels(cuda, tmp_path):
+    """The four demo families exported on the card and served through
+    `register_exported`: each request launches K3/K4/K1 as the live path's
+    first request does (the prompt program is monolithic, so every
+    request runs its clip branch), and the masks agree with the live
+    engine's on at least 0.99 of the pixels."""
+    from image_segmentation_tpu_torch.serve import app
+    from image_segmentation_tpu_torch.serve.engine import InferenceEngine
+    from image_segmentation_tpu_torch.serve.export import export_registry
+
+    n = app.DEMO_VIT.num_layers
+    want = {"unet": (0, 0, 9), "autoencoder": (0, 0, 0), "clip": (n, n, 0),
+            "prompt_model": (n, n, 9)}
+    written = export_registry("", str(tmp_path), demo=True, device=cuda)
+    aot = InferenceEngine(device=cuda)
+    for path in written:
+        aot.register_exported(path)
+    live = _demo_families(cuda)
+    img = np.random.default_rng(3).uniform(0, 1, (75, 100, 3)).astype(np.float32)
+    pm = np.zeros((75, 100), np.float32)
+    pm[30:50, 40:70] = 1.0
+    for name, launches in want.items():
+        prompt = pm if name == "prompt_model" else None
+        for eng in (aot, live):
+            before = _launch_counts()
+            out = eng.segment(img, name, prompt)
+            assert tuple(a - b for a, b in zip(_launch_counts(), before)) == launches, name
+        agree = (aot.segment(img, name, prompt)["mask"] == out["mask"]).mean()
+        assert agree >= 0.99, (name, agree)
