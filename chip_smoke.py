@@ -99,16 +99,17 @@ Phases (each prints its lines; any failure ends the run non-zero):
      no farther from the f32 forward than the plain bf16 forward's (1.5x,
      relative L2), argmax agreement with it >= 0.99; the HTTP app in a thread on 127.0.0.1 (GET
      / is the template, GET /static/script.js, one POST /segment a family,
-     a box prompt for prompt_model); `predict.main` over 16 synthetic PNGs
-     of mixed sizes with class-id labels, each family (images/s; the mIoU
-     is of smoke weights); `export_registry` on cuda and
+     a box prompt for prompt_model, on a PNG whose rows use every filter,
+     and that upload's decode ms); `predict.main` over 16 synthetic PNGs
+     of mixed sizes with class-id labels, their rows using every filter,
+     each family (images/s; the mIoU is of smoke weights);
+     `export_registry` on cuda and
      `register_exported` of each program: scores within 2^-6 of the live
      engine's and the same K1/K3/K4 launches a request as the live path's
      first (each program's bytes and load seconds); then each family's
      single-request latency, p50 and p90 over 20 requests after warm-up,
-     live, exported, and exported in a fresh process (as `serve.app
-     --exports-dir` starts), with the host and device time of one
-     program dispatch;
+     live and exported, with the host and device time of one program
+     dispatch;
  14. the last line is {"ok": true, "device": {...}}.
 
 Phase 3 also prints each kernel's host dispatch at one request's shape
@@ -830,49 +831,6 @@ def unet_forward_device(model, plain, x1: torch.Tensor, card: str) -> None:
                   f"{module:.4f} ms; bound: forward {bound['forward']:.5f} ms, K2's eight "
                   f"blocks {bound['k2']:.5f} ms, K1's nine double convs {bound['k1']:.5f} ms "
                   f"({card})")
-            fused, blocks = k2_blocks_device_ms(model, plain, xb)
-            print(f"[unet] K2's eight blocks at batch {b} (4 down: pool + K1; 4 up: transpose "
-                  f"conv + K1 reading the concat), on the forward's activations, device time "
-                  f"(torch.profiler, 5 calls): {fused:.4f} ms; the module path's eight blocks "
-                  f"(cuDNN conv -> BN -> ReLU) {blocks:.4f} ms; bound {bound['k2']:.5f} ms "
-                  f"({card})")
-
-
-def k2_blocks_device_ms(model, plain, xb: torch.Tensor) -> tuple:
-    """Device ms of K2's eight blocks of one UNet forward (`fused_down_block`
-    x4, `fused_up_block` x4, their folded weights made beforehand, as the
-    blocks take them) and of the module path's eight blocks (`Down`, `Up`),
-    each on the activations its own forward gives it. Call under inference
-    mode."""
-    from image_segmentation_tpu_torch.models.fused_unet import _dc_args
-    from image_segmentation_tpu_torch.ops.kernels.blocks import fused_down_block, fused_up_block
-    from image_segmentation_tpu_torch.ops.kernels.double_conv import fused_double_conv
-
-    dt = model.dtype
-    x1 = fused_double_conv(xb.to(dt).contiguous(), *_dc_args(model.down1, dt))
-    downs = [_dc_args(d.conv, dt) for d in (model.down2, model.down3, model.down4, model.down5)]
-    ups = [(u.up.up.weight, u.up.up.bias, *_dc_args(u.conv, dt))
-           for u in (model.up1, model.up2, model.up3, model.up4)]
-
-    def k2():
-        feats = [x1]
-        for args in downs:
-            feats.append(fused_down_block(feats[-1], *args))
-        v = feats[-1]
-        for args, skip in zip(ups, reversed(feats[:-1])):
-            v = fused_up_block(skip, v, *args)
-        return v
-
-    p1 = plain.down1(xb.to(plain.dtype).permute(0, 3, 1, 2))
-
-    def module_blocks():
-        x2 = plain.down2(p1)
-        x3 = plain.down3(x2)
-        x4 = plain.down4(x3)
-        y = plain.up1(x4, plain.down5(x4))
-        return plain.up4(p1, plain.up3(x2, plain.up2(x3, y)))
-
-    return _device_ms(k2, iters=5), _device_ms(module_blocks, iters=5)
 
 
 KERNEL_NAMES = ("fused_attention", "fused_mlp", "fused_double_conv")
@@ -1819,42 +1777,39 @@ def _pct(xs, q: float) -> float:
     return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
 
 
-class GcClock:
-    """Python's garbage collections while it is entered (`gc.callbacks`):
-    their count and ms by generation."""
+def _png_every_filter(arr: np.ndarray) -> bytes:
+    """(H, W) or (H, W, C) uint8 → PNG bytes whose rows use the five row
+    filters in turn (PNG spec 9.2), as encoders that pick a filter per row
+    (PIL, libpng, a browser's canvas) use them all; the port's own
+    `encode_png` writes filter 0 only."""
+    import struct
+    import zlib
 
-    def __init__(self):
-        self.count, self.ms, self._t0 = [0, 0, 0], [0.0, 0.0, 0.0], 0.0
+    from image_segmentation_tpu_torch.data import png
 
-    def __call__(self, phase, info):
-        if phase == "start":
-            self._t0 = time.perf_counter()
-        else:
-            self.count[info["generation"]] += 1
-            self.ms[info["generation"]] += (time.perf_counter() - self._t0) * 1e3
-
-    def __enter__(self):
-        import gc
-
-        gc.callbacks.append(self)
-        return self
-
-    def __exit__(self, *exc):
-        import gc
-
-        gc.callbacks.remove(self)
-
-    def __str__(self):
-        return f"{self.count[2]} full collections, {self.ms[2]:.1f} ms ({sum(self.ms):.1f} ms all)"
+    px = arr.reshape(arr.shape[0], arr.shape[1], -1).astype(np.int32)
+    bpp = px.shape[2]
+    rows = []
+    for y in range(px.shape[0]):
+        line = px[y].reshape(-1)
+        up = px[y - 1].reshape(-1) if y else np.zeros_like(line)
+        left = np.concatenate([np.zeros(bpp, np.int32), line[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int32), up[:-bpp]])
+        pa, pb, pc = np.abs(up - upleft), np.abs(left - upleft), np.abs(left + up - 2 * upleft)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+        pred = (0, left, up, (left + up) >> 1, paeth)[y % 5]
+        rows.append(bytes([y % 5]) + ((line - pred) & 0xFF).astype(np.uint8).tobytes())
+    color = {1: 0, 2: 4, 3: 2, 4: 6}[bpp]  # gray, gray + alpha, RGB, RGBA
+    ihdr = struct.pack(">IIBBBBB", px.shape[1], px.shape[0], 8, color, 0, 0, 0)
+    return (png.SIGNATURE + png._chunk(b"IHDR", ihdr)
+            + png._chunk(b"IDAT", zlib.compress(b"".join(rows), 6)) + png._chunk(b"IEND", b""))
 
 
 def _synthetic_pngs(root: str, n: int, seed: int):
     """n images of mixed sizes and their class-id labels (0..2 and the 255
-    boundary sentinel) as PNG files, written with the port's own codec
-    (PIL need not be installed)."""
+    boundary sentinel) as PNG files whose rows use every filter type, so
+    that a host without PIL decodes them the slow way too."""
     import os
-
-    from image_segmentation_tpu_torch.data import png
 
     rng = np.random.default_rng(seed)
     imgs, labels = os.path.join(root, "images"), os.path.join(root, "labels")
@@ -1866,9 +1821,9 @@ def _synthetic_pngs(root: str, n: int, seed: int):
         img = (rng.uniform(0, 128, (h, w, 3)) + 60 * lab[..., None]).astype(np.uint8)
         lab[: h // 8] = 255
         with open(os.path.join(imgs, f"im{i:02d}.png"), "wb") as f:
-            f.write(png.encode_png(img))
+            f.write(_png_every_filter(img))
         with open(os.path.join(labels, f"im{i:02d}.png"), "wb") as f:
-            f.write(png.encode_png(lab))
+            f.write(_png_every_filter(lab))
     return imgs, labels
 
 
@@ -1883,6 +1838,7 @@ def phase_checkpoints(K, launches: dict, card: str, models_dir: str, tmp: str) -
     from http.server import ThreadingHTTPServer
 
     from image_segmentation_tpu_torch import predict as P
+    from image_segmentation_tpu_torch.data import png
     from image_segmentation_tpu_torch.serve import app
     from image_segmentation_tpu_torch.serve import export as X
     from image_segmentation_tpu_torch.serve.engine import InferenceEngine, stage_request
@@ -1943,8 +1899,7 @@ def phase_checkpoints(K, launches: dict, card: str, models_dir: str, tmp: str) -
         path, cfg = app.find_checkpoint(models_dir, name)
         for target, f32 in ((plain, False), (exact, True)):
             model = app.load_family_model(
-                path, dataclasses.replace(cfg, use_kernels=False), "cuda",
-                **app.FAMILY_SPECS[name].overrides.get(cfg.model, {}))
+                path, dataclasses.replace(cfg, use_kernels=False), "cuda")
             for m in model.modules() if f32 else ():
                 if isinstance(getattr(m, "dtype", None), torch.dtype):
                     m.dtype = torch.float32  # compute in f32 (TF32 is off, main())
@@ -1994,7 +1949,16 @@ def phase_checkpoints(K, launches: dict, card: str, models_dir: str, tmp: str) -
         with urllib.request.urlopen(base + "/static/script.js", timeout=60) as r:
             js = (r.status, len(r.read()))
         img = (images[0] * 255).astype(np.uint8)
-        body = {"image": base64.b64encode(app.encode_png(img)).decode()}
+        upload = _png_every_filter(img)
+        body = {"image": base64.b64encode(upload).decode()}
+        t = time.perf_counter()
+        for _ in range(5):
+            app.decode_base64_image(body["image"])
+        upload_ms = (time.perf_counter() - t) / 5 * 1e3
+        t = time.perf_counter()
+        for _ in range(5):
+            png.decode_png(upload)
+        codec_ms = (time.perf_counter() - t) / 5 * 1e3
         codes = {}
         for name in FAMILIES:
             req = dict(body, model=name)
@@ -2006,7 +1970,7 @@ def phase_checkpoints(K, launches: dict, card: str, models_dir: str, tmp: str) -
                 base + "/segment", data=json.dumps(req).encode(), method="POST",
                 headers={"Content-Type": "application/json"}), timeout=120)
             out = json.loads(r.read())
-            mask = app._decode_upload(base64.b64decode(out["output_mask"]))
+            mask = png.decode(base64.b64decode(out["output_mask"]))
             codes[name] = (r.status, mask.shape, round((time.perf_counter() - t) * 1e3, 1))
             if r.status != 200 or mask.shape != img.shape:
                 raise AssertionError(f"POST /segment {name}: {r.status}, mask {mask.shape}")
@@ -2015,10 +1979,21 @@ def phase_checkpoints(K, launches: dict, card: str, models_dir: str, tmp: str) -
         server.server_close()
         thread.join(timeout=30)
     print(f"[ckpt] HTTP on 127.0.0.1: GET / = the template ({len(page)} bytes), GET "
-          f"/static/script.js {js}; POST /segment (status, mask shape, ms) {codes}")
+          f"/static/script.js {js}; POST /segment of a {img.shape[1]}x{img.shape[0]} PNG whose "
+          f"rows use every filter (status, mask shape, ms) {codes}; decoding that upload "
+          f"({'PIL' if png.pil_available() else 'the port codec, no PIL'}): {upload_ms:.1f} ms, "
+          f"by the port codec (a host without PIL): {codec_ms:.1f} ms (host clock, mean of 5) "
+          f"({card})")
 
     # 3. predict.py over 16 synthetic PNGs of mixed sizes, each family
     imgs, labels = _synthetic_pngs(os.path.join(tmp, "predict"), 16, seed=13)
+    files = [os.path.join(d, f) for d in (imgs, labels) for f in sorted(os.listdir(d))]
+    t = time.perf_counter()
+    for f in files:
+        with open(f, "rb") as fh:
+            png.decode_png(fh.read())
+    print(f"[ckpt] the port codec (a host without PIL) decodes predict's 16 images and 16 "
+          f"labels in {(time.perf_counter() - t) * 1e3:.1f} ms (host clock) ({card})")
     for name in FAMILIES:
         _zero(K)
         argv = ["--models-dir", models_dir, "--input", imgs, "--labels", labels,
@@ -2028,8 +2003,10 @@ def phase_checkpoints(K, launches: dict, card: str, models_dir: str, tmp: str) -
         _add(launches, K)
         n_masks = len([f for f in os.listdir(os.path.join(tmp, "predict", name))
                        if f.endswith("_mask.png")])
-        print(f"[ckpt] predict {name}: {summary['images']} images, {n_masks} masks written, "
-              f"{summary['images_per_sec']} images/s after the first; mIoU "
+        print(f"[ckpt] predict {name}: {summary['images']} PNGs whose rows use every filter "
+              f"(decoded by {'PIL' if png.pil_available() else 'the port codec, no PIL'}), "
+              f"{n_masks} masks written, {summary['images_per_sec']} images/s after the "
+              f"first; mIoU "
               f"{summary.get('mean_iou')} on synthetic labels (smoke weights: not a quality "
               f"number); launches {counts} ({card})")
         if n_masks != 16 or summary.get("scored") != 16 or counts != tuple(
@@ -2070,52 +2047,20 @@ def phase_checkpoints(K, launches: dict, card: str, models_dir: str, tmp: str) -
             raise AssertionError(f"exported {name}: {max(errs)}, launches {got_launches}")
     _add(launches, K)
 
-    # 5. single-request latency, live and exported, after warm-up; then the
-    # exported programs in a fresh process, as `serve.app --exports-dir`
-    # starts them, and the host and device time of one program call
+    # 5. single-request latency, live and exported, after warm-up, and the
+    # host and device time of one program call
     im = images[0]
-    np.save(os.path.join(tmp, "latency_image.npy"), im)
-    np.save(os.path.join(tmp, "latency_click.npy"), click(im))
-    dev = "cuda"
-    fresh = subprocess.run([sys.executable, "-c", f"""
-import gc, json, os, time, numpy as np
-from chip_smoke import GcClock
-from image_segmentation_tpu_torch.serve.engine import InferenceEngine
-eng = InferenceEngine({dev!r})
-for path in {written!r}:
-    eng.register_exported(path)
-im = np.load({os.path.join(tmp, "latency_image.npy")!r})
-pm = np.load({os.path.join(tmp, "latency_click.npy")!r})
-out = {{"objects": len(gc.get_objects())}}
-for name in eng.available():
-    lat = []
-    with GcClock() as clock:
-        for _ in range(24):
-            t = time.perf_counter()
-            eng.segment(im, name, pm if name == "prompt_model" else None)
-            lat.append((time.perf_counter() - t) * 1e3)
-    out[name] = (sorted(lat[4:]), str(clock))
-print(json.dumps(out))
-"""], capture_output=True, text=True, timeout=600, check=True)
-    fresh_lat = json.loads(fresh.stdout.strip().splitlines()[-1])
-    import gc
-
-    print(f"[ckpt] objects the garbage collector tracks: {len(gc.get_objects())} in this "
-          f"process, {fresh_lat['objects']} in a fresh one serving the programs")
     for name in FAMILIES:
         pm = click(im) if name == "prompt_model" else None
-        row, gcs = {}, {}
+        row = {}
         for label, e in (("live", eng), ("exported", aot)):
             lat = []
-            with GcClock() as gcs[label]:
-                for _ in range(24):
-                    t = time.perf_counter()
-                    e.segment(im, name, pm)
-                    lat.append((time.perf_counter() - t) * 1e3)
+            for _ in range(24):
+                t = time.perf_counter()
+                e.segment(im, name, pm)
+                lat.append((time.perf_counter() - t) * 1e3)
             lat = lat[4:]
             row[label] = (round(_pct(lat, 0.5), 3), round(_pct(lat, 0.9), 3))
-        fresh_ms, gcs["fresh"] = fresh_lat[name]
-        row["fresh"] = tuple(round(_pct(fresh_ms, q), 3) for q in (0.5, 0.9))
         inputs, _ = stage_request(im, aot.models[name], pm, aot.fast_transfer)
         batch = [a[None] for a in inputs]
         dispatch = aot.models[name].dispatch
@@ -2129,11 +2074,9 @@ print(json.dumps(out))
         note = (" (live: repeat clicks on one image, clip branch cached; exported: the whole "
                 "prompt model each request)" if name == "prompt_model" else "")
         print(f"[ckpt] {name} segment() 375x500, p50 / p90 ms over 20 requests after 4 "
-              f"warm-up: live {row['live']}, exported {row['exported']}, exported in a fresh "
-              f"process {row['fresh']}{note}; the program's dispatch alone: host "
-              f"{statistics.median(enqueue):.3f} ms a call (median of 10), device "
-              f"{device:.3f} ms; garbage collection over the 24 requests: live "
-              f"{gcs['live']}, exported {gcs['exported']}, fresh {gcs['fresh']} ({card})")
+              f"warm-up: live {row['live']}, exported {row['exported']}{note}; the program's "
+              f"dispatch alone: host {statistics.median(enqueue):.3f} ms a call (median of "
+              f"10), device {device:.3f} ms ({card})")
 
 
 def print_ptxas_report(log: str) -> None:

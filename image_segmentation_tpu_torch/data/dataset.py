@@ -9,8 +9,8 @@ optional target_transform (the 255 → 3 boundary remap) applies to labels
 dataset once into fixed-shape arrays (data/loader.py).
 
 PIL is imported only when a file is decoded, and need not be installed:
-without it PNG files decode with the port's codec (`data/png.py`), and
-the in-memory datasets need neither.
+without it PNG files decode with the port's codec (`data/png.py`), other
+formats raise, and the in-memory datasets need neither.
 """
 from __future__ import annotations
 
@@ -21,29 +21,16 @@ import numpy as np
 
 
 def _decode_image(path: str) -> np.ndarray:
-    """Decode to (H, W, C) uint8 (RGB kept as it is; palettes expanded).
-    Without PIL, PNGs decode with the port's codec (`data/png.py`) and any
-    other format raises."""
+    """Decode to (H, W, C) uint8 (RGB kept as it is; palettes expanded)
+    with `data/png.decode`: PIL, or where it is missing PNG files only."""
     from image_segmentation_tpu_torch.data import png
 
-    if not png.pil_available():
-        with open(path, "rb") as f:
-            raw = f.read()
-        if not raw.startswith(png.SIGNATURE):
-            raise RuntimeError(
-                f"decoding {path} needs PIL (Pillow), which is not installed; without it "
-                "only PNG files decode, and in-memory datasets (ArrayDataset, --synthetic) "
-                "need none")
-        return png.decode_png(raw)
-    from PIL import Image
-
-    with Image.open(path) as im:
-        if im.mode == "P":
-            im = im.convert("RGB")
-        arr = np.asarray(im)
-    if arr.ndim == 2:
-        arr = arr[:, :, None]
-    return arr
+    with open(path, "rb") as f:
+        raw = f.read()
+    try:
+        return png.decode(raw)
+    except (ValueError, RuntimeError) as e:
+        raise type(e)(f"{path}: {e}") from e
 
 
 def normalize_image_channels(arr: np.ndarray) -> np.ndarray:

@@ -8,7 +8,8 @@ geometry at the original resolution, argmax, colourise) as a batch tool,
 optionally scored against ground-truth labels with the reference's
 original-resolution protocol (macro Dice/IoU/Acc with the ignore class
 left out). Runs on the card unless `--device cpu`; JAX's `--mesh` is not
-ported. Without PIL, images and labels must be PNG (`data/png.py`).
+ported. Without PIL, images and labels must be PNG, and JPEG is refused
+(`data/png.py`).
 
 Usage:
   python -m image_segmentation_tpu_torch.predict --models-dir runs/ \
@@ -69,7 +70,7 @@ def load_label(path: str, prompt_space: bool = False) -> np.ndarray:
 
 
 def _write_png(path: str, arr: np.ndarray) -> None:
-    from image_segmentation_tpu_torch.serve.app import encode_png
+    from image_segmentation_tpu_torch.data.png import encode_png
 
     with open(path, "wb") as f:
         f.write(encode_png(arr))

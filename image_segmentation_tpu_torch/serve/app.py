@@ -11,8 +11,9 @@ Counterpart of image_segmentation_tpu/serve/app.py:
 Prompt models take `prompt_type` ("points" by default, "bbox",
 "scribble", "text") and `prompt_data` (a list of {x, y}; {x, y, width,
 height}; a base64 PNG of the strokes); malformed prompt data is the
-client's error (400). Uploads decode and masks encode with PIL where it
-is installed, else with the port's own PNG codec (`data/png.py`).
+client's error (400). Uploads decode with PIL where it is installed,
+else with the port's own PNG codec, which refuses JPEG (`data/png.py`
+`decode`); masks are written by that codec.
 
 Registries:
   * `--models-dir DIR`: the trained `MO_<config>` directories that
@@ -44,7 +45,6 @@ from __future__ import annotations
 import argparse
 import base64
 import dataclasses
-import io
 import json
 import os
 import time
@@ -87,52 +87,25 @@ def _strip_data_url(data: str) -> bytes:
     return base64.b64decode(data)
 
 
-def _decode_upload(raw: bytes) -> np.ndarray:
-    """Image bytes → (H, W, C) uint8, a palette expanded: PIL, or where it
-    is missing the port's PNG codec."""
-    if not png.pil_available():
-        return png.decode_png(raw)
-    from PIL import Image
-
-    with Image.open(io.BytesIO(raw)) as im:
-        return np.asarray(im.convert("RGBA") if im.mode == "P" else im)
-
-
 def decode_base64_image(data: str) -> np.ndarray:
     """b64 (optionally a data URL) → (H, W, 3) float32 in [0, 1], alpha dropped."""
-    arr = normalize_image_channels(_decode_upload(_strip_data_url(data)))
+    arr = normalize_image_channels(png.decode(_strip_data_url(data)))
     return arr.astype(np.float32) / 255.0
 
 
 def decode_base64_gray(data: str) -> np.ndarray:
-    raw = _strip_data_url(data)
-    if not png.pil_available():
-        return png.to_gray(png.decode_png(raw))
-    from PIL import Image
-
-    with Image.open(io.BytesIO(raw)) as im:
-        return np.asarray(im.convert("L"))
+    """b64 (optionally a data URL) → (H, W) uint8, PIL's convert("L")."""
+    return png.to_gray(png.decode(_strip_data_url(data)))
 
 
 def encode_png_base64(arr: np.ndarray) -> str:
-    return base64.b64encode(encode_png(arr)).decode("ascii")
+    return base64.b64encode(png.encode_png(arr)).decode("ascii")
 
 
-def encode_png(arr: np.ndarray) -> bytes:
-    """(H, W) or (H, W, 3) uint8 → PNG bytes, by PIL or the port's codec."""
-    if not png.pil_available():
-        return png.encode_png(arr)
-    from PIL import Image
-
-    buf = io.BytesIO()
-    Image.fromarray(arr).save(buf, format="PNG")
-    return buf.getvalue()
-
-
-def demo_model_specs(device, seed: int = 0):
+def demo_model_specs(device, seed: int = 0, only: Optional[str] = None):
     """(name, model, target_size, needs_prompt) for the random-weight,
     reduced-width families of the JAX demo registry (app.py:99-143), each
-    seeded from `seed`, in eval mode on `device`."""
+    seeded from `seed`, in eval mode on `device`; `only` skips the others."""
     clip_kw = dict(vit=DEMO_VIT, skip_indices=(0, 1, 2, 3), decoder_channels=(64, 32, 16, 8, 8))
     builders = {
         "unet": (UNET_NOAUG, dict(base=8), False),
@@ -141,6 +114,8 @@ def demo_model_specs(device, seed: int = 0):
         "prompt_model": (PROMPT, dict(clip_kw, unet_base=8), True),
     }
     for name, (cfg, kw, needs_prompt) in builders.items():
+        if only and name != only:
+            continue
         model = build_model(cfg, device, torch.Generator().manual_seed(seed), **kw)
         yield name, model, DEMO_TARGET, needs_prompt
 
@@ -167,13 +142,11 @@ def build_demo_engine(device="cuda", seed: int = 0) -> InferenceEngine:
 class FamilySpec:
     """A served family: its target size, whether it takes a prompt, and the
     `MO_` directories it is served from, in the order they are tried, each
-    with the config its model is built as. `overrides` (config.model →
-    keyword arguments of the model) narrow the widths; full width has none."""
+    with the config its model is built as."""
 
     target_size: int
     needs_prompt: bool
     candidates: tuple
-    overrides: dict = dataclasses.field(default_factory=dict)
 
 
 # The full-width families and JAX's candidate names and order
@@ -191,14 +164,14 @@ FAMILY_SPECS = {
 }
 
 
-def load_family_model(path: str, cfg: ExperimentConfig, device, **overrides) -> torch.nn.Module:
+def load_family_model(path: str, cfg: ExperimentConfig, device) -> torch.nn.Module:
     """The config's model in eval mode on `device`, holding the trained
     state of the checkpoint at `path` (an `MO_` directory or a full
     checkpoint): parameters and BatchNorm running statistics, loaded
     strictly, so a missing statistic raises instead of serving init ones."""
     from image_segmentation_tpu_torch.train.checkpoint import load_model_state
 
-    model = build_model(cfg, device, torch.Generator().manual_seed(cfg.seed), **overrides)
+    model = build_model(cfg, device, torch.Generator().manual_seed(cfg.seed))
     model.load_state_dict(load_model_state(path, device), strict=True)
     return model
 
@@ -223,7 +196,7 @@ def load_family_models(models_dir: str, device="cuda", only: Optional[str] = Non
             print(f"[serve] no checkpoint for {name} in {models_dir} (tried {tried}); skipping")
             continue
         path, cfg = found
-        model = load_family_model(path, cfg, device, **spec.overrides.get(cfg.model, {}))
+        model = load_family_model(path, cfg, device)
         print(f"[serve] loaded {name} from {os.path.basename(path)} ({type(model).__name__})")
         yield name, model, spec.target_size, spec.needs_prompt
 

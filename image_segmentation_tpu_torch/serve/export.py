@@ -164,12 +164,10 @@ def export_registry(models_dir: str, out_dir: str, *, only: Optional[str] = None
     from image_segmentation_tpu_torch.serve.engine import PROMPT_CLASS_NAMES, SEG_CLASS_NAMES
 
     os.makedirs(out_dir, exist_ok=True)
-    entries = (app.demo_model_specs(device) if demo
+    entries = (app.demo_model_specs(device, only=only) if demo
                else app.load_family_models(models_dir, device, only=only))
     written = []
     for name, model, tsize, needs_prompt in entries:
-        if only and name != only:
-            continue
         path = os.path.join(out_dir, f"{name}{ARTIFACT_EXT}")
         t0 = time.time()
         save_exported(path, model, tsize, name=name,

@@ -3,11 +3,13 @@ and the file datasets use where PIL is missing (the card's machine): held
 to PIL, the codec those paths use where PIL is installed, bit for bit."""
 import base64
 import io
+import zlib
 
 import numpy as np
 import pytest
 from PIL import Image
 
+from chip_smoke import _png_every_filter
 from image_segmentation_tpu_torch.data import dataset, png
 from image_segmentation_tpu_torch.serve import app
 
@@ -35,38 +37,35 @@ def test_decode_equals_pil(mode, shape, optimize):
 
 def test_every_row_filter_is_undone():
     """One PNG whose rows use filters 0-4 in turn (PNG spec 9.2), written
-    here, decodes to its pixels as PIL decodes it."""
-    import struct
-    import zlib
-
+    by the writer of chip_smoke.py's phase 13, decodes to its pixels as
+    PIL decodes it."""
     arr = _smooth((10, 7, 3), 1)
-    rows, prev = [], np.zeros(21, np.int32)
-    for y in range(10):
-        ftype, line = y % 5, arr[y].reshape(-1).astype(np.int32)
-        left = np.concatenate([np.zeros(3, np.int32), line[:-3]])
-        upleft = np.concatenate([np.zeros(3, np.int32), prev[:-3]])
-        if ftype == 0:
-            enc = line
-        elif ftype == 1:
-            enc = line - left
-        elif ftype == 2:
-            enc = line - prev
-        elif ftype == 3:
-            enc = line - (left + prev) // 2
-        else:
-            p = left + prev - upleft
-            pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - upleft)
-            enc = line - np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
-        rows.append(bytes([ftype]) + (enc & 0xFF).astype(np.uint8).tobytes())
-        prev = line
-
-    def chunk(t, body):
-        return struct.pack(">I", len(body)) + t + body + struct.pack(
-            ">I", zlib.crc32(t + body) & 0xFFFFFFFF)
-
-    data = (png.SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", 7, 10, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(b"".join(rows))) + chunk(b"IEND", b""))
+    data = _png_every_filter(arr)
     np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(data))), arr)
+    np.testing.assert_array_equal(png.decode_png(data), arr)
+
+
+@pytest.mark.parametrize("shape", [(3, 41, 3), (41, 3, 3), (1, 9, 4), (9, 1), (26, 33, 2)])
+def test_every_row_filter_on_wide_and_tall_images(shape):
+    """The diagonal unfiltering of Average and Paeth rows at both ends of
+    its range: images far wider than tall and far taller than wide, one
+    row or one column, every channel count."""
+    arr = np.random.default_rng(sum(shape)).integers(0, 256, shape).astype(np.uint8)
+    data = _png_every_filter(arr)
+    np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(data))), arr)
+    np.testing.assert_array_equal(png.decode_png(data).reshape(shape), arr)
+
+
+def test_photo_that_pil_filters_with_paeth():
+    """A smooth photo-like image, on which PIL's encoder picks Paeth for
+    most rows, decodes as PIL decodes it."""
+    rng = np.random.default_rng(9)
+    small = Image.fromarray(rng.integers(0, 256, (12, 16, 3)).astype(np.uint8))
+    arr = np.asarray(small.resize((160, 120), Image.BICUBIC))
+    data = _pil_png(arr, "RGB")
+    rows = np.frombuffer(zlib.decompress(b"".join(
+        body for t, body in png._chunks(data) if t == b"IDAT")), np.uint8).reshape(120, -1)
+    assert (rows[:, 0] == 4).mean() > 0.5
     np.testing.assert_array_equal(png.decode_png(data), arr)
 
 
@@ -124,3 +123,5 @@ def test_serving_and_datasets_without_pil(monkeypatch, tmp_path):
     Image.fromarray(rgba[..., :3]).save(jpeg)
     with pytest.raises(RuntimeError, match="only PNG"):
         dataset._decode_image(str(jpeg))
+    with pytest.raises(RuntimeError, match="only PNG"):
+        app.decode_base64_image(base64.b64encode(jpeg.read_bytes()).decode())

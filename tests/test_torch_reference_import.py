@@ -201,8 +201,11 @@ def test_cli_mo_is_served_by_models_dir(tmp_path, monkeypatch):
     models = tmp_path / "models"
     assert main(["--torch-checkpoint", pth, "--arch", "unet",
                  "--out", str(models / "MO_unet")]) == 0
-    monkeypatch.setitem(app.FAMILY_SPECS, "unet", dataclasses.replace(
-        app.FAMILY_SPECS["unet"], target_size=64, overrides={"unet": dict(base=BASE)}))
+    monkeypatch.setitem(app.FAMILY_SPECS, "unet",
+                        dataclasses.replace(app.FAMILY_SPECS["unet"], target_size=64))
+    build = app.build_model
+    monkeypatch.setattr(app, "build_model",
+                        lambda cfg, device, gen: build(cfg, device, gen, base=BASE))
     eng = app.build_engine_from_checkpoints(str(models), "cpu")
     assert eng.available() == ["unet"]
 

@@ -4,7 +4,8 @@
 port's over the same weights (converted by models/convert.py) serve the
 same masks and scores for every family, at narrowed widths (both
 registries' full-width specs narrowed the same way: JAX's model classes
-through `functools.partial`, the port's through `FAMILY_SPECS`)."""
+through `functools.partial`, the port's through the keyword arguments
+its registry's `build_model` gets)."""
 import ast
 import dataclasses
 import functools
@@ -51,14 +52,23 @@ JAX_NARROW = {
     "PromptModel": functools.partial(jax_prompt.PromptModel, vit=JaxViTConfig(**VIT),
                                      unet_base=BASE, **CLIP_KW),
 }
+# the port's model keyword arguments at the same widths, by config.model
 PORT_OVERRIDES = {
-    "unet": {"unet": dict(base=BASE)},
-    "autoencoder": {"autoencoder": dict(base=BASE)},
-    "clip": {"clipunet": dict(vit=ClipViTConfig(**VIT), **CLIP_KW),
-             "clipunet_noskips": dict(vit=ClipViTConfig(**VIT),
-                                      decoder_channels=CLIP_KW["decoder_channels"])},
-    "prompt_model": {"prompt": dict(vit=ClipViTConfig(**VIT), unet_base=BASE, **CLIP_KW)},
+    "unet": dict(base=BASE),
+    "autoencoder": dict(base=BASE),
+    "clipunet": dict(vit=ClipViTConfig(**VIT), **CLIP_KW),
+    "clipunet_noskips": dict(vit=ClipViTConfig(**VIT),
+                             decoder_channels=CLIP_KW["decoder_channels"]),
+    "prompt": dict(vit=ClipViTConfig(**VIT), unet_base=BASE, **CLIP_KW),
 }
+
+
+def narrow_port(monkeypatch, overrides):
+    """The port's checkpoint registry builds each config's model with
+    `overrides[config.model]`; the demo registry's own arguments win."""
+    build = app.build_model
+    monkeypatch.setattr(app, "build_model", lambda cfg, device, gen, **kw: build(
+        cfg, device, gen, **{**overrides.get(cfg.model, {}), **kw}))
 # MO_ directory written for each family
 MO_DIRS = {"unet": "MO_unet_noaug", "autoencoder": "MO_autoencoder", "clip": "MO_clipunet",
            "prompt_model": "MO_prompt"}
@@ -73,9 +83,7 @@ def narrow(monkeypatch):
                         JAX_NARROW["SegmentationAutoencoder"])
     monkeypatch.setattr(jax_clip_unet, "ClipUNet", JAX_NARROW["ClipUNet"])
     monkeypatch.setattr(jax_prompt, "PromptModel", JAX_NARROW["PromptModel"])
-    for name, over in PORT_OVERRIDES.items():
-        monkeypatch.setitem(app.FAMILY_SPECS, name,
-                            dataclasses.replace(app.FAMILY_SPECS[name], overrides=over))
+    narrow_port(monkeypatch, PORT_OVERRIDES)
 
 
 def _perturbed(variables, seed):
@@ -190,7 +198,7 @@ def test_first_candidate_wins_as_in_jax(narrow, tmp_path):
     got, _ = _scores_and_gap(p_eng, "unet", img, None, p_eng.fetch)
     other = port_engine.InferenceEngine("cpu")
     other.register("unet", app.load_family_model(os.path.join(port_dir, "MO_unet_noaug"),
-                                                 C.UNET_NOAUG, "cpu", base=BASE), 256)
+                                                 C.UNET_NOAUG, "cpu"), 256)
     not_this, _ = _scores_and_gap(other, "unet", img, None, other.fetch)
     tol = 2.0**-7 * np.abs(want).max()
     assert np.abs(got - want).max() <= tol < np.abs(not_this - want).max()
@@ -269,9 +277,9 @@ def test_trained_run_serves_from_its_save_dir(tmp_path, monkeypatch):
     monkeypatch.setitem(app.FAMILY_SPECS, "unet",
                         dataclasses.replace(app.FAMILY_SPECS["unet"], target_size=32))
     cfg64 = dataclasses.replace(C.CLIPUNET, target_size=64)
-    monkeypatch.setitem(app.FAMILY_SPECS, "clip", dataclasses.replace(
-        app.FAMILY_SPECS["clip"], target_size=64,
-        overrides={"clipunet": run._smoke_vit_overrides(cfg64)}))
+    monkeypatch.setitem(app.FAMILY_SPECS, "clip",
+                        dataclasses.replace(app.FAMILY_SPECS["clip"], target_size=64))
+    narrow_port(monkeypatch, {"clipunet": run._smoke_vit_overrides(cfg64)})
     eng = app.build_engine_from_checkpoints(save, "cpu")
     assert eng.available() == ["clip", "unet"]
     img = np.random.default_rng(11).uniform(0, 1, (37, 53, 3)).astype(np.float32)
