@@ -110,11 +110,30 @@ Phases (each prints its lines; any failure ends the run non-zero):
      single-request latency, p50 and p90 over 20 requests after warm-up,
      live and exported, with the host and device time of one program
      dispatch;
- 14. the last line is {"ok": true, "device": {...}}.
+ 14. the host data path (`phase_host_data`): both host libraries built
+     from native/*.cpp with their build times (the codec only where
+     libpng's and libjpeg's headers are there, else a printed finding and
+     the fallback decoders); a Pet-shaped file set (256 train and 64 val
+     images, sides 200-500 px, JPEG through PIL or else PNG, trimaps
+     {1, 2, 3}) materialised natively and item by item (images within
+     2e-2, labels and metas equal; images/s of each with the worker and
+     CPU counts); `run.py unet_noaug --data-root` at full width for 2
+     epochs streamed (ISTPU_TRAIN_DEVICE_CACHE_MB=16,
+     ISTPU_EVAL_DEVICE_CACHE_MB=1; K1 nine times per eval batch) and
+     resident, cuDNN deterministic: step losses within 1e-3 relative,
+     the per-batch eval equal to the resident eval on one state, the two
+     runs' confusions equal (pixel agreement >= 0.999 if the card's
+     kernels are not deterministic, said so), the streamed run's train
+     and eval both through their per-batch paths; the step fed resident
+     and streamed (the gather on `stream_rows`' worker, and on the
+     step's thread for comparison) in interleaved rounds over one
+     unbroken order (ms, host ms, kernel ms, copy ms, idle share), and
+     one step batch's host gather and copy;
+ 15. the last line is {"ok": true, "device": {...}}.
 
 Phase 3 also prints each kernel's host dispatch at one request's shape
 through its wrapper's direct path and through its torch op (the path of
-an exported program). The launch counts of phases 4-13 are each set to 0
+an exported program). The launch counts of phases 4-14 are each set to 0
 just before the path is driven and read just after; the kernels line
 sums them.
 
@@ -1827,6 +1846,16 @@ def _synthetic_pngs(root: str, n: int, seed: int):
     return imgs, labels
 
 
+def _decoder_name() -> str:
+    """Which decoder `data/png.py` `decode` takes first on this host."""
+    from image_segmentation_tpu_torch.data import png
+    from image_segmentation_tpu_torch.ops import native_codec
+
+    if native_codec.available():
+        return "the native codec"
+    return "PIL" if png.pil_available() else "the port codec, no PIL"
+
+
 def phase_checkpoints(K, launches: dict, card: str, models_dir: str, tmp: str) -> None:
     """Serving what phases 8-12 trained, at full width, through the entry
     points users start: the --models-dir registry, the HTTP app with its
@@ -1981,7 +2010,7 @@ def phase_checkpoints(K, launches: dict, card: str, models_dir: str, tmp: str) -
     print(f"[ckpt] HTTP on 127.0.0.1: GET / = the template ({len(page)} bytes), GET "
           f"/static/script.js {js}; POST /segment of a {img.shape[1]}x{img.shape[0]} PNG whose "
           f"rows use every filter (status, mask shape, ms) {codes}; decoding that upload "
-          f"({'PIL' if png.pil_available() else 'the port codec, no PIL'}): {upload_ms:.1f} ms, "
+          f"({_decoder_name()}): {upload_ms:.1f} ms, "
           f"by the port codec (a host without PIL): {codec_ms:.1f} ms (host clock, mean of 5) "
           f"({card})")
 
@@ -2004,7 +2033,7 @@ def phase_checkpoints(K, launches: dict, card: str, models_dir: str, tmp: str) -
         n_masks = len([f for f in os.listdir(os.path.join(tmp, "predict", name))
                        if f.endswith("_mask.png")])
         print(f"[ckpt] predict {name}: {summary['images']} PNGs whose rows use every filter "
-              f"(decoded by {'PIL' if png.pil_available() else 'the port codec, no PIL'}), "
+              f"(decoded by {_decoder_name()}), "
               f"{n_masks} masks written, {summary['images_per_sec']} images/s after the "
               f"first; mIoU "
               f"{summary.get('mean_iou')} on synthetic labels (smoke weights: not a quality "
@@ -2079,6 +2108,383 @@ def phase_checkpoints(K, launches: dict, card: str, models_dir: str, tmp: str) -
               f"10), device {device:.3f} ms ({card})")
 
 
+def _pet_files(root: str, n_train: int, n_val: int, seed: int) -> str:
+    """A Pet-shaped file set under `root` in run.py's --data-root layout
+    (Train/ and Val/, each color/<stem>.jpg + label/<stem>.png): sides drawn
+    from 200-500 px, a trimap label {1 pet, 2 background, 3 boundary} of
+    one ellipse, the image coloured by class with noise. Images are JPEG
+    through PIL where it is installed, else PNG bytes through `encode_png`
+    (under .jpg: the decoders read the signature). Returns which."""
+    import os
+
+    from image_segmentation_tpu_torch.data import png
+
+    use_pil = png.pil_available()
+    rng = np.random.default_rng(seed)
+    colours = np.array([[0, 0, 0], [200, 120, 60], [60, 110, 170], [240, 240, 240]], np.float32)
+    for split, n in (("Train", n_train), ("Val", n_val)):
+        for sub in ("color", "label"):
+            os.makedirs(os.path.join(root, split, sub))
+        for i in range(n):
+            h, w = (int(v) for v in rng.integers(200, 501, 2))
+            yy, xx = np.ogrid[:h, :w]
+            cy, cx = rng.uniform(0.3, 0.7) * h, rng.uniform(0.3, 0.7) * w
+            ry, rx = rng.uniform(0.15, 0.35) * h, rng.uniform(0.15, 0.35) * w
+            r = np.sqrt(((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2)
+            lab = np.where(np.abs(r - 1) < 0.06, 3, np.where(r < 1, 1, 2)).astype(np.uint8)
+            img = colours[lab] + rng.normal(0, 25, (h, w, 3)).astype(np.float32)
+            img = np.clip(img, 0, 255).astype(np.uint8)
+            color = os.path.join(root, split, "color", f"pet{i:04d}.jpg")
+            if use_pil:
+                from PIL import Image
+
+                Image.fromarray(img).save(color, quality=90)
+            else:
+                with open(color, "wb") as f:
+                    f.write(png.encode_png(img))
+            with open(os.path.join(root, split, "label", f"pet{i:04d}.png"), "wb") as f:
+                f.write(png.encode_png(lab))
+    return "JPEG through PIL" if use_pil else "PNG through encode_png (no PIL)"
+
+
+def _interleaved_step_report(steps: dict, batch: int, rounds: int = 8,
+                             per_round: int = 4) -> dict:
+    """Each named train step (each fed by its own set) after 3 warm-up
+    steps, timed in alternating rounds of `per_round` steps, the order
+    reversed every other round (CUDA events on the compute stream around
+    each round; the host's enqueue time of each step on perf_counter):
+    the median of the rounds' ms a step, and the median host ms a step.
+    Then, from 2 steps each under torch.profiler, the device's kernel ms
+    and host-to-device copy ms a step; idle = the share of the step in
+    which no kernel runs."""
+    for step in steps.values():
+        for _ in range(3):
+            step()
+    torch.cuda.synchronize()
+    names = list(steps)
+    dev, host = {n: [] for n in names}, {n: [] for n in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(per_round):
+                t0 = time.perf_counter()
+                steps[name]()
+                host[name].append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            end.synchronize()
+            dev[name].append(start.elapsed_time(end) / per_round)
+    out = {}
+    for name in names:
+        ms = statistics.median(dev[name])
+        rows = _profile_session(steps[name], 2)
+        copy = sum(t for k, (_, t) in rows.items() if "Memcpy" in k and "HtoD" in k) / 2e3
+        kernels = sum(t for k, (_, t) in rows.items()
+                      if "Memcpy" not in k and "Memset" not in k) / 2e3
+        out[name] = {"ms": round(ms, 3), "rounds ms": [round(x, 1) for x in dev[name]],
+                     "host ms": round(statistics.median(host[name]), 3),
+                     "images/s": round(batch / ms * 1e3, 1), "kernel ms": round(kernels, 3),
+                     "HtoD copy ms": round(copy, 3), "idle": round(1 - kernels / ms, 4)}
+    return out
+
+
+class _InlineExecutor:
+    """A stand-in for `stream_rows`' worker pool that runs each gather at
+    once on the caller's thread: the streamed step with the gather in
+    series with the step's host enqueue, for comparison."""
+
+    def __init__(self, **_):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def submit(self, fn, *args):
+        from concurrent.futures import Future
+
+        f = Future()
+        f.set_result(fn(*args))
+        return f
+
+
+def phase_host_data(K, launches: dict, card: str, tmp: str) -> None:
+    """The host data path on the card's machine: both host libraries built
+    from the port's sources, a Pet-shaped file set materialised natively
+    and item by item, `unet_noaug` at full width through run.py on
+    --data-root streamed past tiny device budgets against the same fit
+    resident, and the two train-set paths' steps."""
+    import contextlib
+    import io
+    import os
+
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch import run as R
+    from image_segmentation_tpu_torch.data import dataset as DS
+    from image_segmentation_tpu_torch.data import loader as L
+    from image_segmentation_tpu_torch.data import native_pipeline as NP
+    from image_segmentation_tpu_torch.data import png
+    from image_segmentation_tpu_torch.data.labels import target_remap
+    from image_segmentation_tpu_torch.metrics import MetricsHistory
+    from image_segmentation_tpu_torch.ops import _host_build as HB
+    from image_segmentation_tpu_torch.ops import geometry as G
+    from image_segmentation_tpu_torch.ops import native
+    from image_segmentation_tpu_torch.ops import native_codec as nc
+    from image_segmentation_tpu_torch.train import loop
+    from image_segmentation_tpu_torch.train.fast_eval import plan_size_buckets
+    from image_segmentation_tpu_torch.train.state import TrainState
+    from image_segmentation_tpu_torch.train.steps import (
+        ResidentTrainSet,
+        StreamedTrainSet,
+        resident_plan,
+        train_step,
+    )
+
+    # 1. the host libraries, built now from native/*.cpp into build/torch_native/
+    secs = native.LIBRARY.build()
+    assert native.available()
+    print(f"[host] resampler built in {secs:.2f} s: {native.LIBRARY.path} ({card})")
+    why = HB.missing_prerequisites(nc.LIBRARY.headers)
+    if why is None:
+        secs = nc.LIBRARY.build()
+        assert nc.available()
+        print(f"[host] codec built in {secs:.2f} s against libpng {_header_version('png.h')} "
+              f"and libjpeg {_header_version('jpeglib.h')}: {nc.LIBRARY.path}")
+    else:
+        print(f"[host] FINDING: the native codec cannot build on this machine ({why}); the "
+              f"rest of the phase runs on the fallback decoders (PIL: "
+              f"{png.pil_available()}, else the port's PNG codec)")
+    codec = why is None
+
+    # 2. a Pet-shaped file set, materialised natively and item by item
+    n_train, n_val, side = 256, 64, 256
+    root = os.path.join(tmp, "pet")
+    t0 = time.time()
+    how = _pet_files(root, n_train, n_val, seed=11)
+    print(f"[host] wrote {n_train} train + {n_val} val Pet-shaped images (sides 200-500 px, "
+          f"trimaps {{1, 2, 3}}) as {how} in {time.time() - t0:.1f} s")
+    sets = {split: DS.SegmentationDataset(os.path.join(root, split, "color"),
+                                          os.path.join(root, split, "label"),
+                                          target_transform=target_remap)
+            for split in ("Train", "Val")}
+    workers = NP.default_workers()
+    out = {}
+    for split, ds in sets.items():
+        keep = split == "Val"
+        if codec:
+            t0 = time.perf_counter()
+            fast = NP.try_materialize_dataset(ds, side, keep_orig_labels=keep, workers=workers)
+            t_fast = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        slow = L.materialize(ds, side, keep_orig_labels=keep, native=False)
+        t_slow = time.perf_counter() - t0
+        out[split] = fast if codec else slow
+        line = (f"[host] {split}: {len(ds)} items, item by item (PIL or PNG decode, C++ "
+                f"resampler) {len(ds) / t_slow:.1f} images/s")
+        if codec:
+            err = float(np.abs(fast.images - slow.images).max())
+            same = (np.array_equal(fast.labels, slow.labels)
+                    and all(np.array_equal(np.asarray(a), np.asarray(b))
+                            for a, b in zip(fast.metas, slow.metas))
+                    and all(np.array_equal(a, b) for a, b in zip(fast.orig_labels or [],
+                                                                  slow.orig_labels or [])))
+            line += (f"; native {len(ds) / t_fast:.1f} images/s with {workers} workers of "
+                     f"os.cpu_count() {os.cpu_count()}; images max |native - item| {err:.2e} "
+                     f"(tolerance 2e-2: two JPEG decoders), labels, metas and originals equal "
+                     f"{same}")
+            if err > 2e-2 or not same:
+                raise AssertionError(f"native materialisation disagrees: {err}, {same}")
+        print(line + f" ({card})")
+    val_ds = sets["Val"]
+    sub = DS.SegmentationDataset(val_ds.img_dir, val_ds.label_dir,
+                                 target_transform=target_remap)
+    sub.stems = sub.stems[:32]
+    saved = G._native
+    G._native = lambda: None  # the numpy resampler, for its rate alone
+    try:
+        t0 = time.perf_counter()
+        L.materialize(sub, side, keep_orig_labels=True, native=False)
+        t_np = time.perf_counter() - t0
+    finally:
+        G._native = saved
+    print(f"[host] 32 val items, PIL/PNG decode + numpy resampler: {32 / t_np:.1f} images/s "
+          f"(one thread; os.cpu_count() {os.cpu_count()})")
+
+    # 3. unet_noaug at full width on --data-root: streamed, then resident
+    cfg = C.UNET_NOAUG
+    train, val = out["Train"], out["Val"]
+    train_bytes = train.images.nbytes + train.labels.nbytes
+    plan = resident_plan(train_bytes, 16 << 20)
+    labels = val.orig_labels
+    batches = sum(-(-len(b) // cfg.batch_size) for b in plan_size_buckets(labels))
+    want = (0, 0, 9 * batches * 2)
+    argv = ["--config", "unet_noaug", "--data-root", root, "--epochs", "2", "--device", "cuda"]
+    env = {loop.BUDGET_ENV: "16", loop.EVAL_BUDGET_ENV: "1"}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for name, budgets in (("streamed", env), ("resident", {})):
+            old = {k: os.environ.pop(k, None) for k in env}
+            os.environ.update(budgets)
+            log = io.StringIO()
+            try:
+                _zero(K)
+                t0 = time.time()
+                with _FirstLoss() as spy, contextlib.redirect_stdout(log):
+                    res = R.main(argv + ["--save-dir", os.path.join(tmp, name)])
+                wall = time.time() - t0
+                counts = _counts(K)
+                _add(launches, K)
+            finally:
+                for k, v in old.items():
+                    os.environ.pop(k, None)
+                    if v is not None:
+                        os.environ[k] = v
+            streamed_lines = [l for l in log.getvalue().splitlines()
+                              if "[fit] streaming" in l or "val: streaming" in l]
+            steps = [float(x) for x in spy.losses]
+            runs[name] = (res, steps, counts, streamed_lines)
+            print(f"[host] run.py unet_noaug --data-root, {name} ({budgets or 'budgets unset'}): "
+                  f"{wall:.1f} s; step losses {[round(x, 6) for x in steps]}; val mIoU "
+                  f"{res.history['val_iou']}; launches {counts}, want {want} = 9 per eval batch "
+                  f"x {batches} x 2 epochs; streaming notes {len(streamed_lines)} "
+                  f"({streamed_lines[:2]})")
+            if counts != want:
+                raise AssertionError(f"{name} fit launches {counts}, want {want}")
+            if not all(np.isfinite(steps)) or len(steps) != 2 * (n_train // 64):
+                raise AssertionError(f"{name} step losses {steps}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (res_s, steps_s, _, notes_s), (res_r, steps_r, _, notes_r) = runs["streamed"], runs["resident"]
+    both = all(any(tag in l for l in notes_s) for tag in ("[fit] streaming", "val: streaming"))
+    if plan != "stream" or not both or notes_r:
+        raise AssertionError(f"the streamed run's train and eval did not both stream ({plan}, "
+                             f"{notes_s}) or the resident one streamed ({notes_r})")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(steps_s, steps_r))
+    same_params = all(torch.equal(a, b) for a, b in zip(res_s.state.model.state_dict().values(),
+                                                        res_r.state.model.state_dict().values()))
+    print(f"[host] streamed vs resident: step losses max relative difference {rel:.3e} "
+          f"(tolerance 1e-3), final parameters bit-equal {same_params}, val histories equal "
+          f"{res_s.history['val_iou'] == res_r.history['val_iou']}")
+    if rel > 1e-3:
+        raise AssertionError(f"streamed and resident losses differ by {rel}")
+
+    # the eval: per batch (1 MB budget) against resident, on each final state
+    def evaluate(state, budget):
+        old = os.environ.pop(loop.EVAL_BUDGET_ENV, None)
+        if budget is not None:
+            os.environ[loop.EVAL_BUDGET_ENV] = budget
+        try:
+            agg = MetricsHistory(cfg.num_classes, ignore_index=cfg.eval_ignore_index)
+            _zero(K)
+            res = loop.evaluate(state, val, loss_cfg=C.build_val_loss(cfg), agg=agg,
+                                verbose=False)
+            # per batch holds no val set on the card; resident holds each bucket's
+            views = val.bucket_views or [val]
+            if any((v.device_eval_cache is None) != (budget is not None) for v in views):
+                raise AssertionError(f"eval at budget {budget!r} took the wrong path")
+            return res, agg.confusion.copy(), _counts(K)[2]
+        finally:
+            os.environ.pop(loop.EVAL_BUDGET_ENV, None)
+            if old is not None:
+                os.environ[loop.EVAL_BUDGET_ENV] = old
+
+    (e_s, c_s, k_s), (e_r, c_r, k_r) = evaluate(res_s.state, "1"), evaluate(res_s.state, None)
+    print(f"[host] eval of the streamed run's state: per batch vs resident confusion equal "
+          f"{np.array_equal(c_s, c_r)}, val loss {e_s['loss']:.6f} / {e_r['loss']:.6f}, K1 "
+          f"{k_s} / {k_r} launches (not counted in the kernels line)")
+    if (not np.array_equal(c_s, c_r) or e_s["loss"] != e_r["loss"]
+            or (k_s, k_r) != (9 * batches, 9 * batches)):
+        raise AssertionError("per-batch eval differs from the resident eval")
+    _, c_rr, _ = evaluate(res_r.state, None)
+    agree = 1 - np.abs(c_s - c_rr).sum() / 2 / c_s.sum()
+    print(f"[host] eval confusions of the two runs' states: equal {np.array_equal(c_s, c_rr)}, "
+          f"pixel agreement {agree:.6f}")
+    if same_params and not np.array_equal(c_s, c_rr):
+        raise AssertionError("equal states, unequal confusions")
+    if not same_params:
+        print("[host] the two runs' parameters differ under cudnn.deterministic: the card's "
+              "kernels are not deterministic here (atomics in a backward); held to pixel "
+              "agreement >= 0.999 instead of equality")
+        if agree < 0.999:
+            raise AssertionError(f"pixel agreement {agree} < 0.999")
+
+    # 4. the two train-set paths' steps at full width (batch 64 = 8 x 8)
+    model = C.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
+    st = TrainState(model, *C.build_optimizer(cfg, model))
+    loss_fn = C.build_loss(cfg)
+    # one order of 10 epochs' steps per set, so no stream restarts inside the
+    # 3 warm-up, 8 x 4 timed and 2 profiled steps
+    order_rng = np.random.default_rng(0)
+    order = np.concatenate([order_rng.permutation(n_train) for _ in range(10)]).reshape(-1, 64)
+    from image_segmentation_tpu_torch.train import steps as steps_mod
+
+    feeds = {"resident": ResidentTrainSet(train.images, train.labels, "cuda",
+                                          False).batches(order),
+             "streamed": StreamedTrainSet(train.images, train.labels, "cuda").batches(order),
+             "streamed, gather on the step's thread":
+                 StreamedTrainSet(train.images, train.labels, "cuda").batches(order)}
+    first = {}
+    pool = steps_mod.ThreadPoolExecutor
+    steps_mod.ThreadPoolExecutor = _InlineExecutor  # taken when the feed starts
+    try:
+        first["streamed, gather on the step's thread"] = next(
+            feeds["streamed, gather on the step's thread"])
+    finally:
+        steps_mod.ThreadPoolExecutor = pool
+
+    def step_of(name):
+        def step():
+            b = first.pop(name, None) or next(feeds[name])
+            train_step(st, loss_fn, *b, cfg.accum_steps)
+        return step
+
+    reports = _interleaved_step_report({name: step_of(name) for name in feeds}, 64)
+    for feed in feeds.values():
+        feed.close()
+    del feeds
+    for name, rep in reports.items():
+        print(f"[host] train step, UNet base 64, 256 px, batch 64 (8 x 8), {name}: {rep} "
+              f"({card})")
+    gap = reports["streamed"]["ms"] / reports["resident"]["ms"] - 1
+    print(f"[host] streamed step against resident, rounds interleaved: {gap:+.2%}; idle "
+          f"{reports['streamed']['idle']:.2%} against {reports['resident']['idle']:.2%}")
+    pinned = [torch.from_numpy(a[:64]).pin_memory() for a in (train.images, train.labels)]
+    nbytes = sum(t.numel() * t.element_size() for t in pinned)
+    copy_ms = _cuda_ms(lambda: [t.to("cuda", non_blocking=True) for t in pinned], iters=10,
+                       warmup=2)
+    srcs = [torch.from_numpy(a) for a in (train.images, train.labels)]
+    gather = []
+    for i in range(10):
+        idx = torch.from_numpy(order[i])
+        t0 = time.perf_counter()
+        for src, dst in zip(srcs, pinned):
+            torch.index_select(src, 0, idx, out=dst)
+        gather.append((time.perf_counter() - t0) * 1e3)
+    gather_ms = statistics.median(gather)
+    print(f"[host] one step batch's images and labels ({nbytes} bytes): host gather into pinned "
+          f"memory {gather_ms:.3f} ms (perf_counter, median of 10; on the stream's worker "
+          f"thread, beside the step), pinned host to device {copy_ms:.3f} ms (CUDA events, "
+          f"median of 10), {nbytes / copy_ms / 1e6:.1f} GB/s; os.cpu_count() {os.cpu_count()} "
+          f"({card})")
+
+
+def _header_version(header: str) -> str:
+    """The library version a header declares (PNG_LIBPNG_VER_STRING,
+    JPEG_LIB_VERSION), through the preprocessor."""
+    import subprocess
+
+    macro = {"png.h": "PNG_LIBPNG_VER_STRING", "jpeglib.h": "JPEG_LIB_VERSION"}[header]
+    src = f"#include <stdio.h>\n#include <{header}>\nistpu_version {macro}\n"
+    out = subprocess.run(["g++", "-E", "-P", "-x", "c++", "-"], input=src, capture_output=True,
+                         text=True, timeout=60).stdout
+    return next((l.split(None, 1)[1] for l in out.splitlines()
+                 if l.startswith("istpu_version")), "?")
+
+
 def print_ptxas_report(log: str) -> None:
     """One line per kernel from ptxas's -v report: registers, spills."""
     import re
@@ -2151,6 +2557,8 @@ def main() -> int:
                         os.path.join(models_dir, "MO_prompt"))
         torch.cuda.empty_cache()
         timed(phase_checkpoints, K, launches, card, models_dir, tmp)
+        torch.cuda.empty_cache()
+        timed(phase_host_data, K, launches, card, tmp)
     print(f"[done] every phase passed in {time.time() - start:.1f} s from the build on")
 
     sources = {"fused_attention": ("attention.cu", "image_segmentation_tpu/ops/pallas/attention.py:99"),

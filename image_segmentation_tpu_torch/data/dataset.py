@@ -1,16 +1,18 @@
-"""Datasets: directory-backed and in-memory image/label pairs (numpy).
+"""Datasets: directory-backed and in-memory image/label pairs and
+image/heatmap/label triplets (numpy).
 
 Counterpart of image_segmentation_tpu/data/dataset.py
 (`normalize_image_channels`, `list_stems`, `SegmentationDataset`,
-`ArrayDataset`, `U8ArrayDataset`). Items are keyed by sorted file stems;
-images decode to [0, 1] float, labels are raw class-id PNGs, and an
-optional target_transform (the 255 → 3 boundary remap) applies to labels
-(reference utils/dataset.py:6-103). The training path materialises a
-dataset once into fixed-shape arrays (data/loader.py).
+`PromptDataset`, `ArrayDataset`, `U8ArrayDataset`). Items are keyed by
+sorted file stems; images decode to [0, 1] float, heatmaps to [0, 1]
+float, labels are raw class-id PNGs, and an optional target_transform
+(the 255 → 3 boundary remap) applies to labels (reference
+utils/dataset.py:6-103). The training path materialises a dataset once
+into fixed-shape arrays (data/loader.py), through the native codec
+(data/native_pipeline.py) where it can.
 
-PIL is imported only when a file is decoded, and need not be installed:
-without it PNG files decode with the port's codec (`data/png.py`), other
-formats raise, and the in-memory datasets need neither.
+Files decode through `data/png.decode`: the native codec, else PIL,
+else the port's PNG codec; the in-memory datasets need none of them.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import numpy as np
 
 def _decode_image(path: str) -> np.ndarray:
     """Decode to (H, W, C) uint8 (RGB kept as it is; palettes expanded)
-    with `data/png.decode`: PIL, or where it is missing PNG files only."""
+    with `data/png.decode`."""
     from image_segmentation_tpu_torch.data import png
 
     with open(path, "rb") as f:
@@ -87,6 +89,44 @@ class SegmentationDataset:
         if self.target_transform:
             label = self.target_transform(label)
         return img, label
+
+
+class PromptDataset:
+    """{img_dir}/{stem}.jpg + {heatmap_dir}/{stem}.png (a point prompt's
+    0-255 heatmap) + {label_dir}/{stem}.png triplets
+    (reference utils/dataset.py:53-103)."""
+
+    def __init__(
+        self,
+        img_dir: str,
+        heatmap_dir: str,
+        label_dir: str,
+        transform: Optional[Callable] = None,
+        target_transform: Optional[Callable] = None,
+    ):
+        self.img_dir = img_dir
+        self.heatmap_dir = heatmap_dir
+        self.label_dir = label_dir
+        self.stems = list_stems(img_dir)
+        self.transform = transform
+        self.target_transform = target_transform
+
+    def __len__(self) -> int:
+        return len(self.stems)
+
+    def __getitem__(self, idx: int):
+        stem = self.stems[idx]
+        img = _decode_image(os.path.join(self.img_dir, stem + ".jpg"))
+        img = normalize_image_channels(img).astype(np.float32) / 255.0
+        heatmap = _decode_image(os.path.join(self.heatmap_dir, stem + ".png"))
+        heatmap = heatmap[:, :, :1].astype(np.float32) / 255.0
+        label = _decode_image(os.path.join(self.label_dir, stem + ".png"))
+        label = label[:, :, 0].astype(np.int32)
+        if self.transform:
+            img = self.transform(img)
+        if self.target_transform:
+            label = self.target_transform(label)
+        return img, heatmap, label
 
 
 class ArrayDataset:

@@ -10,9 +10,12 @@ indexing. A materialised dataset keeps
   metas        ResizeMeta of (N,) arrays, for the inverse eval geometry
   orig_labels  list of native-size label maps (eval only)
 
-`materialize` is the JAX package's numpy path (`native=False` there);
-the native C++ decode pipeline comes to the port later. The trainer
-(train/loop.py) keeps its device copies on the dataset object.
+`materialize` takes the native C++ decode + staging path
+(data/native_pipeline.py) for a file-backed dataset where the codec
+built, as JAX's does, and the Python loop below (host geometry on the
+C++ resampler, or numpy) for everything else and for `native=False`.
+The trainer (train/loop.py) keeps its device copies on the dataset
+object.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ class MaterializedDataset:
     heatmaps: Optional[np.ndarray] = None
     orig_labels: Optional[List[np.ndarray]] = None
     # `images` holds packed ViT features (train/feature_cache.py), which the
-    # trainer keeps on the device as float32 or not at all
+    # trainer keeps on the device as float32 or streams, never as uint8
     packed_features: bool = False
     # packed by train.fast_eval for the device eval protocol
     label_canvases: Optional[np.ndarray] = None
@@ -53,9 +56,18 @@ class MaterializedDataset:
 
 
 def materialize(dataset, target_size: int, keep_orig_labels: bool = False,
-                antialias: bool = True) -> MaterializedDataset:
+                antialias: bool = True, native: bool = True) -> MaterializedDataset:
     """Resize + pad every item of an (img, label) or (img, heatmap, label)
-    dataset to (T, T), once, on the host."""
+    dataset to (T, T), once, on the host: natively for a file-backed
+    dataset without an image transform (and `native`), else item by item."""
+    if native:
+        from image_segmentation_tpu_torch.data import native_pipeline as NP
+
+        fast = NP.try_materialize_dataset(dataset, target_size,
+                                          keep_orig_labels=keep_orig_labels,
+                                          antialias=antialias)
+        if fast is not None:
+            return fast
     images, labels, heatmaps, origs = [], [], [], []
     metas_cols = {f: [] for f in G.ResizeMeta._fields}
     has_heat = False

@@ -1,12 +1,15 @@
-"""Image bytes to pixels, and 8-bit PNG without PIL.
+"""Image bytes to pixels, and 8-bit PNG without PIL or libpng.
 
-Pillow is no dependency of the port on a GPU host. `decode` is the one
-place that chooses: PIL where it is installed (any format it reads),
-else this module's PNG codec, which reads PNG only, so that a host
-without PIL refuses JPEG. Uploads, scribbles, labels, `predict.py`'s
-files and the file datasets all decode through it. Masks are always
-written by `encode_png`. Once the port has a native PNG/JPEG codec (the
-JAX package's `ops/native_codec.py`), this codec goes.
+`decode` is the one place that chooses a decoder, in this order: the
+port's native PNG/JPEG codec (ops/native_codec.py, libpng and libjpeg)
+where it built and accepts the bytes; then PIL where it is installed
+(any format it reads: 16-bit PNGs, CMYK JPEGs, GIF, BMP, ...); then this
+module's PNG codec, which reads PNG only, so that a host with neither
+libpng's headers nor Pillow (no dependency of the port) still decodes
+PNG. Uploads, scribbles, labels, `predict.py`'s files and the file
+datasets all decode through it. Masks are always written by
+`encode_png`. This codec stays until the native codec is shown to
+build on the GPU host (ROADMAP).
 
 `decode_png` takes non-interlaced 8-bit PNGs of every colour type
 (gray, RGB, palette, gray + alpha, RGBA) and all five row filters, and
@@ -142,13 +145,23 @@ def decode_png(data: bytes) -> np.ndarray:
 
 
 def decode(raw: bytes) -> np.ndarray:
-    """Image bytes → (H, W, C) uint8, a palette expanded to RGB: by PIL
-    where it is installed, else by `decode_png`; without PIL anything but
-    a PNG raises a RuntimeError that says what is missing."""
+    """Image bytes → (H, W, C) uint8, a palette expanded to RGB (to RGBA
+    by the native codec where the palette has transparency): by the native
+    codec, else PIL, else `decode_png`; bytes that none of them reads
+    raise a RuntimeError that says what is missing."""
+    from image_segmentation_tpu_torch.ops import native_codec as nc
+
+    if nc.available():
+        try:
+            return nc.decode_bytes(raw)
+        except nc.CodecError as e:
+            native = f"the native codec declined the bytes ({e})"
+    else:
+        native = f"the native codec is unavailable ({nc.unavailable_reason()})"
     if not pil_available():
         if not raw.startswith(SIGNATURE):
-            raise RuntimeError("not a PNG, and PIL (Pillow), which decodes JPEG and other "
-                               "formats, is not installed: without it only PNG decodes")
+            raise RuntimeError(f"not a PNG, {native}, and PIL (Pillow), which decodes other "
+                               f"formats, is not installed: without them only PNG decodes")
         return decode_png(raw)
     from PIL import Image
 

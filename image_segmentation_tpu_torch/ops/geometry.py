@@ -1,4 +1,5 @@
-"""Aspect-preserving resize+pad geometry on the host (numpy).
+"""Aspect-preserving resize+pad geometry on the host (numpy, and the C++
+resampler).
 
 Counterpart of the host half of image_segmentation_tpu/ops/geometry.py:
   * forward: scale the longer side to `target`, keep the aspect ratio
@@ -9,8 +10,13 @@ Counterpart of the host half of image_segmentation_tpu/ops/geometry.py:
 
 The resampling weights are the triangle-kernel matrices of
 jax.image.resize(method='linear') (`_triangle_weight_matrix_np`), which
-the models' skip resize uses as well. Layout is HWC. The C++ resampler
-of the JAX package comes to the port later; this is its numpy path.
+the models' skip resize uses as well. Layout is HWC. The host functions
+take the port's C++ resampler (ops/native.py) where it built, as JAX's
+do, else numpy in float32: the two agree within 5e-6.
+
+JAX's device half (`batched_resize_with_padding`, `compute_meta`,
+`stage_image_np`) is not ported: no program of either package calls it,
+only JAX's tests.
 
 `ResizeMeta` holds a dataset's or a batch's metas as columns of arrays
 (data/loader.py, train/fast_eval.py), as the JAX package's does.
@@ -40,6 +46,15 @@ def metas_to_list(metas: ResizeMeta) -> List[ResizeMeta]:
     """Split a batched ResizeMeta into one ResizeMeta of scalars per image."""
     n = int(np.asarray(metas.orig_h).shape[0])
     return [ResizeMeta(*(np.asarray(f)[i] for f in metas)) for i in range(n)]
+
+
+def _native():
+    """The C++ resampler (ops/native.py) where it builds, else None (a
+    host without g++); a failed build raises. Same algorithm in float32
+    as the numpy path (within 5e-6)."""
+    from image_segmentation_tpu_torch.ops import native
+
+    return native if native.available() else None
 
 
 @functools.lru_cache(maxsize=4096)
@@ -92,11 +107,19 @@ def resize_with_padding_np(img: np.ndarray, target: int, method: str = "linear",
     new_w = max(1, int(round(w * scale)))
     pad_top = (target - new_h) // 2
     pad_left = (target - new_w) // 2
+    native = _native()
     if method == "linear":
-        resized = resize_linear_np(img, (new_h, new_w), antialias=antialias,
-                                   dtype=np.float32)
+        if native is not None and img.ndim == 3:
+            resized = native.resize_linear(img, (new_h, new_w), antialias=antialias)
+        else:
+            resized = resize_linear_np(img, (new_h, new_w), antialias=antialias,
+                                       dtype=np.float32)
     elif method == "nearest":
-        resized = resize_nearest_np(img, (new_h, new_w), exact=False)
+        if native is not None and img.ndim == 3 and np.issubdtype(np.asarray(img).dtype,
+                                                                  np.floating):
+            resized = native.resize_nearest(img, (new_h, new_w), exact=False)
+        else:
+            resized = resize_nearest_np(img, (new_h, new_w), exact=False)
     else:
         raise ValueError(method)
     out = np.zeros((target, target) + img.shape[2:], dtype=resized.dtype)
@@ -123,6 +146,13 @@ def invert_resize_padding_np(out_tt: np.ndarray, meta,
         pad_left, pad_top, _, _ = meta["pad"]
         new_h, new_w = meta["new_size"]
         orig_h, orig_w = meta["original_size"]
+    native = _native()
+    if native is not None and out_tt.ndim == 3:
+        crop = (pad_top, pad_left, new_h, new_w)
+        if method == "linear":
+            return native.resize_linear(out_tt, (orig_h, orig_w), antialias=False, crop=crop)
+        if method == "nearest":
+            return native.resize_nearest(out_tt, (orig_h, orig_w), exact=False, crop=crop)
     crop = out_tt[pad_top:pad_top + new_h, pad_left:pad_left + new_w]
     if method == "linear":
         return resize_linear_np(crop, (orig_h, orig_w), antialias=False,

@@ -8,8 +8,8 @@ geometry at the original resolution, argmax, colourise) as a batch tool,
 optionally scored against ground-truth labels with the reference's
 original-resolution protocol (macro Dice/IoU/Acc with the ignore class
 left out). Runs on the card unless `--device cpu`; JAX's `--mesh` is not
-ported. Without PIL, images and labels must be PNG, and JPEG is refused
-(`data/png.py`).
+ported. Images and labels decode through `data/png.py` `decode` (the
+native PNG/JPEG codec, else PIL, else the port's PNG codec).
 
 Usage:
   python -m image_segmentation_tpu_torch.predict --models-dir runs/ \

@@ -11,9 +11,10 @@ Counterpart of image_segmentation_tpu/serve/app.py:
 Prompt models take `prompt_type` ("points" by default, "bbox",
 "scribble", "text") and `prompt_data` (a list of {x, y}; {x, y, width,
 height}; a base64 PNG of the strokes); malformed prompt data is the
-client's error (400). Uploads decode with PIL where it is installed,
-else with the port's own PNG codec, which refuses JPEG (`data/png.py`
-`decode`); masks are written by that codec.
+client's error (400). Uploads decode through `data/png.py` `decode`:
+the native PNG/JPEG codec, else PIL for what it declines, else the
+port's own PNG codec (JAX's `_decode_upload`); masks are written by
+that codec.
 
 Registries:
   * `--models-dir DIR`: the trained `MO_<config>` directories that
@@ -94,7 +95,9 @@ def decode_base64_image(data: str) -> np.ndarray:
 
 
 def decode_base64_gray(data: str) -> np.ndarray:
-    """b64 (optionally a data URL) → (H, W) uint8, PIL's convert("L")."""
+    """b64 (optionally a data URL) → (H, W) uint8: a one-channel image as
+    decoded, others through PIL's convert("L") luma (`png.to_gray`), what
+    JAX's `decode_base64_gray` gives."""
     return png.to_gray(png.decode(_strip_data_url(data)))
 
 

@@ -18,10 +18,11 @@ that trains on them is `ClipUNet.decoder_only()`, a view that shares the
 ClipUNet's decoder modules, so no state moves between the two (JAX maps
 parameter trees between its two modules, :93-102).
 
-Residency is float32 or nothing. A feature set is `MaterializedDataset`
-with `packed_features` set; `fit` holds it on the device as float32 when
-it fits the budget (`ISTPU_TRAIN_DEVICE_CACHE_MB`, else a quarter of the
-card) and raises otherwise. It never quantises the features to uint8, as
+Features are float32 on the device or streamed. A feature set is
+`MaterializedDataset` with `packed_features` set; `fit` holds it on the
+device as float32 when it fits the budget (`ISTPU_TRAIN_DEVICE_CACHE_MB`,
+else a quarter of the card) and streams it per step batch from host
+memory otherwise. It never quantises the features to uint8, as
 JAX's fit does past its budget (loop.py:801-836 through `_quantize_u8`,
 which clips every value to [0, 1] and so wipes out every negative hidden
 state and every one above 1). Size: ViT-B/16 features take 5 × 14 × 14 ×

@@ -3,8 +3,9 @@
 Counterpart of image_segmentation_tpu/train/loop.py (fit :650-1009,
 evaluate :328-444, _evaluate_device :82-178), as the reference engine
 (utils/training.py) runs it:
-  * a train epoch is the shuffled step batches of a device-resident train
-    set through `train_step` (accumulation inside, train/steps.py);
+  * a train epoch is the shuffled step batches of a device-resident (or
+    streamed) train set through `train_step` (accumulation inside,
+    train/steps.py);
   * an eval epoch is the original-resolution protocol, on the device
     (train/fast_eval.py, canvas-size buckets) or on the host in float64;
   * a per-epoch metrics file, the best-val-mIoU checkpoint with its
@@ -31,11 +32,19 @@ the original-size reconstruction MSE, a best-val-loss checkpoint.
 
 The train set's device budget is `ISTPU_TRAIN_DEVICE_CACHE_MB`, read at
 call time as JAX reads it (loop.py:801,1080); unset, it follows the
-device (`train_device_budget`).
+device (`train_device_budget`). Inside the budget the set is uploaded
+once (float32, or uint8 past it: `resident_plan`, JAX
+`_resident_plan('auto', ...)`, the only policy a JAX caller takes); past
+it in every allowed dtype, each step batch is
+gathered on the host under the same shuffle and streamed to the device
+(`train.steps.StreamedTrainSet`, JAX `_stream_batches`). The val set's
+budget is `ISTPU_EVAL_DEVICE_CACHE_MB` (`eval_device_budget`, the same
+default rule; JAX loop.py:222-240): past it the device eval streams each
+batch's inputs, metas and label canvases from the host, and the
+confusion still accumulates on the device.
 
-Not ported: the TPU dispatch chunking (`_dispatch_epoch_chunked`), the
-per-batch streaming train path (a train set that fits the device budget
-in no dtype is refused), meshes and multihost.
+Not ported: the TPU dispatch chunking (`_dispatch_epoch_chunked`),
+meshes and multihost.
 """
 from __future__ import annotations
 
@@ -63,16 +72,19 @@ from image_segmentation_tpu_torch.train import fast_eval
 from image_segmentation_tpu_torch.train.state import TrainState
 from image_segmentation_tpu_torch.train.steps import (
     ResidentTrainSet,
+    StreamedTrainSet,
     eval_forward,
     resident_plan,
+    stream_rows,
     train_step,
 )
 
-# The variable that sets the resident train set's device budget, in MB,
-# and its default on a device that is not a CUDA card (JAX's default,
-# loop.py:801, sized for a TPU's HBM).
+# The variables that set the train and val sets' device budgets, in MB,
+# and their default on a device that is not a CUDA card (JAX's default,
+# loop.py:222,801, sized for a TPU's HBM).
 BUDGET_ENV = "ISTPU_TRAIN_DEVICE_CACHE_MB"
-CPU_TRAIN_DEVICE_BUDGET_MB = 4096
+EVAL_BUDGET_ENV = "ISTPU_EVAL_DEVICE_CACHE_MB"
+CPU_DEVICE_BUDGET_MB = 4096
 # The eval protocol's (B, Hc, Wc, C + 1) f32 canvases per batch stay under
 # this (JAX loop.py:209-214); the batch halves until they do.
 EVAL_BATCH_BYTES = 2**31
@@ -101,51 +113,65 @@ def _device_of(state: TrainState) -> torch.device:
     return next(state.model.parameters()).device
 
 
+def _device_budget(env: str, device) -> int:
+    mb = os.environ.get(env, "")
+    if mb:
+        return int(float(mb) * 2**20)
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory // 4
+    return CPU_DEVICE_BUDGET_MB << 20
+
+
 def train_device_budget(device) -> int:
     """Bytes of `device` memory the resident train set may take: the
     `ISTPU_TRAIN_DEVICE_CACHE_MB` variable when it is set, read at each
     call as JAX's fit reads it; else, on a CUDA card, a quarter of its
     memory (`total_memory` // 4: 20 GB of an 80 GB H100), and elsewhere
     4096 MB, as in JAX. Past the budget the set is held as uint8, and past
-    four times it the set is refused (`resident_plan`)."""
-    mb = os.environ.get(BUDGET_ENV, "")
-    if mb:
-        return int(float(mb) * 2**20)
-    device = torch.device(device)
-    if device.type == "cuda":
-        return torch.cuda.get_device_properties(device).total_memory // 4
-    return CPU_TRAIN_DEVICE_BUDGET_MB << 20
+    four times it the set streams from the host (`resident_plan`)."""
+    return _device_budget(BUDGET_ENV, device)
 
 
-def _resident_train_set(train_data: MaterializedDataset, device, *, reconstruction: bool,
-                        verbose: bool) -> ResidentTrainSet:
-    """The train set on the device, float32 when it fits the budget, else
-    uint8 (images and heatmaps in [0, 1], labels); kept on the dataset
-    object for later fits on the same device. A reconstruction set holds
-    its images only. A set of packed ViT features is float32 or refused:
-    uint8 in [0, 1] would destroy them (train/feature_cache.py)."""
+def eval_device_budget(device) -> int:
+    """Bytes of `device` memory the device eval may hold a val set (or one
+    canvas bucket of it) in: inputs and label canvases. The
+    `ISTPU_EVAL_DEVICE_CACHE_MB` variable when it is set, read at each
+    call; else the rule of `train_device_budget`. Past it the eval
+    streams each batch from the host."""
+    return _device_budget(EVAL_BUDGET_ENV, device)
+
+
+def _train_set(train_data: MaterializedDataset, device, *, reconstruction: bool,
+               verbose: bool):
+    """The train set on the device as `resident_plan` says: float32, or
+    uint8 (images and heatmaps in [0, 1], labels), kept on the dataset
+    object for later fits on the same device; or left in host memory and
+    streamed per step batch (`StreamedTrainSet`). A reconstruction set
+    holds its images only. A set of packed ViT features is float32 or
+    streamed: uint8 in [0, 1] would destroy them (train/feature_cache.py)."""
     has_heat = train_data.has_heatmaps and not reconstruction
-    f32_bytes = (train_data.images.nbytes
-                 + (0 if reconstruction else train_data.labels.nbytes)
-                 + (train_data.heatmaps.nbytes if has_heat else 0))
+    labels = None if reconstruction else train_data.labels
+    heatmaps = train_data.heatmaps if has_heat else None
+    f32_bytes = (train_data.images.nbytes + (0 if labels is None else labels.nbytes)
+                 + (0 if heatmaps is None else heatmaps.nbytes))
     budget = train_device_budget(device)
-    features = train_data.packed_features
-    fits, quantize = resident_plan(f32_bytes, budget, quantizable=not features)
-    if not fits:
-        what = ("of packed ViT features (float32 only: features are never quantised "
-                "to uint8)" if features else "(float32) even as uint8")
-        raise ValueError(f"train set of {f32_bytes} bytes {what} does not fit the device "
-                         f"budget of {budget} bytes ({budget / 2**20:.0f} MB); {BUDGET_ENV} "
-                         f"sets the budget in MB")
+    plan = resident_plan(f32_bytes, budget, quantizable=not train_data.packed_features)
+    if plan == "stream":
+        train_data.device_train_cache = None
+        if verbose:
+            print(f"[fit] streaming the train set per batch from host memory "
+                  f"({f32_bytes / 2**20:.0f} MB float32, past the {budget / 2**20:.0f} MB device budget; {BUDGET_ENV} sets it)")
+        return StreamedTrainSet(train_data.images, labels, device, heatmaps=heatmaps)
+    quantize = plan == "uint8"
     key = (device, quantize, reconstruction)
     cached = train_data.device_train_cache
     if cached is None or cached[0] != key:
         if quantize and verbose:
-            print(f"[fit] uint8 device residency ({f32_bytes / 2**20:.0f} MB float32 > "
+            print(f"[fit] uint8 device residency ({f32_bytes / 2**20:.0f} MB float32, "
                   f"{budget / 2**20:.0f} MB budget)")
         train_data.device_train_cache = (key, ResidentTrainSet(
-            train_data.images, None if reconstruction else train_data.labels, device,
-            quantize, heatmaps=train_data.heatmaps if has_heat else None))
+            train_data.images, labels, device, quantize, heatmaps=heatmaps))
     return train_data.device_train_cache[1]
 
 
@@ -170,37 +196,62 @@ def _bucket_views(val_data: MaterializedDataset):
 
 
 def _eval_one_canvas(model, val_data: MaterializedDataset, *, loss_fn, num_classes: int,
-                     batch_size: int):
+                     batch_size: int, verbose: bool):
     """The device protocol over one packed canvas (the whole set or one
-    bucket). The set goes to the device once; each batch is gathered
-    there. Returns (confusion (C, C) int64 tensor, losses (n,) tensor)."""
+    bucket). Within `eval_device_budget` the set goes to the device once
+    and each batch is gathered there; past it each batch's inputs, metas
+    and label canvases stream from the host (`stream_rows`). Returns
+    (confusion (C, C) int64 tensor, losses (n,) tensor), on the device."""
     device = next(model.parameters()).device
     if val_data.label_canvases is None:
         val_data.label_canvases = fast_eval.pack_label_canvases(val_data.orig_labels)
     canvases = val_data.label_canvases
-    if val_data.device_eval_cache is None or val_data.device_eval_cache[0] != device:
-        inputs = (val_data.images,) + ((val_data.heatmaps,) if val_data.has_heatmaps else ())
-        val_data.device_eval_cache = (device, (
-            tuple(torch.from_numpy(x).to(device) for x in inputs),
-            _metas_on(val_data.metas, device),
-            torch.from_numpy(canvases).to(device)))
-    dev_inputs, dev_metas, dev_canvases = val_data.device_eval_cache[1]
-
+    inputs = (val_data.images,) + ((val_data.heatmaps,) if val_data.has_heatmaps else ())
     n = len(val_data)
     hc, wc = canvases.shape[1:]
     while batch_size > 1 and batch_size * hc * wc * (num_classes + 1) * 4 > EVAL_BATCH_BYTES:
         batch_size //= 2
+    starts = range(0, n, batch_size)
+    nbytes = sum(x.nbytes for x in inputs) + canvases.nbytes
+    budget = eval_device_budget(device)
+    if nbytes <= budget:
+        if val_data.device_eval_cache is None or val_data.device_eval_cache[0] != device:
+            val_data.device_eval_cache = (device, (
+                tuple(torch.from_numpy(x).to(device) for x in inputs),
+                _metas_on(val_data.metas, device),
+                torch.from_numpy(canvases).to(device)))
+        dev_inputs, dev_metas, dev_canvases = val_data.device_eval_cache[1]
+
+        def batches():
+            for start in starts:
+                # the tail batch repeats its last index
+                ii = torch.arange(start, start + batch_size, device=device).clamp(max=n - 1)
+                yield (tuple(x.index_select(0, ii) for x in dev_inputs),
+                       {k: v.index_select(0, ii) for k, v in dev_metas.items()},
+                       dev_canvases.index_select(0, ii))
+    else:
+        val_data.device_eval_cache = None
+        if verbose:
+            print(f"  val: streaming {n} images per batch ({nbytes / 2**20:.0f} MB past the "
+                  f"{budget / 2**20:.0f} MB device budget; {EVAL_BUDGET_ENV} sets it)")
+        fields = [f for f in G.ResizeMeta._fields if f != "scale"]
+        arrays = (*inputs, canvases, *(np.asarray(getattr(val_data.metas, f)) for f in fields))
+        rows = (np.minimum(np.arange(start, start + batch_size), n - 1) for start in starts)
+
+        def batches():
+            k = len(inputs)
+            for b in stream_rows(arrays, rows, device):
+                yield b[:k], {f: v.long() for f, v in zip(fields, b[k + 1:])}, b[k]
+
     conf = torch.zeros((num_classes, num_classes), dtype=torch.int64, device=device)
     losses = []
-    for start in range(0, n, batch_size):
-        # the tail batch repeats its last index; `real` masks the repeats
-        pos = torch.arange(start, start + batch_size, device=device)
-        ii = pos.clamp(max=n - 1)
-        scores = eval_forward(model, *(x.index_select(0, ii) for x in dev_inputs))
+    for start, (x, metas, canv) in zip(starts, batches()):
+        # `real` masks the tail batch's repeats
+        real = torch.arange(start, start + batch_size, device=device) < n
+        scores = eval_forward(model, *x)
         with torch.no_grad():
-            bconf, blosses = fast_eval.eval_batch(
-                scores, {k: v.index_select(0, ii) for k, v in dev_metas.items()},
-                dev_canvases.index_select(0, ii), pos < n, num_classes, loss_fn)
+            bconf, blosses = fast_eval.eval_batch(scores, metas, canv, real, num_classes,
+                                                  loss_fn)
         conf += bconf
         losses.append(blosses[: min(batch_size, n - start)])
     return conf, torch.cat(losses)
@@ -217,7 +268,8 @@ def _evaluate_device(state: TrainState, val_data: MaterializedDataset, *, loss_c
     if views and verbose:
         print(f"  val: {len(views)} canvas buckets {[len(v) for v in views]}")
     parts = [_eval_one_canvas(state.model, v, loss_fn=loss_fn, num_classes=num_classes,
-                              batch_size=batch_size) for v in (views or [val_data])]
+                              batch_size=batch_size, verbose=verbose)
+             for v in (views or [val_data])]
     agg.accumulate_confusion(sum(c for c, _ in parts))  # the one host fetch
     losses = torch.cat([l for _, l in parts]).cpu().numpy()
     return _finish(agg, float(losses.mean()) if loss_fn is not None else float("nan"),
@@ -334,7 +386,7 @@ def fit(
     and records the epoch in history['stopped_early']. `augment_fn(images,
     labels, generator)` (e.g. `ops.augment.random_augment_batch`, with the
     epoch's CPU generator) transforms every step batch before its
-    micro-batch split. SIGTERM and SIGINT
+    micro-batch split, resident or streamed (`_train_set`). SIGTERM and SIGINT
     stop the run after the current epoch, with its checkpoint written.
     Returns once every checkpoint is on disk."""
     if eval_loss_cfg is None and host_loss_fn is None and isinstance(
@@ -382,7 +434,7 @@ def fit(
             "generate augmented prompt triplets offline instead "
             "(data.prompts.generate_prompt_dataset over an augmented "
             "dataset, reference utils/augmentation.ipynb cell 23)")
-    resident = _resident_train_set(train_data, device, reconstruction=False, verbose=verbose)
+    train_set = _train_set(train_data, device, reconstruction=False, verbose=verbose)
 
     # the shuffle, seeded as the JAX loop seeds a fresh run, replayed to the
     # epoch a resumed run starts at
@@ -410,13 +462,11 @@ def fit(
             t0 = time.time()
             if verbose:
                 print(f"Epoch {epoch + 1}/{epochs} [{name}]")
-            idx_mat = torch.from_numpy(epoch_order(rng, n, batch_size)).to(device)
             aug_gen = None if augment_fn is None else torch.Generator().manual_seed(
                 seed * 100003 + epoch)
             losses = torch.stack([
-                train_step(state, loss_fn, *resident.batch(idx_mat[s]), accum_steps,
-                           augment_fn, aug_gen)
-                for s in range(nsteps)])
+                train_step(state, loss_fn, *batch, accum_steps, augment_fn, aug_gen)
+                for batch in train_set.batches(epoch_order(rng, n, batch_size))])
             train_loss = float(losses.mean())
             if verbose:
                 print(f"  train: loss={train_loss:.4f}")
@@ -528,10 +578,10 @@ def fit_reconstruction(
 ) -> FitResult:
     """Autoencoder stage 1 (reference autoencoder.ipynb cell 0; JAX
     loop.py:1041-1158): MSE of the reconstruction against the resized
-    input, from a device-resident set whose one image buffer is input and
-    target; the original-resolution val MSE each epoch; a checkpoint at
-    `save_dir/name` whenever the val MSE falls (no `_last`, no `MO_`), and
-    resume from it. As in JAX, the shuffle is seeded `seed + start_epoch`
+    input, from a device-resident (or, past the budget, streamed) set
+    whose one image buffer is input and target; the original-resolution
+    val MSE each epoch; a checkpoint at `save_dir/name` whenever the val
+    MSE falls (no `_last`, no `MO_`), and resume from it. As in JAX, the shuffle is seeded `seed + start_epoch`
     and an epoch is max(1, n // batch_size) steps. `originals` are the
     raw val images at their own sizes."""
     os.makedirs(save_dir, exist_ok=True)
@@ -548,7 +598,7 @@ def fit_reconstruction(
             if k in meta.get("history", {}):
                 history[k] = list(meta["history"][k])
 
-    resident = _resident_train_set(train_data, device, reconstruction=True, verbose=verbose)
+    train_set = _train_set(train_data, device, reconstruction=True, verbose=verbose)
     n = len(train_data)
     nsteps = max(1, n // batch_size)
     rng = np.random.default_rng(seed + start_epoch)
@@ -558,11 +608,9 @@ def fit_reconstruction(
             t0 = time.time()
             if verbose:
                 print(f"Epoch {epoch + 1}/{epochs} [{name}]")
-            order = rng.permutation(n)[: nsteps * batch_size]
-            idx_mat = torch.from_numpy(order.reshape(nsteps, -1)).to(device)
-            losses = torch.stack([
-                train_step(state, mse_loss, *resident.batch(idx_mat[s]), accum_steps)
-                for s in range(nsteps)])
+            order = rng.permutation(n)[: nsteps * batch_size].reshape(nsteps, -1)
+            losses = torch.stack([train_step(state, mse_loss, *batch, accum_steps)
+                                  for batch in train_set.batches(order)])
             train_loss = float(losses.mean())
             if verbose:
                 print(f"  train: mse={train_loss:.6f}")

@@ -22,6 +22,13 @@ the index matrix and the losses. In reconstruction mode (`labels=None`,
 JAX loop.py:1085-1092) one image buffer is input and target, so under
 uint8 residency both are decoded from it and stay equal.
 
+A set that fits the budget in no allowed dtype stays in host memory
+(`StreamedTrainSet`, JAX's per-batch path, loop.py:505-520 and
+:877-897): each step batch is gathered on the host under the same
+shuffle and streamed to the device (`stream_rows`: gathered on a worker
+thread into pinned memory and copied on a side stream, two batches
+ahead), as float32.
+
 A prompt set's batch is ((images, heatmaps), labels), and `train_step`
 applies `model(images, heatmaps)` to each micro-batch (JAX
 steps.py:75-79).
@@ -32,7 +39,9 @@ does, with draws from the caller's `generator`.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple, Union
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterable, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,18 +76,80 @@ def labels_u8(labels: np.ndarray) -> np.ndarray:
     return labels.astype(np.uint8)
 
 
-def resident_plan(f32_bytes: int, budget: int, quantizable: bool = True
-                  ) -> Tuple[bool, bool]:
-    """(fits, quantize): float32 residency when the set fits `budget`,
-    uint8 (a quarter of the bytes) when only that fits (JAX `_resident_plan`
-    with resident_dtype 'auto'). A set that is not `quantizable` (ViT
-    features, which uint8 in [0, 1] would destroy) fits as float32 or not
-    at all."""
+# step batches a streamed train set gathers and copies ahead of the one in use
+STREAM_LOOKAHEAD = 2
+
+
+def resident_plan(f32_bytes: int, budget: int, quantizable: bool = True) -> str:
+    """How a train set of `f32_bytes` (float32) lives against the device
+    `budget` (JAX `_resident_plan('auto', ...)`): 'float32' on the device
+    when it fits, else 'uint8' (a quarter of the bytes) when that fits,
+    else 'stream' from host memory (JAX's use_device_epoch=False). A set
+    that is not `quantizable` (ViT features, which uint8 in [0, 1] would
+    destroy) is float32 or streamed, never uint8."""
     if f32_bytes <= budget:
-        return True, False
-    if not quantizable:
-        return False, False
-    return f32_bytes // 4 <= budget, True
+        return "float32"
+    if quantizable and f32_bytes // 4 <= budget:
+        return "uint8"
+    return "stream"
+
+
+def stream_rows(arrays: Sequence[np.ndarray], rows: Iterable[np.ndarray],
+                device) -> Iterator[Tuple[torch.Tensor, ...]]:
+    """For each index vector of `rows`, (a[idx] for a in arrays) on
+    `device`, streamed from host memory (JAX `_stream_batches`). A worker
+    thread gathers each batch (into pinned host memory for a CUDA device)
+    and, on CUDA, copies it on a side stream, `STREAM_LOOKAHEAD` batches
+    ahead of the one the caller holds, so the gather and the copy overlap
+    the caller's step. The caller's stream waits on the copy's event, and
+    each tensor is recorded on that stream for the allocator."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    srcs = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    if cuda:
+        compute, copy = torch.cuda.current_stream(device), torch.cuda.Stream(device)
+
+    def put(idx):
+        idx = torch.as_tensor(idx, dtype=torch.long)
+        host = [torch.index_select(s, 0, idx, out=torch.empty(
+            (len(idx),) + s.shape[1:], dtype=s.dtype, pin_memory=cuda)) for s in srcs]
+        if not cuda:
+            return [h.to(device) for h in host], None
+        with torch.cuda.stream(copy):
+            dev = [h.to(device, non_blocking=True) for h in host]
+            done = torch.cuda.Event()
+            done.record(copy)
+        return dev, done
+
+    def take(future):
+        dev, done = future.result()
+        if done is not None:
+            compute.wait_event(done)
+            for d in dev:
+                d.record_stream(compute)
+        return tuple(dev)
+
+    pending = deque()
+    with ThreadPoolExecutor(max_workers=1, thread_name_prefix="stream_rows") as pool:
+        try:
+            for idx in rows:
+                pending.append(pool.submit(put, idx))
+                if len(pending) > STREAM_LOOKAHEAD:
+                    yield take(pending.popleft())
+            while pending:
+                yield take(pending.popleft())
+        finally:
+            for f in pending:
+                f.cancel()
+
+
+def _assemble(x: torch.Tensor, heatmaps: Optional[torch.Tensor],
+              labels: Optional[torch.Tensor]):
+    """A step batch: (images, labels), ((images, heatmaps), labels), or
+    (images, images) in reconstruction mode."""
+    if labels is None:
+        return x, x
+    return (x if heatmaps is None else (x, heatmaps)), labels.long()
 
 
 class ResidentTrainSet:
@@ -103,12 +174,36 @@ class ResidentTrainSet:
         return x.float() * (1.0 / 255.0) if self.quantize else x
 
     def batch(self, idx: torch.Tensor):
-        x = self._gather(self.images, idx)
-        if self.labels is None:
-            return x, x
-        if self.heatmaps is not None:
-            x = (x, self._gather(self.heatmaps, idx))
-        return x, self.labels.index_select(0, idx).long()
+        return _assemble(
+            self._gather(self.images, idx),
+            None if self.heatmaps is None else self._gather(self.heatmaps, idx),
+            None if self.labels is None else self.labels.index_select(0, idx))
+
+    def batches(self, order: np.ndarray) -> Iterator[tuple]:
+        """The step batches of an (nsteps, batch) index matrix."""
+        idx = torch.from_numpy(order).to(self.images.device)
+        for s in range(len(order)):
+            yield self.batch(idx[s])
+
+
+class StreamedTrainSet:
+    """A train set that stays in host memory; `batches(order)` streams the
+    step batches of an (nsteps, batch) index matrix to `device`
+    (`stream_rows`), as float32 NHWC images (and heatmaps) and int64
+    labels, the values `ResidentTrainSet` in float32 gives."""
+
+    def __init__(self, images: np.ndarray, labels: Optional[np.ndarray], device,
+                 heatmaps: Optional[np.ndarray] = None):
+        self.device = torch.device(device)
+        self.arrays = [a for a in (images, heatmaps, labels) if a is not None]
+        self.has_heatmaps, self.has_labels = heatmaps is not None, labels is not None
+
+    def batches(self, order: np.ndarray) -> Iterator[tuple]:
+        for b in stream_rows(self.arrays, order, self.device):
+            b = list(b)
+            x = b.pop(0)
+            heat = b.pop(0) if self.has_heatmaps else None
+            yield _assemble(x, heat, b.pop(0) if self.has_labels else None)
 
 
 def train_step(state: TrainState, loss_fn: Callable,

@@ -443,6 +443,112 @@ def test_k1_eval_inside_evaluate_matches_the_module_path(cuda):
     assert np.abs(k_conf - m_conf).sum() / 2 <= 0.01 * k_conf.sum()
 
 
+def test_stream_rows_on_the_card_gathers_each_batch(cuda):
+    """`stream_rows` on cuda: each batch is its host gather, on the card,
+    in order, with the worker gathering and copying ahead; closing the
+    stream early leaves no worker."""
+    import threading
+
+    from image_segmentation_tpu_torch.train.steps import stream_rows
+
+    rng = np.random.default_rng(0)
+    a = rng.uniform(0, 1, (64, 32, 32, 3)).astype(np.float32)
+    b = rng.integers(0, 4, (64, 32, 32)).astype(np.int32)
+    rows = [rng.permutation(64)[:16] for _ in range(8)]
+    got = list(stream_rows((a, b), iter(rows), cuda))
+    assert len(got) == 8
+    for (x, y), idx in zip(got, rows):
+        assert x.device.type == "cuda" and y.dtype == torch.int32
+        np.testing.assert_array_equal(x.cpu().numpy(), a[idx])
+        np.testing.assert_array_equal(y.cpu().numpy(), b[idx])
+    gen = stream_rows((a, b), iter(rows), cuda)
+    next(gen)
+    gen.close()
+    assert not [t for t in threading.enumerate() if t.name.startswith("stream_rows")]
+
+
+def _streaming_fit_setup(cuda, tmp_path):
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.run import synthetic_materialized
+    from image_segmentation_tpu_torch.train.state import TrainState
+
+    cfg = C.UNET_NOAUG
+    train = synthetic_materialized(32, 64, seed=0)
+    val = synthetic_materialized(20, 64, seed=1, keep_orig_labels=True)
+
+    def fit(name):
+        from image_segmentation_tpu_torch.train.loop import fit as fit_
+
+        model = C.build_model(cfg, cuda, torch.Generator().manual_seed(0), base=8)
+        return fit_(TrainState(model, *C.build_optimizer(cfg, model)), train, val,
+                    loss_fn=C.build_loss(cfg), epochs=2, batch_size=8, accum_steps=2,
+                    save_dir=str(tmp_path / name), name="unet_noaug",
+                    eval_loss_cfg=C.build_val_loss(cfg), verbose=False)
+
+    return train, val, fit
+
+
+def test_streamed_fit_on_the_card_equals_the_resident_fit(cuda, tmp_path, monkeypatch):
+    """unet_noaug at base 8, 64 px, micro 4 × accum 2, 2 epochs of 4
+    steps: streamed from pinned host memory (both budgets 0) against the
+    resident set, cuDNN deterministic: the same batches, so the same
+    losses and val metrics; K1 runs in both evals."""
+    from image_segmentation_tpu_torch.train import loop
+
+    monkeypatch.delenv(loop.BUDGET_ENV, raising=False)
+    monkeypatch.delenv(loop.EVAL_BUDGET_ENV, raising=False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    train, val, fit = _streaming_fit_setup(cuda, tmp_path)
+    before = K1.LAUNCHES
+    resident = fit("r").history
+    k1 = K1.LAUNCHES - before
+    assert train.device_train_cache is not None and k1 > 0
+    monkeypatch.setenv(loop.BUDGET_ENV, "0")
+    monkeypatch.setenv(loop.EVAL_BUDGET_ENV, "0")
+    before = K1.LAUNCHES
+    streamed = fit("s").history
+    assert train.device_train_cache is None and val.device_eval_cache is None
+    assert K1.LAUNCHES - before == k1
+    for k in ("train_loss", "val_loss", "val_iou", "val_acc"):
+        assert streamed[k] == resident[k], (k, streamed[k], resident[k])
+
+
+def test_per_batch_eval_on_the_card_equals_the_resident_eval(cuda, monkeypatch):
+    """A base-16 UNet through K1 on 20 val images (canvas buckets): the
+    per-batch eval's confusion and loss equal the resident eval's, with
+    the same K1 launches."""
+    from chip_smoke import _perturb_batchnorm_
+
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.metrics import MetricsHistory
+    from image_segmentation_tpu_torch.run import synthetic_materialized
+    from image_segmentation_tpu_torch.train import loop
+    from image_segmentation_tpu_torch.train.state import TrainState
+
+    cfg = C.UNET_NOAUG
+    model = C.build_model(cfg, cuda, torch.Generator().manual_seed(0), base=16)
+    _perturb_batchnorm_(model, 1)
+    val = synthetic_materialized(20, 64, seed=1, keep_orig_labels=True)
+    out = []
+    for budget in (None, "0"):
+        if budget is None:
+            monkeypatch.delenv(loop.EVAL_BUDGET_ENV, raising=False)
+        else:
+            monkeypatch.setenv(loop.EVAL_BUDGET_ENV, budget)
+        agg = MetricsHistory(4, ignore_index=3)
+        before = K1.LAUNCHES
+        res = loop.evaluate(TrainState(model), val, loss_cfg=C.build_val_loss(cfg), agg=agg,
+                            verbose=False, batch_size=8)
+        out.append((res, agg.confusion.copy(), K1.LAUNCHES - before))
+        # resident: each canvas bucket's set held on the card; per batch: none
+        assert all((v.device_eval_cache is None) == (budget == "0")
+                   for v in val.bucket_views or [val])
+    (r_res, r_conf, r_n), (s_res, s_conf, s_n) = out
+    assert r_n == s_n > 0
+    np.testing.assert_array_equal(s_conf, r_conf)
+    assert s_res["loss"] == r_res["loss"]
+
+
 def test_write_behind_checkpoint_holds_the_state_of_its_epoch(cuda, tmp_path):
     """A save submitted after a step, then another step at once (in-place
     parameter and moment updates on the same stream): the files hold the

@@ -50,9 +50,10 @@ VAL_CFG = dict(ignore_index=3, class_weights=(0.2047, 1.0272, 1.2293, 1.5388),
 
 @pytest.fixture(autouse=True)
 def jax_numpy_path(monkeypatch):
-    """The JAX package on its numpy resampler, so both packages'
-    materialised inputs are bit-equal (tests/test_torch_loader.py)."""
+    """Both packages on their numpy resamplers, so their materialised
+    inputs are bit-equal (tests/test_torch_loader.py)."""
     monkeypatch.setattr(jax_geometry, "_native", lambda: None)
+    monkeypatch.setattr(G, "_native", lambda: None)
 
 
 @pytest.fixture(scope="module")

@@ -40,6 +40,7 @@ from image_segmentation_tpu_torch.data.loader import materialize
 from image_segmentation_tpu_torch.losses import DiceCELoss
 from image_segmentation_tpu_torch.models.convert import from_jax_variables
 from image_segmentation_tpu_torch.models.unet import UNet
+from image_segmentation_tpu_torch.ops import geometry as port_geometry
 from image_segmentation_tpu_torch.run import _synthetic_items
 from image_segmentation_tpu_torch.serve.engine import InferenceEngine
 from image_segmentation_tpu_torch.train import checkpoint as ckpt
@@ -57,9 +58,10 @@ FIT_KW = dict(epochs=2, batch_size=8, accum_steps=2, name="unet_noaug", seed=3,
 
 @pytest.fixture(autouse=True)
 def jax_numpy_path(monkeypatch):
-    """The JAX package on its numpy resampler: both packages' materialised
-    inputs are then bit-equal (tests/test_torch_loader.py)."""
+    """Both packages on their numpy resamplers: their materialised inputs
+    are then bit-equal (tests/test_torch_loader.py)."""
     monkeypatch.setattr(jax_geometry, "_native", lambda: None)
+    monkeypatch.setattr(port_geometry, "_native", lambda: None)
 
 
 def _items(n, seed):

@@ -1,6 +1,7 @@
 """The port's host geometry, labels and channel rules held against the
-JAX package's: bit-equal to its numpy path, and within 1e-6 of the path
-it takes by default (the C++ resampler where it built)."""
+JAX package's: the port's numpy path bit-equal to JAX's numpy path, and
+the default paths (each package's C++ resampler where it built) within
+1e-6."""
 import numpy as np
 import pytest
 import torch
@@ -35,9 +36,10 @@ def test_resize_with_padding(h, w, monkeypatch):
     want, jmeta = JG.resize_with_padding_np(img, 224)  # native resampler if built
     assert meta == jmeta
     np.testing.assert_allclose(got, want, atol=1e-6)
-    monkeypatch.setattr(JG, "_native", lambda: None)  # JAX package's numpy path
+    monkeypatch.setattr(JG, "_native", lambda: None)  # both packages' numpy paths
+    monkeypatch.setattr(PG, "_native", lambda: None)
     want_np, _ = JG.resize_with_padding_np(img, 224)
-    np.testing.assert_array_equal(got, want_np)
+    np.testing.assert_array_equal(PG.resize_with_padding_np(img, 224)[0], want_np)
     lab = np.random.default_rng(1).integers(0, 4, (h, w, 1)).astype(np.uint8)
     np.testing.assert_array_equal(PG.resize_with_padding_np(lab, 224, "nearest")[0],
                                   JG.resize_with_padding_np(lab, 224, "nearest")[0])
@@ -51,7 +53,9 @@ def test_invert_resize_padding(h, w, monkeypatch):
     assert got.shape == (h, w, 4) and got.dtype == np.float32
     np.testing.assert_allclose(got, JG.invert_resize_padding_np(scores, meta), atol=1e-6)
     monkeypatch.setattr(JG, "_native", lambda: None)
-    np.testing.assert_array_equal(got, JG.invert_resize_padding_np(scores, meta))
+    monkeypatch.setattr(PG, "_native", lambda: None)
+    np.testing.assert_array_equal(PG.invert_resize_padding_np(scores, meta),
+                                  JG.invert_resize_padding_np(scores, meta))
     np.testing.assert_array_equal(PG.invert_resize_padding_np(scores, meta, "nearest"),
                                   JG.invert_resize_padding_np(scores, meta, "nearest"))
 

@@ -1,6 +1,6 @@
 """The port's datasets and loader held against the JAX package's:
-`materialize` bit-equal to the JAX numpy path (`native=False`, with the
-JAX package's C++ resampler switched off for the test, so both sides run
+`materialize` bit-equal to the JAX numpy path (`native=False`, with both
+packages' C++ resamplers switched off for the test, so both sides run
 the same numpy arithmetic), `train_batches` in the same order from the
 same seeded generator, `eval_batches` padding and `count`, and the
 datasets' decode and quantisation."""
@@ -36,8 +36,9 @@ def _items(sizes=SIZES, seed=0, heat=False):
 
 @pytest.fixture
 def jax_numpy_path(monkeypatch):
-    """The JAX package's materialize on its numpy resampler."""
+    """Both packages' materialize on their numpy resamplers."""
     monkeypatch.setattr(jax_geometry, "_native", lambda: None)
+    monkeypatch.setattr(G, "_native", lambda: None)
 
 
 @pytest.mark.parametrize("heat", [False, True])

@@ -1,6 +1,6 @@
 """The port's PNG codec (data/png.py), which the serving paths, predict.py
-and the file datasets use where PIL is missing (the card's machine): held
-to PIL, the codec those paths use where PIL is installed, bit for bit."""
+and the file datasets use where neither the native codec nor PIL is
+there: held to PIL, bit for bit."""
 import base64
 import io
 import zlib
@@ -11,6 +11,7 @@ from PIL import Image
 
 from chip_smoke import _png_every_filter
 from image_segmentation_tpu_torch.data import dataset, png
+from image_segmentation_tpu_torch.ops import native_codec
 from image_segmentation_tpu_torch.serve import app
 
 
@@ -99,8 +100,11 @@ def test_refuses_what_it_does_not_read():
 
 
 def test_serving_and_datasets_without_pil(monkeypatch, tmp_path):
-    """With PIL reported missing, uploads, scribbles, masks and dataset
-    files go through the codec and give what the PIL paths give."""
+    """On a host without the native codec (no libpng/libjpeg headers), with
+    PIL reported missing, uploads, scribbles, masks and dataset files go
+    through the PNG codec and give what the PIL paths give; JPEG is
+    refused there."""
+    monkeypatch.setattr(native_codec, "available", lambda: False)
     rgba = _smooth((21, 34, 4), 6)
     gray = _smooth((21, 34), 7)
     up_rgba = base64.b64encode(_pil_png(rgba, "RGBA")).decode()

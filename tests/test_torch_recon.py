@@ -37,6 +37,7 @@ from image_segmentation_tpu_torch.models.autoencoder import (
     SegmentationAutoencoder,
 )
 from image_segmentation_tpu_torch.models.convert import from_jax_variables
+from image_segmentation_tpu_torch.ops import geometry as port_geometry
 from image_segmentation_tpu_torch.run import _synthetic_items
 from image_segmentation_tpu_torch.train import checkpoint as ckpt
 from image_segmentation_tpu_torch.train.loop import evaluate_reconstruction, fit_reconstruction
@@ -153,7 +154,8 @@ def test_fit_reconstruction_epoch_and_eval_match_jax(recon_init, tmp_path, monke
     2, JAX's shuffle seed + start_epoch) from the same init: its train MSE,
     the mean of step 1 (identical up to f32 sums) and step 2 (one Adam
     update later), within 1e-4 relative, and the epoch's val MSE too."""
-    monkeypatch.setattr(jax_geometry, "_native", lambda: None)  # the numpy resampler
+    monkeypatch.setattr(jax_geometry, "_native", lambda: None)  # the numpy resamplers
+    monkeypatch.setattr(port_geometry, "_native", lambda: None)
     train, val = _data()
     originals = [img for img, _ in val]
     jtrain = jax_materialize(JaxArrayDataset(train), SIDE)

@@ -41,6 +41,7 @@ from image_segmentation_tpu_torch.models.clip_vit import (
     load_pretrained_clip_state,
 )
 from image_segmentation_tpu_torch.models.convert import from_jax_variables
+from image_segmentation_tpu_torch.ops import geometry as port_geometry
 from image_segmentation_tpu_torch.train import checkpoint as ckpt
 from image_segmentation_tpu_torch.train import loop
 from image_segmentation_tpu_torch.train.state import TrainState, freeze_
@@ -220,9 +221,10 @@ def test_without_a_card_the_default_device_refuses(runs):
 
 @pytest.fixture
 def jax_numpy_path(monkeypatch):
-    """The JAX package on its numpy resampler: both packages' materialised
-    inputs are then bit-equal (tests/test_torch_loader.py)."""
+    """Both packages on their numpy resamplers: their materialised inputs
+    are then bit-equal (tests/test_torch_loader.py)."""
     monkeypatch.setattr(jax_geometry, "_native", lambda: None)
+    monkeypatch.setattr(port_geometry, "_native", lambda: None)
 
 
 def test_three_step_clipunet_fit_matches_jax_fit(jax_numpy_path, tmp_path):

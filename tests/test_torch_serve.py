@@ -320,7 +320,8 @@ def test_main_on_the_cpu_builds_a_warm_batching_engine(monkeypatch):
 
 def test_port_imports_no_jax():
     """Every module of the port, imported in a fresh interpreter (this
-    one has jax already), pulls in neither jax nor the JAX package."""
+    one has jax already), pulls in neither jax nor the JAX package; nor
+    does loading the host libraries."""
     code = (
         "import pkgutil, sys, importlib, image_segmentation_tpu_torch as p\n"
         "import image_segmentation_tpu_torch.serve.app\n"
@@ -329,6 +330,9 @@ def test_port_imports_no_jax():
         "import image_segmentation_tpu_torch.train.feature_cache\n"
         "import image_segmentation_tpu_torch.data.prompts\n"
         "import image_segmentation_tpu_torch.utils.convert_clip_weights\n"
+        "from image_segmentation_tpu_torch.data import native_pipeline\n"
+        "from image_segmentation_tpu_torch.ops import native, native_codec\n"
+        "native.available(), native_codec.available()\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
