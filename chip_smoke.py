@@ -129,13 +129,26 @@ Phases (each prints its lines; any failure ends the run non-zero):
      step's thread for comparison) in interleaved rounds over one
      unbroken order (ms, host ms, kernel ms, copy ms, idle share), and
      one step batch's host gather and copy;
- 15. the last line is {"ok": true, "device": {...}}.
+ 15. data parallelism across processes (`phase_data_parallel`), children
+     of this script (`--dp-child`), each with a timeout and its exit code
+     checked: (a) one full-width UNet-64 step (256 px, micro 8 x accum 8,
+     bf16) in 2 ranks sharing the card over gloo against the single-process
+     step from the same weights and batch: the loss, the update's cosine
+     and the running statistics within the step's own bf16 error (phase
+     8's bounds), both ranks' states equal, each step's ms; (b) `run.py
+     --multihost unet_noaug` in 2 ranks at full width, 2 epochs: each
+     rank's K1 launches 9 per eval batch, histories and confusions equal
+     across ranks, rank 1 writes nothing; (c) `clipunet` in line (ViT-B/16,
+     224 px) under `--multihost`, 1 rank over NCCL (run beside (b)), then 2
+     ranks over gloo: K3/K4 12 launches per micro-batch forward and per
+     eval batch on each rank;
+ 16. the last line is {"ok": true, "device": {...}}.
 
 Phase 3 also prints each kernel's host dispatch at one request's shape
 through its wrapper's direct path and through its torch op (the path of
-an exported program). The launch counts of phases 4-14 are each set to 0
-just before the path is driven and read just after; the kernels line
-sums them.
+an exported program). The launch counts of phases 4-15 are each set to 0
+just before the path is driven and read just after (in each child
+process for phase 15); the kernels line sums them.
 
 Run from the repository root: python3 chip_smoke.py (no arguments).
 """
@@ -866,7 +879,11 @@ def _zero(K) -> None:
 
 def _add(launches: dict, K) -> None:
     """Add the counts of the path just driven to the totals."""
-    for name, n in zip(KERNEL_NAMES, _counts(K)):
+    _add_counts(launches, _counts(K))
+
+
+def _add_counts(launches: dict, counts) -> None:
+    for name, n in zip(KERNEL_NAMES, counts):
         launches[name] += n
 
 
@@ -2472,6 +2489,298 @@ def phase_host_data(K, launches: dict, card: str, tmp: str) -> None:
           f"({card})")
 
 
+# ---- phase 15: data parallelism across processes ------------------------
+
+DP_CHILD_TIMEOUT_S = 300
+# the fit-history keys every process must hold alike (each keeps its own clock)
+DP_HISTORY = ("train_loss", "val_loss", "val_dice", "val_iou", "val_acc", "val_per_class_iou")
+
+
+def _dp_start(task: str, world: int, tmp: str, spec: dict) -> list:
+    """Start `world` processes of this script (`--dp-child`) running `task`
+    in one group on a file:// store under `tmp`."""
+    import os
+
+    store = f"file://{tmp}/store.{task}.{world}.{time.monotonic_ns()}"
+    procs = []
+    for r in range(world):
+        out = os.path.join(tmp, f"{task}.{world}.{r}.{time.monotonic_ns()}.json")
+        child = dict(spec, task=task, rank=r, world=world, store=store, out=out)
+        log = open(out + ".log", "w")
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-child",
+                                        json.dumps(child)], stdout=log,
+                                       stderr=subprocess.STDOUT, text=True), out, log))
+    return procs
+
+
+def _dp_wait(procs: list) -> list:
+    """Each child's result and log, once all have exited 0 within
+    DP_CHILD_TIMEOUT_S (a child past it is killed and fails the phase)."""
+    deadline = time.monotonic() + DP_CHILD_TIMEOUT_S
+    try:
+        for p, _, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, _, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    results = []
+    for r, (p, out, _) in enumerate(procs):
+        with open(out + ".log") as f:
+            text = f.read()
+        if p.returncode != 0:
+            raise AssertionError(f"data-parallel child {r} exited {p.returncode}:\n"
+                                 f"{text[-4000:]}")
+        with open(out) as f:
+            results.append(dict(json.load(f), log=text))
+    return results
+
+
+def _dp_child_step(spec: dict) -> dict:
+    """(a), one rank: the full-width step on this rank's rows, from the
+    shared init and batch; its state after step 1; two more steps timed."""
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.parallel.mesh import get_mesh
+    from image_segmentation_tpu_torch.parallel.multihost import initialize_multihost
+    from image_segmentation_tpu_torch.train.state import TrainState
+    from image_segmentation_tpu_torch.train.steps import local_step_rows, train_step
+
+    backend = initialize_multihost(spec["store"], spec["world"], spec["rank"], "cuda")
+    axis = get_mesh("cuda")
+    cfg = C.UNET_NOAUG
+    shared = torch.load(spec["inputs"])
+    model = C.build_model(cfg, axis.device, torch.Generator().manual_seed(0))
+    model.load_state_dict(shared["init"])
+    st = TrainState(model, *C.build_optimizer(cfg, model))
+    rows = torch.from_numpy(local_step_rows(len(shared["x"]), cfg.accum_steps, axis))
+    x, y = shared["x"][rows].to(axis.device), shared["y"][rows].to(axis.device)
+    loss_fn = C.build_loss(cfg)
+    loss = float(train_step(st, loss_fn, x, y, cfg.accum_steps))
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, spec["out"] + ".pt")
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        train_step(st, loss_fn, x, y, cfg.accum_steps)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    import torch.distributed as dist
+
+    # what the step's collectives cost on their own: the one flat gradient
+    # all-reduce, and a BN-sized one (its f64 channel sums), 50 times
+    flat = torch.zeros(sum(p.numel() for p in model.parameters()), device=axis.device)
+    small = torch.zeros(65, dtype=torch.float64, device=axis.device)
+    coll_ms = {}
+    for name, t, n in (("gradients", flat, 3), ("bn_sums", small, 50)):
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            dist.all_reduce(t)
+        torch.cuda.synchronize()
+        coll_ms[name] = (time.perf_counter() - t0) * 1e3 / n
+    dist.destroy_process_group()
+    return {"loss": loss, "ms": ms, "backend": backend, "collective_ms": coll_ms,
+            "grad_bytes": flat.numel() * 4}
+
+
+def _dp_child_run(spec: dict, K) -> dict:
+    """(b), (c), one rank: `run.main --multihost` with the counts zeroed just
+    before and read just after; the files it wrote and the confusions it
+    accumulated."""
+    from image_segmentation_tpu_torch import run as R
+    from image_segmentation_tpu_torch.metrics import MetricsHistory
+    from image_segmentation_tpu_torch.train import checkpoint as ckpt
+    from image_segmentation_tpu_torch.train import loop
+
+    writes, confusions = [], []
+    write, params_only, history = ckpt._write, ckpt.save_params_only, loop._save_history
+    accumulate = MetricsHistory.accumulate_confusion
+    ckpt._write = lambda path, *a: (writes.append(path), write(path, *a))
+    ckpt.save_params_only = lambda path, *a: (writes.append(path), params_only(path, *a))
+    loop._save_history = lambda d, n, h: (writes.append("history"), history(d, n, h))
+
+    def record(self, conf):
+        confusions.append(torch.as_tensor(conf).cpu().tolist())
+        return accumulate(self, conf)
+
+    MetricsHistory.accumulate_confusion = record
+    argv = spec["argv"] + ["--multihost", "--coordinator", spec["store"], "--num-processes",
+                           str(spec["world"]), "--process-id", str(spec["rank"])]
+    _zero(K)
+    t0 = time.time()
+    res = R.main(argv)
+    counts = _counts(K)
+    return {"counts": counts, "seconds": time.time() - t0, "writes": writes,
+            "confusions": confusions,
+            "history": {k: np.asarray(res.history[k]).tolist() for k in DP_HISTORY}}
+
+
+def dp_child(spec: dict) -> int:
+    """A child process of phase 15 (`python3 chip_smoke.py --dp-child SPEC`)."""
+    from image_segmentation_tpu_torch.ops.kernels import _build
+    from image_segmentation_tpu_torch.ops.kernels import attention as A
+    from image_segmentation_tpu_torch.ops.kernels import double_conv as D
+    from image_segmentation_tpu_torch.ops.kernels import mlp as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()
+    result = (_dp_child_step(spec) if spec["task"] == "step"
+              else _dp_child_run(spec, (A, M, D)))
+    with open(spec["out"], "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def _backend_line(log: str) -> str:
+    return next(l for l in log.splitlines() if l.startswith("[run] multihost:"))
+
+
+def _update(before: dict, after: dict) -> torch.Tensor:
+    """The step's change of every parameter but the BN-fed conv biases, flat."""
+    return torch.cat([(after[k].double() - before[k].double()).flatten() for k in before
+                      if "running" not in k and not k.endswith(BN_FED_BIAS)
+                      and after[k].is_floating_point()])
+
+
+def phase_data_parallel(K, launches: dict, card: str, tmp: str) -> None:
+    """Data parallelism across processes on the one card (module docstring,
+    phase 15): (a) one full-width step in 2 ranks sharing the card against
+    the single-process step; (b) `run.py --multihost unet_noaug` in 2
+    ranks; (c) `clipunet` in line under `--multihost`, 1 rank over NCCL,
+    then 2 ranks over gloo."""
+    import os
+
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.train.state import TrainState
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    # (a) one step: UNet base 64, 256 px, batch 64 = micro 8 x accum 8, bf16
+    cfg = C.UNET_NOAUG
+    model = C.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
+    _perturb_batchnorm_(model, 2)
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    x, y = _full_batch(cfg.batch_size * cfg.accum_steps, seed=3)
+    loss_fn = C.build_loss(cfg)
+    after, losses = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        m = C.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
+        m.load_state_dict(init)
+        m.dtype = dtype
+        st = TrainState(m, *C.build_optimizer(cfg, m))
+        losses[dtype] = float(train_step(st, loss_fn, x, y, cfg.accum_steps))
+        after[dtype] = {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+    one_ms = []
+    for _ in range(2):  # the bf16 state's next steps, timed as the children time theirs
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        train_step(st, loss_fn, x, y, cfg.accum_steps)
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t) * 1e3)
+    del m, st, model
+    # the ranks start once this process is done with the card
+    inputs = os.path.join(tmp, "dp_inputs.pt")
+    torch.save({"init": init, "x": x.cpu(), "y": y.cpu()}, inputs)
+    procs = _dp_start("step", 2, tmp, {"inputs": inputs})
+    res = _dp_wait(procs)
+    dp = [torch.load(p[1] + ".pt") for p in procs]
+    if not all(torch.equal(dp[0][k], dp[1][k]) for k in dp[0]):
+        raise AssertionError("the two ranks' states differ after the step")
+    bf16, f32 = after[torch.bfloat16], after[torch.float32]
+    d_dp, d_bf16, d_f32 = (_update(init, s) for s in (dp[0], bf16, f32))
+    cos_dp, cos_own = _cosine(d_dp, d_bf16), _cosine(d_bf16, d_f32)
+    cos_params = _cosine(torch.cat([dp[0][k].double().flatten() for k in init
+                                    if dp[0][k].is_floating_point()]),
+                         torch.cat([bf16[k].double().flatten() for k in init
+                                    if bf16[k].is_floating_point()]))
+    loss_rel = abs(res[0]["loss"] - losses[torch.bfloat16]) / abs(losses[torch.bfloat16])
+    own_rel = abs(losses[torch.bfloat16] - losses[torch.float32]) / abs(losses[torch.float32])
+    stat_err = max(float((dp[0][k] - v).abs().max() / max(1.0, float(v.abs().max())))
+                   for k, v in bf16.items() if "running" in k)
+    print(f"[dp] (a) one step, UNet base 64, 256 px, batch 64 (micro 8 x accum 8), bf16, 2 "
+          f"ranks sharing the card ({res[0]['backend']}) against one process: loss "
+          f"{res[0]['loss']:.6f} / {res[1]['loss']:.6f} vs {losses[torch.bfloat16]:.6f} (rel "
+          f"{loss_rel:.2e}; the single step's bf16 vs f32: {own_rel:.2e}); parameters' cosine "
+          f"after the step {cos_params:.9f}; the step's update cosine {cos_dp:.6f} (bf16 vs f32 "
+          f"in one process: {cos_own:.6f}); running statistics max scaled diff {stat_err:.3e}")
+    print(f"[dp] (a) step ms (perf_counter around a synchronised step, steps 2 and 3): one "
+          f"process {[round(t, 3) for t in one_ms]}, 2 ranks sharing the card "
+          f"{[[round(t, 3) for t in r['ms']] for r in res]} ({card}); two ranks on one card "
+          f"time the code path, not scaling")
+    print(f"[dp] (a) one gloo all-reduce of CUDA tensors between the 2 ranks: the flat "
+          f"gradients ({res[0]['grad_bytes']} bytes) {res[0]['collective_ms']['gradients']:.3f} "
+          f"ms, a BN layer's f64 sums (65 values) {res[0]['collective_ms']['bn_sums']:.3f} ms; "
+          f"a step makes 1 of the first and 18 x 2 x 2 x 8 = 576 of the second (18 BN layers, "
+          f"2 sums each, forward and backward, 8 micro-batches) ({card})")
+    # bounds from the step's own bf16 error, as phase 8 states them: the loss
+    # within BF16_LOSS_RTOL, the statistics within BF16_STAT_TOL, and the
+    # update no farther from the single bf16 step's than the single bf16
+    # step's is from f32's (1 - cosine), times BF16_GRAD_RATIO
+    if not (loss_rel <= BF16_LOSS_RTOL and stat_err <= BF16_STAT_TOL
+            and 1 - cos_dp <= BF16_GRAD_RATIO * (1 - cos_own)
+            and res[0]["loss"] == res[1]["loss"]):
+        raise AssertionError(f"the 2-rank step disagrees with one process's beyond bf16's own "
+                             f"reach: loss {loss_rel}, stats {stat_err}, update cosine "
+                             f"{cos_dp} vs {cos_own}")
+
+    # (b) run.py --multihost unet_noaug, 2 ranks, 2 epochs, and (c) clipunet in
+    # line under --multihost in a world of one over NCCL, side by side
+    n_train = 64
+    n_val = n_train // 4
+    per_rank = 9 * _eval_batches(n_val, cfg.seed + 1, cfg.batch_size) * 2
+    unet = _dp_start("run", 2, tmp, {"argv": [
+        "--config", "unet_noaug", "--synthetic", str(n_train), "--epochs", "2", "--save-dir",
+        os.path.join(tmp, "dp_unet"), "--device", "cuda"]})
+    clip_argv = ["--config", "clipunet", "--synthetic", "16", "--epochs", "1", "--device", "cuda"]
+    nccl = _dp_start("run", 1, tmp, {"argv": clip_argv + ["--save-dir",
+                                                           os.path.join(tmp, "dp_clip1")]})
+    res, (one,) = _dp_wait(unet), _dp_wait(nccl)
+    for r, rr in enumerate(res):
+        print(f"[dp] (b) rank {r}: {_backend_line(rr['log'])}; {rr['seconds']:.1f} s; "
+              f"launches {rr['counts']}, want (0, 0, {per_rank}); train loss "
+              f"{rr['history']['train_loss']}, val mIoU {rr['history']['val_iou']}; files "
+              f"written {len(rr['writes'])} ({card})")
+        _add_counts(launches, rr["counts"])
+    same = all(res[1]["history"][k] == res[0]["history"][k] for k in DP_HISTORY)
+    if (any(tuple(r["counts"]) != (0, 0, per_rank) for r in res) or not same
+            or res[0]["confusions"] != res[1]["confusions"] or len(res[0]["confusions"]) != 2
+            or res[1]["writes"] or "history" not in res[0]["writes"]
+            or "gloo" not in _backend_line(res[0]["log"])
+            or any(f"Epoch {e}/2" in res[1]["log"] for e in (1, 2))
+            or not all(os.path.isdir(os.path.join(tmp, "dp_unet", d))
+                       for d in ("unet_noaug", "unet_noaug_last", "MO_unet_noaug"))):
+        raise AssertionError("the 2-rank unet_noaug run: launches, histories, confusions, "
+                             "writes or files are not as they should be")
+    # clipunet: 16 train (micro 8 x accum 2, one step an epoch) and 4 val
+    # images; each rank forwards the ViT once per micro-batch and once per
+    # eval batch, 12 K3 and 12 K4 launches each time
+    n_vit = 12 * (2 + _eval_batches(4, C.CLIPUNET.seed + 1, 8))
+    print(f"[dp] (c) clipunet in line, 1 rank: {_backend_line(one['log'])}; "
+          f"{one['seconds']:.1f} s; launches {one['counts']}, want ({n_vit}, {n_vit}, 0); train "
+          f"loss {one['history']['train_loss']} ({card})")
+    _add_counts(launches, one["counts"])
+    if tuple(one["counts"]) != (n_vit, n_vit, 0) or "nccl" not in _backend_line(one["log"]):
+        raise AssertionError(f"clipunet in one NCCL rank: {one['counts']}")
+    two = _dp_wait(_dp_start("run", 2, tmp, {"argv": clip_argv + [
+        "--save-dir", os.path.join(tmp, "dp_clip2")]}))
+    for r, rr in enumerate(two):
+        print(f"[dp] (c) clipunet in line, rank {r} of 2: {_backend_line(rr['log'])}; "
+              f"{rr['seconds']:.1f} s; launches {rr['counts']}; train loss "
+              f"{rr['history']['train_loss']}")
+        _add_counts(launches, rr["counts"])
+    rel = abs(two[0]["history"]["train_loss"][0] - one["history"]["train_loss"][0]) / abs(
+        one["history"]["train_loss"][0])
+    if (any(tuple(r["counts"]) != (n_vit, n_vit, 0) for r in two)
+            or two[0]["history"] != two[1]["history"] or rel > BF16_LOSS_RTOL):
+        raise AssertionError(f"clipunet in 2 gloo ranks: launches "
+                             f"{[r['counts'] for r in two]}, loss rel {rel} to one rank")
+
+
 def _header_version(header: str) -> str:
     """The library version a header declares (PNG_LIBPNG_VER_STRING,
     JPEG_LIB_VERSION), through the preprocessor."""
@@ -2499,6 +2808,8 @@ def print_ptxas_report(log: str) -> None:
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-child":
+        return dp_child(json.loads(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
               file=sys.stderr)
@@ -2559,6 +2870,8 @@ def main() -> int:
         timed(phase_checkpoints, K, launches, card, models_dir, tmp)
         torch.cuda.empty_cache()
         timed(phase_host_data, K, launches, card, tmp)
+        torch.cuda.empty_cache()
+        timed(phase_data_parallel, K, launches, card, tmp)
     print(f"[done] every phase passed in {time.time() - start:.1f} s from the build on")
 
     sources = {"fused_attention": ("attention.cu", "image_segmentation_tpu/ops/pallas/attention.py:99"),

@@ -5,7 +5,9 @@ replicating WeightedDiceCELoss and WeightedDiceNLLLoss (reference
 utils/weighted_loss.py:102-166, :268-343): both pass `ignore_index` and
 `class_weights` to each component. Frozen dataclasses that are plain
 callables on torch tensors, hashable so that a configuration can key a
-cache (train.fast_eval dispatches on their type).
+cache (train.fast_eval dispatches on their type). Inside a process group
+each component is the global batch's (its sums are all-reduced), so both
+combinations are too.
 """
 from __future__ import annotations
 

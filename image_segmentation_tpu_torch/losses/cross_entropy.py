@@ -7,7 +7,10 @@ Counterpart of image_segmentation_tpu/losses/cross_entropy.py (:22-75):
 over pixels i with y_i != ignore_index: a weighted mean whose denominator
 is the sum of the pixels' weights (reference utils/weighted_loss.py:
 132-138). The class select and the weight lookup are one-hot
-contractions, as in the JAX package. Math in float32; logits (..., C),
+contractions, as in the JAX package. Inside a process group of more
+than one process (parallel/mesh.py) the numerator and the denominator are
+each summed over the processes before the division: the global batch's
+weighted mean on every process. Math in float32; logits (..., C),
 integer targets (...).
 """
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from image_segmentation_tpu_torch.losses.dice import class_vector, one_hot
+from image_segmentation_tpu_torch.parallel.mesh import global_sums
 
 
 def _nll_from_logp(logp, targets, weights, ignore_index, num_classes):
@@ -32,7 +36,8 @@ def _nll_from_logp(logp, targets, weights, ignore_index, num_classes):
         pix_w = (onehot * w).sum(-1) * valid
     else:
         pix_w = valid
-    return (pix * pix_w).sum() / torch.clamp(pix_w.sum(), min=1e-12)
+    num, den = global_sums((pix * pix_w).sum(), pix_w.sum())
+    return num / torch.clamp(den, min=1e-12)
 
 
 def cross_entropy_loss(

@@ -7,6 +7,11 @@ Dice), dice_c = (2·I_c + smooth) / max(P_c + G_c + smooth, 1e-8);
 `ignore_index` drops that CLASS from the mean (it masks no pixels); an
 optional class-weighted mean; returns −dice.
 
+Inside a process group of more than one process (parallel/mesh.py) the
+three per-class sums are summed over the processes before the division,
+so every process holds the Dice of the global batch, as JAX's loss over
+a mesh is.
+
 Math in float32 whatever the logits' dtype. Layout: logits (N, H, W, C),
 targets (N, H, W) integer; a target outside [0, C) one-hots to zeros, as
 jax.nn.one_hot does.
@@ -17,6 +22,8 @@ import functools
 from typing import Optional, Sequence
 
 import torch
+
+from image_segmentation_tpu_torch.parallel.mesh import global_sums
 
 
 def one_hot(targets: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -61,6 +68,7 @@ def soft_dice_loss(
     intersect = (probs * onehot).sum(dims)
     sum_pred = probs.sum(dims)
     sum_gt = onehot.sum(dims)
+    intersect, sum_pred, sum_gt = global_sums(intersect, sum_pred, sum_gt)
     dc = (2.0 * intersect + smooth) / torch.clamp(sum_pred + sum_gt + smooth, min=1e-8)
 
     w = keep_vector(num_classes, ignore_index, class_weights, logits.device)

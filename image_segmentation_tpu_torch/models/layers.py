@@ -11,7 +11,15 @@ eval mode it normalises with the running statistics; in train mode with
 the batch's mean and biased variance, computed in f32, and it updates
 the running statistics as `ra = 0.9·ra + 0.1·batch` with the biased
 variance (torch's own BatchNorm2d would use the unbiased one). The
-normalisation is in f32 either way. Initialisers match
+normalisation is in f32 either way. Inside a process group of more than
+one process (parallel/mesh.py), train mode takes the statistics of the
+global batch, as JAX's do under a mesh (its models/layers.py:12-15): each
+channel's count and sum are summed over the processes, then the squared
+deviations from that global mean (two passes, as a single process's
+batch norm is exact in the deviations), and the running update uses the
+global mean and biased variance. The sums go through a differentiable
+all-reduce, so the backward is the single-process one (the derivation is
+in parallel/mesh.py). Initialisers match
 the JAX package's distributions (not its random bits): decoder convs
 are Kaiming-uniform over fan_in (`conv_kernel_init`), dense kernels are
 LeCun-normal (flax's default).
@@ -23,6 +31,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from image_segmentation_tpu_torch.parallel.mesh import all_reduce_sum, world_size
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax's: the weight of the old running statistic
@@ -53,6 +63,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and world_size() > 1:
+            return self._global_batch_norm(x)
         if self.training:
             # one fused pass: normalise with the batch statistics (f32
             # accumulation, output in x's dtype) and return the f32 mean and
@@ -68,6 +80,24 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
         y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(x.dtype)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the processes' batches together. The local sums
+        are f32; the (C,)-sized sums over processes are f64, so the count
+        stays exact whatever the global batch."""
+        shape, dims = (1, -1, 1, 1), (0, 2, 3)
+        xf = x.float()
+        count = torch.full((1,), xf.numel() // xf.shape[1], dtype=torch.float64,
+                           device=x.device)
+        s = all_reduce_sum(torch.cat([xf.sum(dims).double(), count]))
+        mean = (s[:-1] / s[-1]).float()
+        d = xf - mean.view(shape)
+        var = (all_reduce_sum((d * d).sum(dims).double()) / s[-1]).float()
+        y = d * (torch.rsqrt(var + BN_EPS) * self.weight).view(shape) + self.bias.view(shape)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
+            self.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+        return y.to(x.dtype)
 
 
 class ConvBNRelu(nn.Module):

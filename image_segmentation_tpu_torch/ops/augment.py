@@ -39,8 +39,9 @@ import ctypes
 import ctypes.util
 import functools
 import math
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -289,11 +290,23 @@ def apply_augment_batch(images: torch.Tensor, labels: torch.Tensor,
 
 
 def random_augment_batch(images: torch.Tensor, labels: torch.Tensor,
-                         generator: torch.Generator, p_augment: float = 0.5
+                         generator: torch.Generator, p_augment: float = 0.5,
+                         rows: Optional[np.ndarray] = None, total: Optional[int] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One augmenter chosen uniformly per sample, or the identity with
     probability 1 − p_augment (JAX `random_augment_batch` :229): draws
-    from `generator` (a CPU generator), then `apply_augment_batch`."""
+    from `generator` (a CPU generator), then `apply_augment_batch`.
+
+    With `rows` and `total`, `images` and `labels` are those rows of a
+    batch of `total` rows (a process's share of a step batch): the draws
+    are made for all `total` rows, as one process holding the batch would
+    make them, and each row gets its own (every augmenter acts on each row
+    alone, so the rows come out as that process's would)."""
     n, size, _, channels = images.shape
-    params = draw_augment_params(n, size, generator, images.device, p_augment, channels)
+    params = draw_augment_params(n if total is None else total, size, generator,
+                                 images.device, p_augment, channels)
+    if rows is not None:
+        host = torch.as_tensor(rows, dtype=torch.long)
+        params = AugmentParams(params.sel[host], params.use[host],
+                               *params.take(host.to(images.device))[2:])
     return apply_augment_batch(images, labels, params)

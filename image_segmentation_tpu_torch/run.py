@@ -1,4 +1,5 @@
-"""Experiment runner CLI: train or evaluate a config on one device.
+"""Experiment runner CLI: train or evaluate a config on one device, or
+train it across processes (`--multihost`).
 
 Counterpart of image_segmentation_tpu/run.py (the reference notebooks'
 cell-0 "main": datasets, model, loss, AdamW, accumulation, start()).
@@ -54,6 +55,30 @@ seeded `seed`, val `seed + 1`), Dice + NLL on probabilities.
 `--smoke-vit` shrinks the ViT to JAX's smoke geometry (hidden 64, 4
 layers, 4 heads, MLP 128) for the CPU; its head dim 16 is not one K3
 takes, so it refuses `--device cuda`.
+
+Data parallelism across processes (JAX run.py:148-158, :623-690):
+`--multihost` brings up a torch.distributed group, one process per
+device, and trains with `train.multihost_loop.fit_multihost`. Launch one
+identical command per process:
+
+  for r in 0 1; do python -m image_segmentation_tpu_torch.run --config unet_noaug \
+      --synthetic 16 --device cpu --multihost --coordinator 127.0.0.1:29500 \
+      --num-processes 2 --process-id $r & done; wait
+
+(or under torchrun, which sets the group's environment). The backend is
+gloo on the CPU, NCCL when each process of a host has a card of its own,
+and gloo when processes share a card; every process prints it first.
+Process 0 alone prints the epoch lines and writes the checkpoints, the
+metrics file, the TensorBoard events and the trace. As in JAX, `--evaluate`,
+`recon_ae`, `--cache-features` and `--eval-protocol host` are refused
+under `--multihost`; unlike JAX, `--early-stop-patience` is honoured
+there. A process of the port drives one device, so `--max-devices`
+(JAX's cap on the devices of one process's mesh) takes 0 or 1.
+`--platform cpu|gpu|cuda` is JAX's name for `--device`.
+`--tensorboard DIR` writes per-epoch scalars under DIR/<config name>
+(needs tensorboardX), `--profile-dir DIR` a torch.profiler trace of the
+fit, and `--nan-checks` raises at the first non-finite loss or gradient
+of a train step.
 """
 from __future__ import annotations
 
@@ -68,8 +93,8 @@ import torch
 TRAINED = ("unet_noaug", "unet_aug", "recon_ae", "autoencoder", "clipunet",
            "clipunet_noskips", "prompt")
 CLIP_CONFIGS = ("clipunet", "clipunet_noskips", "prompt")
-# flags of JAX run.py paths the port does not have yet
-REFUSED_FLAGS = ("multihost", "tensorboard", "profile_dir")
+# JAX's --platform values and the device each names
+PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
 
 def _synthetic_items(n: int, seed: int = 0):
@@ -124,8 +149,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--split", default="Test",
                    help="split for --evaluate; with --synthetic, 'Val' is the set fit "
                         "validated on and anything else a held-out synthetic set")
-    p.add_argument("--device", default="cuda",
+    p.add_argument("--device", default=None,
                    help="torch device (default cuda; cpu runs the plain versions)")
+    p.add_argument("--platform", default=None,
+                   help="JAX's platform flag, mapped onto --device: cpu, or gpu/cuda")
     p.add_argument("--augment", default=None, choices=["on", "off"],
                    help="override the config's augmentation flag")
     p.add_argument("--offline-aug", action="store_true",
@@ -148,9 +175,24 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--smoke-vit", action="store_true",
                    help="CLIP configs: JAX's smoke ViT (hidden 64, 4 layers, 4 heads, "
                         "MLP 128) and a narrow decoder, for the CPU")
-    for flag in REFUSED_FLAGS:
-        p.add_argument("--" + flag.replace("_", "-"), default=None, nargs="?",
-                       const=True, help="not ported yet (refused)")
+    p.add_argument("--tensorboard", default=None, metavar="DIR",
+                   help="per-epoch TensorBoard scalars under DIR/<config name> (needs "
+                        "tensorboardX); process 0 only under --multihost")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="a torch.profiler trace of the fit under DIR; process 0 only "
+                        "under --multihost")
+    p.add_argument("--nan-checks", action="store_true",
+                   help="raise at the first non-finite loss or gradient of a train step")
+    p.add_argument("--max-devices", type=int, default=0,
+                   help="JAX's cap on one process's data-parallel devices; a process of "
+                        "the port drives one device, so 0 or 1 (use --multihost for more)")
+    p.add_argument("--multihost", action="store_true",
+                   help="train across processes, one device each (fit_multihost); launch "
+                        "one identical command per process")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="--multihost: process 0's store (or a tcp:// or file:// URL)")
+    p.add_argument("--num-processes", type=int, default=0)
+    p.add_argument("--process-id", type=int, default=-1)
     return p
 
 
@@ -163,15 +205,62 @@ def _check_checkpoint(flag: str, path: str) -> None:
                          f"{ckpt.WEIGHTS_FILE} or {ckpt.STATE_FILE} there)")
 
 
+def _device_arg(args) -> str:
+    """--device, or the device --platform names (JAX run.py:144)."""
+    if args.platform is None:
+        return args.device or "cuda"
+    if args.platform not in PLATFORMS:
+        raise SystemExit(f"--platform {args.platform}: the port runs on cpu or gpu/cuda; "
+                         f"pick the torch device with --device")
+    if args.device is not None and torch.device(args.device).type != PLATFORMS[args.platform]:
+        raise SystemExit(f"--platform {args.platform} and --device {args.device} disagree")
+    return args.device or PLATFORMS[args.platform]
+
+
+def _multihost_refusals(args, cfg) -> None:
+    """JAX's refusals under --multihost (run.py:229-236, :551-555, :649-659)."""
+    if args.evaluate is not None or cfg.model == "recon":
+        raise SystemExit("[run] --evaluate and recon configs are single-process; drop "
+                         "--multihost (multi-process covers the fit pipelines)")
+    blockers = (["--cache-features"] if args.cache_features else []) + (
+        ["--eval-protocol host"] if args.eval_protocol != "device" else [])
+    if blockers:
+        raise SystemExit("[run] not supported with --multihost: " + "; ".join(blockers))
+
+
+def _bring_up(args, device: torch.device):
+    """The process group of --multihost and this process's data axis."""
+    import torch.distributed as dist
+
+    from image_segmentation_tpu_torch.parallel.mesh import get_mesh, init_distributed
+    from image_segmentation_tpu_torch.parallel.multihost import initialize_multihost
+
+    if args.coordinator:
+        if args.num_processes < 1 or args.process_id < 0:
+            raise SystemExit("--coordinator needs --num-processes and --process-id")
+        initialize_multihost(args.coordinator, args.num_processes, args.process_id,
+                             device.type)
+    elif not init_distributed(device.type):
+        raise SystemExit("--multihost needs --coordinator HOST:PORT, --num-processes and "
+                         "--process-id (or a launcher's MASTER_ADDR, WORLD_SIZE and RANK)")
+    axis = get_mesh(device.type)
+    print(f"[run] multihost: process {axis.rank}/{axis.size}, backend "
+          f"{dist.get_backend()}, device {axis.device}", flush=True)
+    return axis
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
-    refused = [f for f in REFUSED_FLAGS if getattr(args, f) is not None]
-    if refused:
-        raise SystemExit("not ported yet, refused: " + ", ".join(
-            "--" + f.replace("_", "-") for f in refused))
     if args.config not in TRAINED:
         raise SystemExit(f"unknown config {args.config!r}; have {list(TRAINED)}")
-    device = torch.device(args.device)
+    device = torch.device(_device_arg(args))
+    if args.max_devices > 1:
+        raise SystemExit(f"--max-devices {args.max_devices}: a process of the port drives "
+                         f"one device; run {args.max_devices} processes with --multihost")
+    from image_segmentation_tpu_torch import config as C
+
+    if args.multihost:
+        _multihost_refusals(args, C.CONFIGS[args.config])
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available "
                          f"(pass --device cpu to run on the CPU)")
@@ -185,7 +274,19 @@ def main(argv=None):
             _check_checkpoint("--" + flag.replace("_", "-"), getattr(args, flag))
     if args.clip_weights is not None and not os.path.isfile(args.clip_weights):
         raise SystemExit(f"--clip-weights {args.clip_weights}: no such file")
+    axis = _bring_up(args, device) if args.multihost else None
+    if axis is not None:
+        device = axis.device
+    try:
+        return _main(args, device, axis)
+    finally:
+        if axis is not None:
+            import torch.distributed as dist
 
+            dist.destroy_process_group()
+
+
+def _main(args, device: torch.device, axis):
     from image_segmentation_tpu_torch import config as C
     from image_segmentation_tpu_torch.data.dataset import ArrayDataset, SegmentationDataset
     from image_segmentation_tpu_torch.data.labels import target_remap
@@ -201,6 +302,10 @@ def main(argv=None):
     if args.offline_aug:
         overrides["augment_online"] = False
     cfg = dataclasses.replace(cfg, **overrides)
+    if args.nan_checks:
+        from image_segmentation_tpu_torch.utils.profiling import enable_nan_checks
+
+        enable_nan_checks()
     print(f"[run] config={cfg.name} device={device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
 
@@ -243,7 +348,15 @@ def main(argv=None):
                           **(_smoke_vit_overrides(cfg) if args.smoke_vit else {}))
     if cfg.model == "recon":
         return _run_reconstruction(args, cfg, model, device, train_data, val_data, val_raw)
-    return _run_segmentation(args, cfg, model, device, train_data, val_data, len(val_raw))
+    return _run_segmentation(args, cfg, model, device, train_data, val_data, len(val_raw),
+                             axis)
+
+
+def _tb_logger(args, cfg):
+    """--tensorboard DIR: a TensorBoardLogger at DIR/<config name>, else None."""
+    from image_segmentation_tpu_torch.utils.tb import maybe_logger
+
+    return maybe_logger(args.tensorboard and os.path.join(args.tensorboard, cfg.name))
 
 
 def _smoke_vit_overrides(cfg) -> dict:
@@ -273,6 +386,7 @@ def _run_reconstruction(args, cfg, model, device, train_data, val_data, val_raw)
         fit_reconstruction,
     )
     from image_segmentation_tpu_torch.train.state import TrainState, make_adamw
+    from image_segmentation_tpu_torch.utils.profiling import trace_context
 
     originals = [np.asarray(val_raw[i][0]) for i in range(len(val_raw))]
     if args.evaluate is not None:
@@ -285,20 +399,29 @@ def _run_reconstruction(args, cfg, model, device, train_data, val_data, val_raw)
     # the reference's stage 1 is Adam with no weight decay, lr 1e-3
     opt, _ = make_adamw(model.parameters(), learning_rate=cfg.learning_rate, weight_decay=0.0)
     accum = max(1, min(cfg.accum_steps, len(train_data) // cfg.batch_size))
-    result = fit_reconstruction(
-        TrainState(model, opt), train_data, val_data, originals=originals, epochs=cfg.epochs,
-        batch_size=cfg.batch_size * accum, accum_steps=accum, save_dir=args.save_dir,
-        name=cfg.name, resume=args.resume, seed=cfg.seed)
+    tb = _tb_logger(args, cfg)
+    try:
+        with trace_context(args.profile_dir):
+            result = fit_reconstruction(
+                TrainState(model, opt), train_data, val_data, originals=originals,
+                epochs=cfg.epochs, batch_size=cfg.batch_size * accum, accum_steps=accum,
+                save_dir=args.save_dir, name=cfg.name, resume=args.resume, seed=cfg.seed,
+                metrics_logger=tb)
+    finally:
+        if tb is not None:
+            tb.close()
     print(f"[run] done: best {result.best}")
     return result
 
 
-def _run_segmentation(args, cfg, model, device, train_data, val_data, n_val: int):
+def _run_segmentation(args, cfg, model, device, train_data, val_data, n_val: int, axis=None):
     from image_segmentation_tpu_torch import config as C
     from image_segmentation_tpu_torch.losses.host import dice_ce_loss_np, dice_nll_loss_np
     from image_segmentation_tpu_torch.train import checkpoint as ckpt
     from image_segmentation_tpu_torch.train.loop import evaluate, fit
+    from image_segmentation_tpu_torch.train.multihost_loop import fit_multihost
     from image_segmentation_tpu_torch.train.state import TrainState, freeze_
+    from image_segmentation_tpu_torch.utils.profiling import trace_context
 
     loss_fn = C.build_loss(cfg)
     val_loss_fn = C.build_val_loss(cfg)
@@ -370,16 +493,27 @@ def _run_segmentation(args, cfg, model, device, train_data, val_data, n_val: int
             print(f"[run] --cache-features ignored: it needs the clipunet config with a "
                   f"frozen encoder and no online augmentation (config {cfg.name}, "
                   f"online augmentation {augment_fn is not None})")
-    result = fit(
-        state, train_data, val_data, loss_fn=loss_fn, epochs=cfg.epochs,
-        batch_size=micro * accum, accum_steps=accum, save_dir=args.save_dir,
-        name=cfg.name, host_loss_fn=host_loss, num_classes=cfg.num_classes,
-        eval_ignore_index=cfg.eval_ignore_index, eval_batch_size=cfg.batch_size,
-        resume=args.resume, seed=cfg.seed, eval_protocol=args.eval_protocol,
-        eval_loss_cfg=val_loss_fn, checkpoint_every=args.ckpt_every,
-        early_stop_patience=args.early_stop_patience, augment_fn=augment_fn,
-        eval_state_fn=eval_state_fn)
-    print(f"[run] done: best {result.best}")
+    lead = axis is None or axis.rank == 0
+    kw = dict(loss_fn=loss_fn, epochs=cfg.epochs, batch_size=micro * accum, accum_steps=accum,
+              save_dir=args.save_dir, name=cfg.name, num_classes=cfg.num_classes,
+              eval_ignore_index=cfg.eval_ignore_index, eval_batch_size=cfg.batch_size,
+              resume=args.resume, seed=cfg.seed, eval_loss_cfg=val_loss_fn,
+              checkpoint_every=args.ckpt_every, early_stop_patience=args.early_stop_patience,
+              augment_fn=augment_fn)
+    tb = _tb_logger(args, cfg) if lead else None
+    try:
+        with trace_context(args.profile_dir if lead else None):
+            if axis is not None:
+                result = fit_multihost(state, train_data, val_data, metrics_logger=tb, **kw)
+            else:
+                result = fit(state, train_data, val_data, host_loss_fn=host_loss,
+                             eval_protocol=args.eval_protocol, eval_state_fn=eval_state_fn,
+                             metrics_logger=tb, **kw)
+    finally:
+        if tb is not None:
+            tb.close()
+    if lead:
+        print(f"[run] done: best {result.best}")
     return result
 
 

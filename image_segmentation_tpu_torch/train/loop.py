@@ -43,12 +43,17 @@ default rule; JAX loop.py:222-240): past it the device eval streams each
 batch's inputs, metas and label canvases from the host, and the
 confusion still accumulates on the device.
 
-Not ported: the TPU dispatch chunking (`_dispatch_epoch_chunked`),
-meshes and multihost.
+Across processes, `fit(axis=...)` (given by
+train/multihost_loop.py's `fit_multihost`) steps each process on its
+rows of each step batch, and the device eval (`evaluate(axis=...)`) has
+each process evaluate its columns of every eval batch.
+
+Not ported: the TPU dispatch chunking (`_dispatch_epoch_chunked`).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import signal
@@ -58,6 +63,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from image_segmentation_tpu_torch.data.loader import (
     MaterializedDataset,
@@ -67,6 +73,12 @@ from image_segmentation_tpu_torch.data.loader import (
 from image_segmentation_tpu_torch.losses import DiceCELoss, DiceNLLLoss
 from image_segmentation_tpu_torch.metrics import MetricsHistory
 from image_segmentation_tpu_torch.ops import geometry as G
+from image_segmentation_tpu_torch.parallel.mesh import DataAxis, any_process
+from image_segmentation_tpu_torch.parallel.multihost import (
+    process_local_batch_columns,
+    replicate_for_processes,
+    replicate_result,
+)
 from image_segmentation_tpu_torch.train import checkpoint as ckpt
 from image_segmentation_tpu_torch.train import fast_eval
 from image_segmentation_tpu_torch.train.state import TrainState
@@ -74,6 +86,7 @@ from image_segmentation_tpu_torch.train.steps import (
     ResidentTrainSet,
     StreamedTrainSet,
     eval_forward,
+    local_step_rows,
     resident_plan,
     stream_rows,
     train_step,
@@ -196,12 +209,18 @@ def _bucket_views(val_data: MaterializedDataset):
 
 
 def _eval_one_canvas(model, val_data: MaterializedDataset, *, loss_fn, num_classes: int,
-                     batch_size: int, verbose: bool):
+                     batch_size: int, verbose: bool, axis: Optional[DataAxis] = None):
     """The device protocol over one packed canvas (the whole set or one
     bucket). Within `eval_device_budget` the set goes to the device once
     and each batch is gathered there; past it each batch's inputs, metas
     and label canvases stream from the host (`stream_rows`). Returns
-    (confusion (C, C) int64 tensor, losses (n,) tensor), on the device."""
+    (confusion (C, C) int64 tensor, losses (n,) tensor), on the device.
+
+    Over a data `axis` of W processes (JAX multihost_loop.py
+    `_evaluate_multihost` :64-160) the eval batch is a multiple of W, each
+    process evaluates its block of columns of every batch, and the
+    per-image losses are gathered back into the set's order; the
+    confusion returned is this process's part."""
     device = next(model.parameters()).device
     if val_data.label_canvases is None:
         val_data.label_canvases = fast_eval.pack_label_canvases(val_data.orig_labels)
@@ -209,8 +228,14 @@ def _eval_one_canvas(model, val_data: MaterializedDataset, *, loss_fn, num_class
     inputs = (val_data.images,) + ((val_data.heatmaps,) if val_data.has_heatmaps else ())
     n = len(val_data)
     hc, wc = canvases.shape[1:]
-    while batch_size > 1 and batch_size * hc * wc * (num_classes + 1) * 4 > EVAL_BATCH_BYTES:
-        batch_size //= 2
+    world = 1 if axis is None else axis.size
+    # each process's columns of a batch stay under the buffer limit, and the
+    # batch stays a multiple of the processes (JAX multihost_loop.py:86-92)
+    k = max(1, batch_size // world)
+    while k > 1 and k * hc * wc * (num_classes + 1) * 4 > EVAL_BATCH_BYTES:
+        k //= 2
+    batch_size = k * world
+    cols = np.arange(k) if axis is None else process_local_batch_columns(batch_size, axis)
     starts = range(0, n, batch_size)
     nbytes = sum(x.nbytes for x in inputs) + canvases.nbytes
     budget = eval_device_budget(device)
@@ -222,10 +247,12 @@ def _eval_one_canvas(model, val_data: MaterializedDataset, *, loss_fn, num_class
                 torch.from_numpy(canvases).to(device)))
         dev_inputs, dev_metas, dev_canvases = val_data.device_eval_cache[1]
 
+        dev_cols = torch.from_numpy(cols).to(device)
+
         def batches():
             for start in starts:
                 # the tail batch repeats its last index
-                ii = torch.arange(start, start + batch_size, device=device).clamp(max=n - 1)
+                ii = (dev_cols + start).clamp(max=n - 1)
                 yield (tuple(x.index_select(0, ii) for x in dev_inputs),
                        {k: v.index_select(0, ii) for k, v in dev_metas.items()},
                        dev_canvases.index_select(0, ii))
@@ -236,7 +263,7 @@ def _eval_one_canvas(model, val_data: MaterializedDataset, *, loss_fn, num_class
                   f"{budget / 2**20:.0f} MB device budget; {EVAL_BUDGET_ENV} sets it)")
         fields = [f for f in G.ResizeMeta._fields if f != "scale"]
         arrays = (*inputs, canvases, *(np.asarray(getattr(val_data.metas, f)) for f in fields))
-        rows = (np.minimum(np.arange(start, start + batch_size), n - 1) for start in starts)
+        rows = (np.minimum(cols + start, n - 1) for start in starts)
 
         def batches():
             k = len(inputs)
@@ -245,32 +272,42 @@ def _eval_one_canvas(model, val_data: MaterializedDataset, *, loss_fn, num_class
 
     conf = torch.zeros((num_classes, num_classes), dtype=torch.int64, device=device)
     losses = []
+    real_cols = torch.from_numpy(cols).to(device)
     for start, (x, metas, canv) in zip(starts, batches()):
         # `real` masks the tail batch's repeats
-        real = torch.arange(start, start + batch_size, device=device) < n
+        real = real_cols + start < n
         scores = eval_forward(model, *x)
         with torch.no_grad():
             bconf, blosses = fast_eval.eval_batch(scores, metas, canv, real, num_classes,
                                                   loss_fn)
         conf += bconf
-        losses.append(blosses[: min(batch_size, n - start)])
-    return conf, torch.cat(losses)
+        losses.append(blosses)
+    losses = torch.stack(losses)[None]
+    if axis is not None:
+        losses = replicate_result(losses)
+    # (batches, W, k) is the set's order; the tail's repeats are cut
+    return conf, losses.transpose(0, 1).reshape(-1)[:n]
 
 
 def _evaluate_device(state: TrainState, val_data: MaterializedDataset, *, loss_cfg,
                      num_classes: int, agg: MetricsHistory, batch_size: int = 8,
-                     verbose: bool = True):
+                     verbose: bool = True, axis: Optional[DataAxis] = None):
     """The device protocol (train/fast_eval.py) over canvas-size buckets
-    when the set has 16 or more images, else one canvas."""
+    when the set has 16 or more images, else one canvas; over a data
+    `axis`, the processes' confusions summed (integer counts, so the
+    buckets and the split change nothing)."""
     agg.reset()
     loss_fn = fast_eval.make_masked_loss(loss_cfg) if loss_cfg is not None else None
     views = _bucket_views(val_data) if len(val_data) >= 16 else []
     if views and verbose:
         print(f"  val: {len(views)} canvas buckets {[len(v) for v in views]}")
     parts = [_eval_one_canvas(state.model, v, loss_fn=loss_fn, num_classes=num_classes,
-                              batch_size=batch_size, verbose=verbose)
+                              batch_size=batch_size, verbose=verbose, axis=axis)
              for v in (views or [val_data])]
-    agg.accumulate_confusion(sum(c for c, _ in parts))  # the one host fetch
+    conf = sum(c for c, _ in parts)
+    if axis is not None and axis.size > 1:
+        dist.all_reduce(conf)
+    agg.accumulate_confusion(conf)  # the one host fetch
     losses = torch.cat([l for _, l in parts]).cpu().numpy()
     return _finish(agg, float(losses.mean()) if loss_fn is not None else float("nan"),
                    verbose)
@@ -289,7 +326,7 @@ def evaluate(state: TrainState, val_data: MaterializedDataset, *,
              host_loss_fn: Optional[Callable] = None, num_classes: int = 4,
              eval_ignore_index: Optional[int] = 3, batch_size: int = 8,
              agg: Optional[MetricsHistory] = None, verbose: bool = True,
-             protocol: str = "auto", loss_cfg=None):
+             protocol: str = "auto", loss_cfg=None, axis: Optional[DataAxis] = None):
     """Original-resolution evaluation (reference utils/training.py:67-121),
     by one of two implementations of the same protocol:
       * 'device': inverse geometry, argmax, masked loss and confusion on
@@ -300,7 +337,9 @@ def evaluate(state: TrainState, val_data: MaterializedDataset, *,
         confusion; the exactness reference.
     'auto' is 'device' when a `loss_cfg` is given or no loss is wanted,
     else 'host'. The model runs in eval mode without autograd, so a UNet
-    built with kernels runs K1 on CUDA."""
+    built with kernels runs K1 on CUDA. Over a data `axis` of processes
+    (the device protocol only) each process evaluates its columns of each
+    batch and every process returns the same metrics."""
     if val_data.orig_labels is None:
         raise ValueError("materialize the val data with keep_orig_labels=True")
     if protocol == "auto":
@@ -314,9 +353,12 @@ def evaluate(state: TrainState, val_data: MaterializedDataset, *,
                 "dataclass, e.g. DiceCELoss(...)); host_loss_fn is only usable by "
                 "protocol='host'. Pass loss_cfg=, or protocol='host'.")
         return _evaluate_device(state, val_data, loss_cfg=loss_cfg, num_classes=num_classes,
-                                agg=agg, batch_size=batch_size, verbose=verbose)
+                                agg=agg, batch_size=batch_size, verbose=verbose, axis=axis)
     if protocol != "host":
         raise ValueError(f"protocol {protocol!r} not in ('auto', 'device', 'host')")
+    if axis is not None and axis.size > 1:
+        raise ValueError("the host protocol runs in one process; across processes use "
+                         "protocol='device'")
     agg.reset()
     device = _device_of(state)
     losses = []
@@ -367,6 +409,8 @@ def fit(
     checkpoint_every: int = 1,
     early_stop_patience: Optional[int] = None,
     augment_fn: Optional[Callable] = None,
+    metrics_logger=None,
+    axis: Optional[DataAxis] = None,
 ) -> FitResult:
     """Train with per-epoch original-resolution validation and
     best-val-mIoU checkpointing (reference utils/training.py:453-618).
@@ -388,14 +432,26 @@ def fit(
     epoch's CPU generator) transforms every step batch before its
     micro-batch split, resident or streamed (`_train_set`). SIGTERM and SIGINT
     stop the run after the current epoch, with its checkpoint written.
-    Returns once every checkpoint is on disk."""
+    `metrics_logger` (e.g. `utils.tb.TensorBoardLogger`) gets one
+    `log(epoch, scalars)` each epoch under JAX's names (loop.py:925-934).
+    Returns once every checkpoint is on disk.
+
+    Over a data `axis` (`train.multihost_loop.fit_multihost` gives it),
+    every process runs this with the same arguments and data: the same
+    shuffle and augmentation draws, each process's rows of every step
+    batch (`local_step_rows`), the eval split by columns; process 0 alone
+    writes the history, the checkpoints and the logger's events, and a
+    stop requested on any process stops all of them at the same epoch.
+    Every process returns once the files are on disk."""
     if eval_loss_cfg is None and host_loss_fn is None and isinstance(
             loss_fn, (DiceCELoss, DiceNLLLoss)):
         # the val loss defaults to the train loss under the eval contract
         # (eval ignore index, the tight Dice smooth), as run.py wires it
         eval_loss_cfg = dataclasses.replace(loss_fn, ignore_index=eval_ignore_index,
                                             smooth_dice=1e-5)
-    os.makedirs(save_dir, exist_ok=True)
+    lead = axis is None or axis.rank == 0
+    if lead:
+        os.makedirs(save_dir, exist_ok=True)
     ckpt_path = os.path.join(save_dir, name)
     last_path = os.path.join(save_dir, name + "_last")
     weights_path = os.path.join(save_dir, "MO_" + name)
@@ -421,6 +477,8 @@ def fit(
             if verbose:
                 print(f"Resumed {name} from {os.path.basename(source)} at epoch "
                       f"{start_epoch} (best miou {best['miou']:.4f})")
+    if axis is not None:
+        replicate_for_processes(state.model, axis)
 
     n = len(train_data)
     nsteps = n // batch_size
@@ -435,6 +493,9 @@ def fit(
             "(data.prompts.generate_prompt_dataset over an augmented "
             "dataset, reference utils/augmentation.ipynb cell 23)")
     train_set = _train_set(train_data, device, reconstruction=False, verbose=verbose)
+    rows = None if axis is None else local_step_rows(batch_size, accum_steps, axis)
+    if rows is not None and augment_fn is not None:
+        augment_fn = functools.partial(augment_fn, rows=rows, total=batch_size)
 
     # the shuffle, seeded as the JAX loop seeds a fresh run, replayed to the
     # epoch a resumed run starts at
@@ -464,9 +525,10 @@ def fit(
                 print(f"Epoch {epoch + 1}/{epochs} [{name}]")
             aug_gen = None if augment_fn is None else torch.Generator().manual_seed(
                 seed * 100003 + epoch)
+            order = epoch_order(rng, n, batch_size)
             losses = torch.stack([
                 train_step(state, loss_fn, *batch, accum_steps, augment_fn, aug_gen)
-                for batch in train_set.batches(epoch_order(rng, n, batch_size))])
+                for batch in train_set.batches(order if rows is None else order[:, rows])])
             train_loss = float(losses.mean())
             if verbose:
                 print(f"  train: loss={train_loss:.4f}")
@@ -475,7 +537,8 @@ def fit(
             val = evaluate(eval_state, val_data, host_loss_fn=host_loss_fn,
                            num_classes=num_classes, eval_ignore_index=eval_ignore_index,
                            batch_size=eval_batch_size or batch_size, agg=agg,
-                           verbose=verbose, protocol=eval_protocol, loss_cfg=eval_loss_cfg)
+                           verbose=verbose, protocol=eval_protocol, loss_cfg=eval_loss_cfg,
+                           axis=axis)
             history["train_loss"].append(train_loss)
             history["val_loss"].append(val["loss"])
             history["val_dice"].append(val["dice"])
@@ -499,11 +562,20 @@ def fit(
                 if verbose:
                     print(f"[fit] early stop: no val-mIoU improvement in "
                           f"{epochs_since_improve} epochs (best {best['miou']:.4f})")
-            _save_history(save_dir, name, history)
+            if axis is not None:
+                stop["flag"] = any_process(stop["flag"], device)
+            if lead:
+                _save_history(save_dir, name, history)
+                if metrics_logger is not None:
+                    metrics_logger.log(epoch + 1, {
+                        "train/loss": train_loss, "val/loss": val["loss"],
+                        "val/dice": val["dice"], "val/miou": val["iou"], "val/acc": val["acc"],
+                        "val/per_class_iou": val["per_class_iou"],
+                        "time/epoch_s": history["epoch_time_s"][-1]})
 
             last_due = ((epoch + 1) % max(1, checkpoint_every) == 0
                         or epoch == epochs - 1 or stop["flag"])
-            if improved:
+            if improved and lead:
                 ckpt.save_checkpoint_async(
                     writer, ckpt_path, eval_state, epoch=epoch, best=best, history=history,
                     notes=notes,
@@ -511,7 +583,7 @@ def fit(
                     extra_paths=(last_path,), slot="best")
                 if verbose:
                     print(f"  saved checkpoint (new best miou {val['iou']:.4f})")
-            elif last_due:
+            elif last_due and lead:
                 ckpt.save_checkpoint_async(writer, last_path, eval_state, epoch=epoch, best=best,
                                            history=history, notes=notes, slot="last")
             if stop["flag"]:
@@ -519,6 +591,8 @@ def fit(
                     print(f"[fit] stopping after epoch {epoch + 1} on request")
                 break
         writer.wait()
+        if axis is not None:
+            dist.barrier()
     except BaseException:
         # surface a failed save without masking the active exception
         try:
@@ -575,6 +649,7 @@ def fit_reconstruction(
     resume: bool = False,
     seed: int = 0,
     verbose: bool = True,
+    metrics_logger=None,
 ) -> FitResult:
     """Autoencoder stage 1 (reference autoencoder.ipynb cell 0; JAX
     loop.py:1041-1158): MSE of the reconstruction against the resized
@@ -583,7 +658,8 @@ def fit_reconstruction(
     val MSE each epoch; a checkpoint at `save_dir/name` whenever the val
     MSE falls (no `_last`, no `MO_`), and resume from it. As in JAX, the shuffle is seeded `seed + start_epoch`
     and an epoch is max(1, n // batch_size) steps. `originals` are the
-    raw val images at their own sizes."""
+    raw val images at their own sizes. `metrics_logger` gets JAX's
+    train/mse, val/mse and time/epoch_s each epoch (loop.py:1143-1148)."""
     os.makedirs(save_dir, exist_ok=True)
     ckpt_path = os.path.join(save_dir, name)
     device = _device_of(state)
@@ -620,6 +696,9 @@ def fit_reconstruction(
             history["val_loss"].append(val_loss)
             history["epoch_time_s"].append(time.time() - t0)
             _save_history(save_dir, name, history)
+            if metrics_logger is not None:
+                metrics_logger.log(epoch + 1, {"train/mse": train_loss, "val/mse": val_loss,
+                                               "time/epoch_s": history["epoch_time_s"][-1]})
             if val_loss < best["loss"]:
                 best = {"loss": val_loss}
                 ckpt.save_checkpoint_async(writer, ckpt_path, state, epoch=epoch, best=best,

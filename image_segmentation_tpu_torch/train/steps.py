@@ -36,6 +36,15 @@ steps.py:75-79).
 `train_step(augment_fn=...)` augments the whole step batch (micro ×
 accum rows) before the micro-batch split, as JAX train/steps.py:228-231
 does, with draws from the caller's `generator`.
+
+Across processes (train/multihost_loop.py) each process steps on its
+rows of the step batch (`local_step_rows`): its contiguous 1/W of every
+micro-batch. Its BatchNorm statistics and its loss are those of the whole
+micro-batch (global sums, parallel/mesh.py), so each micro-batch is JAX's
+(steps.py:228-231), and the accumulated gradients are summed over the
+processes once per step, before the division. (JAX's own multi-process
+layout gives each process a contiguous block of the whole step batch and
+lets XLA reshard it for the micro-batch split.)
 """
 from __future__ import annotations
 
@@ -46,7 +55,9 @@ from typing import Callable, Iterable, Iterator, Optional, Sequence, Tuple, Unio
 import numpy as np
 import torch
 
+from image_segmentation_tpu_torch.parallel.mesh import DataAxis, all_reduce_, world_size
 from image_segmentation_tpu_torch.train.state import TrainState
+from image_segmentation_tpu_torch.utils import profiling
 
 
 def quantize_u8(a: np.ndarray) -> np.ndarray:
@@ -206,6 +217,23 @@ class StreamedTrainSet:
             yield _assemble(x, heat, b.pop(0) if self.has_labels else None)
 
 
+def local_step_rows(step_batch: int, accum_steps: int, axis: DataAxis) -> np.ndarray:
+    """The rows of a step batch (micro × accum_steps) this process trains
+    on: for micro-batch i, rows [i·micro + rank·k, i·micro + (rank + 1)·k)
+    with k = micro / W, in micro-batch order, so that `train_step`'s split
+    of them into accum_steps parts gives each process its share of each
+    micro-batch. A micro-batch that does not divide over the processes is
+    refused (JAX would reshard it)."""
+    micro = step_batch // accum_steps
+    if micro % axis.size:
+        raise ValueError(f"the micro-batch of {micro} rows does not divide over "
+                         f"{axis.size} processes; pick a micro-batch that is a multiple of "
+                         f"{axis.size}")
+    k = micro // axis.size
+    return (np.arange(accum_steps)[:, None] * micro + axis.rank * k
+            + np.arange(k)).reshape(-1)
+
+
 def train_step(state: TrainState, loss_fn: Callable,
                images: Union[torch.Tensor, Tuple[torch.Tensor, ...]],
                targets: torch.Tensor, accum_steps: int = 1,
@@ -217,7 +245,13 @@ def train_step(state: TrainState, loss_fn: Callable,
     prompt model's images and heatmaps), each cut the same way.
     `augment_fn(images, targets, generator)` first transforms the whole
     step batch. Returns the mean of the micro-batches' losses, a 0-d f32
-    tensor on the device (no host sync)."""
+    tensor on the device (no host sync). Inside a process group the batch
+    is this process's rows (`local_step_rows`), the loss the global one,
+    and the gradients are summed over the processes and divided by their
+    number as well (parallel/mesh.py gives the derivation). Under
+    `utils.profiling.enable_nan_checks()` a non-finite micro-batch loss or
+    summed gradient raises FloatingPointError naming the step (its index
+    from 0) before the optimizer moves."""
     if augment_fn is not None:
         images, targets = augment_fn(images, targets, generator)
     inputs = images if isinstance(images, tuple) else (images,)
@@ -229,12 +263,18 @@ def train_step(state: TrainState, loss_fn: Callable,
     for i in range(accum_steps):
         rows = slice(i * micro, (i + 1) * micro)
         loss = loss_fn(model(*(x[rows] for x in inputs)), targets[rows])
+        if profiling.NAN_CHECKS:
+            profiling.check_finite(f"loss (micro-batch {i})", state.step, [loss])
         loss.backward()
         total = loss.detach() if total is None else total + loss.detach()
-    if accum_steps > 1:
-        grads = [p.grad for g in opt.param_groups for p in g["params"] if p.grad is not None]
-        torch._foreach_div_(grads, float(accum_steps))
+    world = world_size()
+    grads = [p.grad for g in opt.param_groups for p in g["params"] if p.grad is not None]
+    if accum_steps * world > 1:
+        all_reduce_(grads)
+        torch._foreach_div_(grads, float(accum_steps * world))
         total = total / accum_steps
+    if profiling.NAN_CHECKS:
+        profiling.check_finite("gradient", state.step, grads)
     opt.step()
     if state.scheduler is not None:
         state.scheduler.step()

@@ -1,1 +1,2 @@
-"""Host utilities: the safetensors reader and the CLIP weight converter."""
+"""Host utilities: the safetensors reader, the weight converters, tracing and
+NaN checks (`profiling`), TensorBoard logging (`tb`) and figures (`viz`)."""

@@ -818,3 +818,155 @@ def test_register_exported_on_the_card_launches_the_kernels(cuda, tmp_path):
             assert tuple(a - b for a, b in zip(_launch_counts(), before)) == launches, name
         agree = (aot.segment(img, name, prompt)["mask"] == out["mask"]).mean()
         assert agree >= 0.99, (name, agree)
+
+
+# Data parallelism across processes on the card. Each test starts
+# processes of this file (`python tests/test_torch_cuda.py WORKER RANK WORLD
+# STORE OUT`) in a group on a `file://` store; each child has a 300 s
+# timeout and its exit code is checked.
+
+
+def _spawn(worker: str, world: int, tmp_path) -> list:
+    import os
+    import subprocess
+    import sys
+    import time
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), worker, str(r),
+                               str(world), f"file://{tmp_path}/store", str(tmp_path)],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    deadline, logs = time.monotonic() + 300, []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} of {worker} exited {p.returncode}:\n{log}"
+    return [torch.load(os.path.join(str(tmp_path), f"{worker}.{r}.pt")) for r in range(world)]
+
+
+def _sums_inputs():
+    rng = np.random.default_rng(6)
+    x = rng.normal(1.5, 2.0, (8, 16, 12, 10)).astype(np.float32)
+    g = rng.normal(0, 1, x.shape).astype(np.float32)
+    logits = rng.normal(0, 2, (8, 16, 16, 4)).astype(np.float32)
+    targets = np.concatenate([rng.integers(0, 2, (4, 16, 16)), rng.integers(1, 4, (4, 16, 16))])
+    return x, g, logits, targets
+
+
+def _bn_and_loss(x, g, logits, targets, device):
+    """Train-mode BN (its input gradient under Σ g·y, its parameter
+    gradients, its running statistics) and Dice+CE (its value and logits
+    gradient), on `device` in f32."""
+    from image_segmentation_tpu_torch.losses import DiceCELoss
+    from image_segmentation_tpu_torch.models.layers import BatchNorm
+
+    bn = BatchNorm(x.shape[1]).to(device).train()
+    xs = torch.from_numpy(x).to(device).requires_grad_()
+    (bn(xs) * torch.from_numpy(g).to(device)).sum().backward()
+    lg = torch.from_numpy(logits).to(device).requires_grad_()
+    loss = DiceCELoss(class_weights=(0.5, 1.0, 1.5, 2.0), ignore_index=3, smooth_dice=1.0)(
+        lg, torch.from_numpy(targets).to(device))
+    loss.backward()
+    return {"dx": xs.grad.cpu(), "dweight": bn.weight.grad.cpu(), "dbias": bn.bias.grad.cpu(),
+            "running_mean": bn.running_mean.cpu(), "running_var": bn.running_var.cpu(),
+            "loss": loss.detach().cpu(), "dlogits": lg.grad.cpu()}
+
+
+def w_gloo_sums(rank, world):
+    import torch.distributed as dist
+
+    rows = slice(rank * 8 // world, (rank + 1) * 8 // world)
+    x, g, logits, targets = _sums_inputs()
+    out = _bn_and_loss(x[rows], g[rows], logits[rows], targets[rows], torch.device("cuda"))
+    return dict(out, backend=dist.get_backend())
+
+
+def test_global_batchnorm_and_loss_sums_on_the_card_through_gloo(cuda, tmp_path):
+    """Two processes sharing the card (gloo, CUDA tensors): the global BN
+    and the loss's global sums equal one process's on the whole batch on
+    the card, in f32 (sums in another order: 1e-5)."""
+    res = _spawn("w_gloo_sums", 2, tmp_path)
+    want = _bn_and_loss(*_sums_inputs(), cuda)
+    assert all(r["backend"] == "gloo" for r in res)
+    close = lambda a, b: torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)  # noqa: E731
+    close(torch.cat([r["dx"] for r in res]), want["dx"])
+    for k in ("dweight", "dbias"):  # each process's part; their sum is the whole
+        close(sum(r[k] for r in res), want[k])
+    for r in res:
+        for k in ("running_mean", "running_var", "loss"):
+            close(r[k], want[k])
+    # each backward differentiates W·L (parallel/mesh.py)
+    close(torch.cat([r["dlogits"] for r in res]) / 2, want["dlogits"])
+
+
+def w_nccl_step(rank, world):
+    """A world of one over NCCL: an all-reduce on the card, one train step
+    of a base-16 UNet at 64 px, and the eval over the data axis (K1)."""
+    import torch.distributed as dist
+
+    from image_segmentation_tpu_torch.parallel.mesh import get_mesh
+
+    t = torch.ones(4, device="cuda")
+    dist.all_reduce(t)
+    loss, conf, k1 = _small_step_and_eval(get_mesh("cuda"))
+    return {"backend": dist.get_backend(), "sum": t.cpu(), "loss": loss, "conf": conf, "k1": k1}
+
+
+def _small_step_and_eval(axis):
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.metrics import MetricsHistory
+    from image_segmentation_tpu_torch.run import synthetic_materialized
+    from image_segmentation_tpu_torch.train.loop import evaluate
+    from image_segmentation_tpu_torch.train.state import TrainState
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    torch.backends.cudnn.deterministic = True  # the two runs compare bit for bit
+    cfg = C.UNET_NOAUG
+    model = C.build_model(cfg, "cuda", torch.Generator().manual_seed(0), base=16)
+    st = TrainState(model, *C.build_optimizer(cfg, model))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand(8, 64, 64, 3, generator=g, device="cuda")
+    y = torch.randint(0, 4, (8, 64, 64), generator=g, device="cuda")
+    loss = float(train_step(st, C.build_loss(cfg), x, y, 2))
+    val = synthetic_materialized(12, 64, seed=1, keep_orig_labels=True)
+    agg = MetricsHistory(4, ignore_index=3)
+    before = K1.LAUNCHES
+    evaluate(st, val, loss_cfg=C.build_val_loss(cfg), agg=agg, verbose=False, batch_size=8,
+             axis=axis)
+    torch.backends.cudnn.deterministic = False
+    return torch.tensor(loss), torch.from_numpy(agg.confusion.copy()), K1.LAUNCHES - before
+
+
+def test_nccl_world_size_one_step_on_the_card(cuda, tmp_path):
+    """A one-process NCCL group: the backend rule picks NCCL, an all-reduce
+    runs, and the step and the eval over the data axis equal the same work
+    with no group, bit for bit (nothing is reduced), K1 nine times per eval
+    batch."""
+    (res,) = _spawn("w_nccl_step", 1, tmp_path)
+    loss, conf, k1 = _small_step_and_eval(None)
+    assert res["backend"] == "nccl" and res["sum"].tolist() == [1.0] * 4
+    assert res["k1"] == k1 == 9 * 2
+    torch.testing.assert_close(res["loss"], loss, rtol=0, atol=0)
+    assert torch.equal(res["conf"], conf)
+
+
+if __name__ == "__main__":
+    import os
+    import sys
+
+    from image_segmentation_tpu_torch.parallel.multihost import initialize_multihost
+
+    name, rank, world, store, out = sys.argv[1:]
+    initialize_multihost(store, int(world), int(rank), "cuda")
+    result = {"w_gloo_sums": w_gloo_sums, "w_nccl_step": w_nccl_step}[name](int(rank),
+                                                                             int(world))
+    torch.save(result, os.path.join(out, f"{name}.{rank}.pt"))
+    torch.distributed.destroy_process_group()

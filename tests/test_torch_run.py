@@ -57,13 +57,14 @@ def test_resume_continues_the_history(trained, tmp_path):
 
 @pytest.mark.parametrize("argv,message", [
     (["--config", "nope", "--synthetic", "8", "--device", "cpu"], "unknown config"),
-    (TINY + ["--profile-dir", "prof"], "--profile-dir"),
+    (TINY + ["--platform", "tpu"], "--device"),
     (["--config", "unet_noaug", "--device", "cpu"], "--data-root or --synthetic"),
     (TINY + ["--multihost"], "--multihost"),
     (TINY + ["--init-weights", "w.safetensors"], "--init-weights"),  # not a checkpoint
-    (TINY + ["--tensorboard", "tb"], "--tensorboard"),
+    (TINY + ["--max-devices", "2"], "--max-devices"),
 ])
-def test_refused_with_a_message(argv, message):
+def test_refused_with_a_message(argv, message, monkeypatch):
+    monkeypatch.delenv("MASTER_ADDR", raising=False)  # --multihost finds no group
     with pytest.raises(SystemExit) as e:
         run.main(argv)
     assert isinstance(e.value.code, str) and message in e.value.code
@@ -80,7 +81,11 @@ def test_cuda_without_a_card_exits_non_zero():
 
 def test_training_modules_import_no_jax():
     code = ("import sys, image_segmentation_tpu_torch.run, image_segmentation_tpu_torch.config, "
-            "image_segmentation_tpu_torch.train.loop, image_segmentation_tpu_torch.train.steps; "
+            "image_segmentation_tpu_torch.train.loop, image_segmentation_tpu_torch.train.steps, "
+            "image_segmentation_tpu_torch.train.multihost_loop, "
+            "image_segmentation_tpu_torch.parallel.multihost, "
+            "image_segmentation_tpu_torch.utils.profiling, image_segmentation_tpu_torch.utils.tb, "
+            "image_segmentation_tpu_torch.utils.viz; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
             "'image_segmentation_tpu.')) or m == 'image_segmentation_tpu']; "
             "assert not bad, bad")

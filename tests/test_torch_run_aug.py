@@ -113,11 +113,14 @@ def test_init_weights_starts_from_the_checkpoint(two_stage, tmp_path):
      "not a checkpoint of this port"),
     (["--config", "prompt", "--clipunet-checkpoint", "nowhere"] + BASE,
      "not a checkpoint of this port"),
-] + [(["--config", "unet_aug", "--" + f.replace("_", "-"), "x"] + BASE,
-      "--" + f.replace("_", "-")) for f in run.REFUSED_FLAGS] + [
+    (["--config", "unet_aug", "--multihost", "--evaluate", "x"] + BASE,
+     "--evaluate and recon configs are single-process"),
+    (["--config", "unet_aug", "--multihost", "--cache-features"] + BASE,
+     "not supported with --multihost: --cache-features"),
+    (["--config", "unet_aug", "--platform", "tpu"] + BASE, "--device"),
     (["--config", "clipunet_wide"] + BASE, "unknown config"),
-    (["--config", "unet_aug", "--multihost", "--tensorboard", "tb"] + BASE,
-     "--multihost, --tensorboard"),
+    (["--config", "unet_aug", "--multihost", "--eval-protocol", "host"] + BASE,
+     "not supported with --multihost: --eval-protocol host"),
 ] + [
     (["--config", "autoencoder", "--pretrained-encoder", "nowhere"] + BASE,
      "not a checkpoint of this port"),
