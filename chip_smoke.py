@@ -142,18 +142,42 @@ Phases (each prints its lines; any failure ends the run non-zero):
      224 px) under `--multihost`, 1 rank over NCCL (run beside (b)), then 2
      ranks over gloo: K3/K4 12 launches per micro-batch forward and per
      eval batch on each rank;
- 16. the last line is {"ok": true, "device": {...}}.
+ 16. model parallelism and mesh serving (`phase_model_parallel`), in 2
+     ranks sharing the card over gloo, children of this script
+     (`--dp-child`), each part against one process on the same weights
+     and inputs: (a) TP over the ViT (dp1 x tp2): the full-width ClipUNet
+     forward (224 px, B 8) with K3 on 6 local heads and K4's TP entry
+     (`fused_mlp_partial`) at F 1536, 12 launches each a rank, the logits
+     no farther from the f32 forward than 1.5x one process's bf16
+     forward's; one `clipunet` in-line step with the frozen ViT under TP,
+     its loss within phase 8's bf16 bound; (b) GPipe over ViT-B/16's 12
+     blocks in 2 stages of 6, M = 4 at B 8, forward only (the kernels
+     refuse autograd): the final and all 12 per-layer states by the same
+     bound, K3/K4 24 launches a stage (bubble ticks skipped); (c) SP of the
+     UNet-64 at 256 px in 2 shards of 128 rows: the eval forward through
+     K1 on haloed slabs, 9 launches a rank, by the same bound; one
+     full-width step (micro 8 x accum 8, bf16, module path) against phase
+     15's one-process step with phase 15(a)'s bounds; (d) mesh serving:
+     the four full-width families on InferenceEngine(devices=[cuda:0,
+     cuda:0]) with batches of 4, each in 2 chunks of 2 whose scores equal
+     the one-device engine's chunks and whose launches are twice a
+     chunk's; (e) each part's ms against one process (gloo through the
+     host: the code path, not scaling);
+ 17. the last line is {"ok": true, "device": {...}}.
 
 Phase 3 also prints each kernel's host dispatch at one request's shape
 through its wrapper's direct path and through its torch op (the path of
-an exported program). The launch counts of phases 4-15 are each set to 0
-just before the path is driven and read just after (in each child
-process for phase 15); the kernels line sums them.
+an exported program), and checks and times K4's tensor-parallel entry
+(`fused_mlp_partial`) at 197 and 1576 tokens with F 1536 as it times K4.
+The launch counts of phases 4-16 are each set to 0 just before the path
+is driven and read just after (in each child process for phases 15 and
+16); the kernels line sums them.
 
 Run from the repository root: python3 chip_smoke.py (no arguments).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -316,10 +340,12 @@ def _compare(name, got, want):
 
 
 # K3 at every batch the serving paths give it (BatchingEngine buckets 1, 2,
-# 4, 8 of ViT-B/16), then ragged sequences: S = 130 with V offset by +10
-# (mass leaking onto padded keys would show), and the longest admitted.
+# 4, 8 of ViT-B/16), then a TP rank's 6 local heads at B 8 (phase 16 (a):
+# q/k/v are views of a (8, 197, 384) projection, token stride 384), then
+# ragged sequences: S = 130 with V offset by +10 (mass leaking onto padded
+# keys would show), and the longest admitted.
 ATTENTION_CASES = [((b, 197, 12, 64), 0.0) for b in (1, 2, 4, 8)] + [
-    ((1, 130, 2, 64), 10.0), ((2, 256, 12, 64), 0.0)]
+    ((8, 197, 6, 64), 0.0), ((1, 130, 2, 64), 10.0), ((2, 256, 12, 64), 0.0)]
 # K4 at the same batches (197 tokens a request), then a ragged token count.
 MLP_TOKENS = [b * 197 for b in (1, 2, 4, 8)] + [333]
 
@@ -397,6 +423,68 @@ def phase_mlp(M, card: str) -> dict:
               f"L2; {card}); by kernel "
               f"{ {_short(k): round(v, 4) for k, v in split.items()} }")
     out = dict(rows[197], at="197 tokens, 768->3072->768 bf16", library_ms=None,
+               max_abs_err=max(errs))
+    out["device_ms_1576"] = rows[1576]["device_ms"]
+    return out
+
+
+# K4's tensor-parallel entry at ViT-B/16's F / 2 (a model axis of 2): one
+# request's tokens and the largest bucket's.
+MLP_PARTIAL_TOKENS = (197, 1576)
+MLP_PARTIAL_F = 1536
+
+
+def mlp_partial_bound(m: int, hdim: int, fdim: int):
+    """x read in bf16 and the f32 output written, both weights in bf16, LN
+    params and b1 in f32; fc1 and fc2 (no b2, no residual)."""
+    return _bound(m * hdim * (2 + 4) + 2 * fdim * hdim * 2 + (2 * hdim + fdim) * 4,
+                  4 * m * hdim * fdim)
+
+
+def phase_mlp_partial(M, card: str) -> dict:
+    """K4's TP entry (`fused_mlp_partial`) against its plain version, timed
+    as K4 is, beside the LN -> linear -> quick-GELU -> linear chain at the
+    same F (no single PyTorch call computes it)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    f = MLP_PARTIAL_F
+    errs, rows = [], {}
+    for m in MLP_PARTIAL_TOKENS:
+        x = (0.5 * rnd(1, m, 768)).bfloat16()
+        ln_w, ln_b = 1.0 + 0.1 * rnd(768), 0.1 * rnd(768)
+        w1, b1 = (0.03 * rnd(f, 768)).bfloat16(), 0.1 * rnd(f)
+        w2 = (0.03 * rnd(768, f)).bfloat16()
+        args = (x, ln_w, ln_b, w1, b1, w2, 1e-5)
+        got = M.fused_mlp_partial(*args)
+        torch.cuda.synchronize()
+        errs.append(_compare(f"mlp partial (TP entry) tokens={m} 768->{f}->768 f32 out", got,
+                             M.mlp_partial_reference(*args)))
+        if not torch.equal(got, M.fused_mlp_partial(*args)):
+            raise AssertionError("fused_mlp_partial: two calls differ")
+        kernel = lambda: M.fused_mlp_partial(*args)  # noqa: E731
+        plain = lambda: M.mlp_partial_reference(*args)  # noqa: E731
+        lw, lb, bb1 = (t.bfloat16() for t in (ln_w, ln_b, b1))
+
+        def chain():
+            h = F.linear(F.layer_norm(x, (768,), lw, lb, 1e-5), w1, bb1)
+            return F.linear(h * torch.sigmoid(1.702 * h), w2)
+
+        bound_ms, bound_by = mlp_partial_bound(m, 768, f)
+        split = _device_profile(kernel)
+        row = {"device_ms": sum(split.values()), "ms": _cuda_ms(kernel),
+               "plain_ms": _cuda_ms(plain), "plain_device_ms": _device_ms(plain),
+               "chain_ms": _device_ms(chain), "bound_ms": bound_ms, "bound_by": bound_by}
+        rows[m] = row
+        print(f"[kernels] mlp partial tokens={m} F={f}: device {row['device_ms']:.4f} ms, "
+              f"from Python {row['ms']:.4f} ms; plain device {row['plain_device_ms']:.4f} ms, "
+              f"from Python {row['plain_ms']:.4f} ms; LN-linear-GELU-linear chain device "
+              f"{row['chain_ms']:.4f} ms (not a single call); bound {bound_ms:.5f} ms "
+              f"({bound_by}); device / bound {row['device_ms'] / bound_ms:.1f} (20 calls, warm "
+              f"L2; {card}); by kernel "
+              f"{ {_short(k): round(v, 4) for k, v in split.items()} }")
+    out = dict(rows[197], at=f"197 tokens, 768->{f}->768 bf16, f32 out", library_ms=None,
                max_abs_err=max(errs))
     out["device_ms_1576"] = rows[1576]["device_ms"]
     return out
@@ -497,6 +585,7 @@ def phase_kernels(A, M, D, card: str) -> dict:
     fastmath_gap(card)
     op_dispatch_us(A, M, D, card)
     return {"fused_attention": phase_attention(A, card), "fused_mlp": phase_mlp(M, card),
+            "fused_mlp_partial": phase_mlp_partial(M, card),
             "fused_double_conv": phase_double_conv(D, card)}
 
 
@@ -513,20 +602,41 @@ def unet64_levels(side: int, cin: int):
             (side // 4, 512, 256), (side // 2, 256, 128), (side, 128, 64))
 
 
+def sp_slab_levels(side: int, cin: int, shards: int):
+    """The haloed slabs K1 runs on in the SP eval forward of a UNet-64 at
+    `side` px over `shards` shards of H (ops/kernels/blocks.py `haloed`):
+    (rows, width, Cin, Cout, up level?) for each level and each distinct
+    slab height, H_local + 2 at the image's top or bottom edge and
+    H_local + 4 inside."""
+    out = []
+    for i, (h, ci, c) in enumerate(unet64_levels(side, cin)):
+        local = h // shards
+        for rows in sorted({local + 2} | ({local + 4} if shards > 2 else set())):
+            out.append((rows, h, ci, c, i >= 5))
+    return out
+
+
+# The SP eval forward's slabs: phase 16 (c) at 2 shards and its four-card
+# run (`four_cards`) at 4, the UNet-64 at 256 px, B 8.
+SP_SLABS = [(8,) + lv for shards in (2, 4) for lv in sp_slab_levels(256, 3, shards)]
 # K1 at every shape the served paths give it: the unet family at 256 px and
 # the prompt model's selection UNet at 224 px (a Cin = 4 stem, a ragged 14²
-# deepest level), each at every batch size; then a ragged shape with
-# bias1 = +1.
+# deepest level), each at every batch size; then the SP slabs' down levels;
+# then a ragged shape with bias1 = +1.
 K1_CASES = [((n, h, h, cin), c, 0.0) for n in BATCHES
             for side, cin0 in ((256, 3), (224, 4))
-            for h, cin, c in unet64_levels(side, cin0)] + [((1, 37, 45, 24), 72, 1.0)]
+            for h, cin, c in unet64_levels(side, cin0)] + [
+    ((n, rows, w, cin), c, 0.0) for n, rows, w, cin, c, up in SP_SLABS if not up] + [
+    ((1, 37, 45, 24), 72, 1.0)]
 # The shapes phase 3 times: both UNets' nine levels at one request and at
 # the largest batch.
 K1_TIMED = [(n, side, cin0) for n in (1, 8) for side, cin0 in ((256, 3), (224, 4))]
 # The up blocks' double conv with the concat in the load stage: the four up
-# levels of the 256 px UNet-64 (skip and up halves of Cin), then channel
-# counts off the 64-channel K step on a ragged image.
+# levels of the 256 px UNet-64 (skip and up halves of Cin), the SP slabs'
+# up levels, then channel counts off the 64-channel K step on a ragged
+# image.
 K1_CAT_CASES = [((1, h, h), cin // 2, cin // 2, c) for h, cin, c in unet64_levels(256, 3)[5:]] + [
+    ((n, rows, w), cin // 2, cin // 2, c) for n, rows, w, cin, c, up in SP_SLABS if up] + [
     ((2, 37, 45), 24, 48, 72)]
 
 
@@ -566,14 +676,12 @@ def library_double_conv(args):
     return chain
 
 
-def phase_double_conv(D, card: str) -> dict:
-    """K1 (and its concat entry) against the plain versions at every served
-    shape, two calls bit for bit; then the nine levels of both UNets at
-    N = 1 and 8: device time (torch.profiler) and time from Python, the
-    bound, cuDNN's conv kernels alone and the whole library chain."""
-    g = torch.Generator(device="cuda").manual_seed(1)
+def check_double_conv(D, g, cases, cat_cases) -> list:
+    """K1 at `cases` and its concat entry at `cat_cases` (in K1_CASES' and
+    K1_CAT_CASES' form) against the plain versions, each also bit-equal
+    over two calls; returns the max abs errors."""
     errs = []
-    for xshape, c, b1_offset in K1_CASES:
+    for xshape, c, b1_offset in cases:
         args = _k1_args(g, xshape, c, b1_offset)
         got = D.fused_double_conv(*args)
         torch.cuda.synchronize()
@@ -581,7 +689,7 @@ def phase_double_conv(D, card: str) -> dict:
                              D.double_conv_reference(*args)))
         if not torch.equal(got, D.fused_double_conv(*args)):
             raise AssertionError(f"double_conv {xshape}->{c}: two calls differ")
-    for nhw, cs, cu, c in K1_CAT_CASES:
+    for nhw, cs, cu, c in cat_cases:
         x, *w = _k1_args(g, nhw + (cs + cu,), c, 1.0)
         skip, up = x[..., :cs].contiguous(), x[..., cs:].contiguous()
         got = D.fused_double_conv_cat(skip, up, *w)
@@ -590,6 +698,16 @@ def phase_double_conv(D, card: str) -> dict:
                              D.double_conv_cat_reference(skip, up, *w)))
         if not torch.equal(got, D.fused_double_conv_cat(skip, up, *w)):
             raise AssertionError(f"double_conv concat {nhw}: two calls differ")
+    return errs
+
+
+def phase_double_conv(D, card: str) -> dict:
+    """K1 (and its concat entry) against the plain versions at every served
+    shape, two calls bit for bit; then the nine levels of both UNets at
+    N = 1 and 8: device time (torch.profiler) and time from Python, the
+    bound, cuDNN's conv kernels alone and the whole library chain."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    errs = check_double_conv(D, g, K1_CASES, K1_CAT_CASES)
     print(f"[kernels] double_conv: {len(K1_CASES)} shapes and the concat entry within "
           f"tolerance, every one bit-equal over two calls")
 
@@ -2621,7 +2739,8 @@ def _dp_child_run(spec: dict, K) -> dict:
 
 
 def dp_child(spec: dict) -> int:
-    """A child process of phase 15 (`python3 chip_smoke.py --dp-child SPEC`)."""
+    """A child process of phases 15 and 16 (`python3 chip_smoke.py --dp-child
+    SPEC`)."""
     from image_segmentation_tpu_torch.ops.kernels import _build
     from image_segmentation_tpu_torch.ops.kernels import attention as A
     from image_segmentation_tpu_torch.ops.kernels import double_conv as D
@@ -2630,8 +2749,9 @@ def dp_child(spec: dict) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.load()
-    result = (_dp_child_step(spec) if spec["task"] == "step"
-              else _dp_child_run(spec, (A, M, D)))
+    tasks = {"step": lambda: _dp_child_step(spec), "run": lambda: _dp_child_run(spec, (A, M, D)),
+             "mp": lambda: _dp_child_mp(spec, (A, M, D))}
+    result = tasks[spec["task"]]()
     with open(spec["out"], "w") as f:
         json.dump(result, f)
     return 0
@@ -2648,19 +2768,15 @@ def _update(before: dict, after: dict) -> torch.Tensor:
                       and after[k].is_floating_point()])
 
 
-def phase_data_parallel(K, launches: dict, card: str, tmp: str) -> None:
-    """Data parallelism across processes on the one card (module docstring,
-    phase 15): (a) one full-width step in 2 ranks sharing the card against
-    the single-process step; (b) `run.py --multihost unet_noaug` in 2
-    ranks; (c) `clipunet` in line under `--multihost`, 1 rank over NCCL,
-    then 2 ranks over gloo."""
-    import os
-
+def unet_step_refs() -> dict:
+    """One process's full-width unet_noaug step (UNet base 64, 256 px, batch
+    64 = micro 8 x accum 8) from BN-perturbed seeded weights, in f32 and in
+    bf16, and the bf16 state's next two steps' ms: what phases 15 and 16
+    hold their ranks' steps against."""
     from image_segmentation_tpu_torch import config as C
     from image_segmentation_tpu_torch.train.state import TrainState
     from image_segmentation_tpu_torch.train.steps import train_step
 
-    # (a) one step: UNet base 64, 256 px, batch 64 = micro 8 x accum 8, bf16
     cfg = C.UNET_NOAUG
     model = C.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
     _perturb_batchnorm_(model, 2)
@@ -2682,7 +2798,25 @@ def phase_data_parallel(K, launches: dict, card: str, tmp: str) -> None:
         train_step(st, loss_fn, x, y, cfg.accum_steps)
         torch.cuda.synchronize()
         one_ms.append((time.perf_counter() - t) * 1e3)
-    del m, st, model
+    return {"init": init, "x": x.cpu(), "y": y.cpu(), "after": after, "losses": losses,
+            "one_ms": one_ms}
+
+
+def phase_data_parallel(K, launches: dict, card: str, tmp: str) -> dict:
+    """Data parallelism across processes on the one card (module docstring,
+    phase 15): (a) one full-width step in 2 ranks sharing the card against
+    the single-process step; (b) `run.py --multihost unet_noaug` in 2
+    ranks; (c) `clipunet` in line under `--multihost`, 1 rank over NCCL,
+    then 2 ranks over gloo."""
+    import os
+
+    from image_segmentation_tpu_torch import config as C
+
+    # (a) one step: UNet base 64, 256 px, batch 64 = micro 8 x accum 8, bf16
+    cfg = C.UNET_NOAUG
+    refs = unet_step_refs()
+    init, x, y, after, losses, one_ms = (refs[k] for k in ("init", "x", "y", "after", "losses",
+                                                           "one_ms"))
     # the ranks start once this process is done with the card
     inputs = os.path.join(tmp, "dp_inputs.pt")
     torch.save({"init": init, "x": x.cpu(), "y": y.cpu()}, inputs)
@@ -2779,6 +2913,458 @@ def phase_data_parallel(K, launches: dict, card: str, tmp: str) -> None:
             or two[0]["history"] != two[1]["history"] or rel > BF16_LOSS_RTOL):
         raise AssertionError(f"clipunet in 2 gloo ranks: launches "
                              f"{[r['counts'] for r in two]}, loss rel {rel} to one rank")
+    return refs
+
+
+# ---- phase 16: model parallelism and mesh serving -----------------------
+
+# ViT-B/16's 12 blocks in 2 stages of 6, 4 micro-batches of a batch of 8
+PP_STAGES, PP_MICRO = 2, 4
+HOST_COLLECTIVES = "every collective goes through the host: the code path, not scaling"
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def _own_bound(got, one, f32) -> tuple:
+    """(error, bound): `got`'s relative L2 from the f32 forward, and 1.5x
+    the one-process bf16 forward's (the forward's own bf16 error)."""
+    return _rel_l2(got, f32), 1.5 * _rel_l2(one, f32)
+
+
+def _mp_counts(K) -> tuple:
+    """(K3, K4, K1, K4's TP entry) launches since the last `_mp_zero`."""
+    return _counts(K) + (K[1].PARTIAL_LAUNCHES,)
+
+
+def _mp_zero(K) -> None:
+    _zero(K)
+    K[1].PARTIAL_LAUNCHES = 0
+
+
+def _timed_ms(fn, iters: int = 3) -> list:
+    """perf_counter ms of synchronised calls of fn (after one warm call)."""
+    fn()
+    out = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+@contextlib.contextmanager
+def _recording_k1_shapes():
+    """Within: the shape of every call of K1 and its concat entry from the
+    UNet's K1 forward, as phase 3's K1_CASES ([N, H, W, Cin], Cout) and
+    K1_CAT_CASES ([N, H, W], Cskip, Cup, Cout) name them."""
+    from image_segmentation_tpu_torch.models import fused_unet as FU
+    from image_segmentation_tpu_torch.ops.kernels import blocks as KB
+
+    shapes = []
+
+    def recorded(fn, cat):
+        def run(*a):
+            cout = a[-3].shape[-1]  # w2, HWIO
+            shapes.append([list(a[0].shape[:3]), a[0].shape[3], a[1].shape[3], cout] if cat
+                          else [list(a[0].shape), cout])
+            return fn(*a)
+        return run
+
+    k1, cat = KB.fused_double_conv, KB.fused_double_conv_cat
+    KB.fused_double_conv = FU.fused_double_conv = recorded(k1, False)
+    KB.fused_double_conv_cat = recorded(cat, True)
+    try:
+        yield shapes
+    finally:
+        KB.fused_double_conv = FU.fused_double_conv = k1
+        KB.fused_double_conv_cat = cat
+
+
+def _unchecked_slabs(slabs: list) -> list:
+    """The recorded K1 shapes that phase 3 did not hold against the plain
+    version."""
+    k1 = {(tuple(x), c) for x, c, _ in K1_CASES}
+    cat = {(nhw, cs, cu, c) for nhw, cs, cu, c in K1_CAT_CASES}
+    return [sh for sh in slabs if ((tuple(sh[0]), sh[1]) not in k1 if len(sh) == 2
+                                   else (tuple(sh[0]), *sh[1:]) not in cat)]
+
+
+def _dp_child_mp(spec: dict, K) -> dict:
+    """Phase 16, one of 2 ranks sharing the card over gloo: (a) TP over the
+    ViT (dp1 x tp2), (b) the GPipe pipeline (2 stages), (c) SP of the
+    UNet (2 shards of H); the counts zeroed just before each path and read
+    just after; outputs saved beside the result."""
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.models.clip_vit import (
+        ClipViT,
+        ClipViTConfig,
+        TransformerBlock,
+    )
+    from image_segmentation_tpu_torch.parallel import pp, sp, tp
+    from image_segmentation_tpu_torch.parallel.mesh import get_mesh
+    from image_segmentation_tpu_torch.parallel.multihost import initialize_multihost
+    from image_segmentation_tpu_torch.train.state import TrainState
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    backend = initialize_multihost(spec["store"], spec["world"], spec["rank"], "cuda")
+    mesh = get_mesh("cuda", model_parallel=2)
+    shared = torch.load(spec["inputs"])
+    dev = mesh.device
+    res, saved = {"backend": backend}, {}
+
+    # (a) TP: the full-width ClipUNet forward, then one in-line train step
+    cfg = C.CLIPUNET
+    model = C.build_model(cfg, dev, torch.Generator().manual_seed(0))
+    model.load_state_dict(shared["clip"])
+    tp.shard_params_tp(model, mesh)
+    x = shared["clip_x"].to(dev)
+    _mp_zero(K)
+    with torch.inference_mode():
+        saved["tp"] = model(x).cpu()
+    torch.cuda.synchronize()
+    res["tp_counts"] = _mp_counts(K)
+    with torch.inference_mode():
+        res["tp_ms"] = _timed_ms(lambda: model(x))
+    del model
+    model = C.build_model(cfg, dev, torch.Generator().manual_seed(0))
+    model.load_state_dict(shared["clip"])
+    tp.shard_params_tp(model, mesh)
+    st = TrainState(model, *C.build_optimizer(cfg, model))
+    xs, ys = shared["clip_step_x"].to(dev), shared["clip_step_y"].to(dev)
+    _mp_zero(K)
+    res["tp_step_loss"] = float(train_step(st, C.build_loss(cfg), xs, ys, cfg.accum_steps))
+    torch.cuda.synchronize()
+    res["tp_step_counts"] = _mp_counts(K)
+    res["tp_step_ms"] = _timed_ms(lambda: train_step(st, C.build_loss(cfg), xs, ys,
+                                                     cfg.accum_steps), iters=1)
+    del model, st
+
+    # (b) PP: ViT-B/16's blocks in 2 stages of 6, M = 4, forward only
+    vcfg = ClipViTConfig()
+    vit_state = {k[len("vision_model."):]: v.to(dev) for k, v in shared["clip"].items()
+                 if k.startswith("vision_model.encoder.")}
+    local = pp.shard_stacked_params(pp.stack_block_params(vit_state, vcfg.num_layers), mesh)
+    block_fn = pp.block_fn_for(TransformerBlock(vcfg, use_kernels=True).to(dev))
+    x0 = shared["pp_x0"].to(dev)
+    _mp_zero(K)
+    with torch.inference_mode():
+        final, per_layer = pp.pipeline_blocks(block_fn, local, x0, mesh, PP_MICRO)
+    torch.cuda.synchronize()
+    res["pp_counts"] = _mp_counts(K)
+    saved["pp_final"], saved["pp_layers"] = final.cpu(), per_layer.cpu()
+    with torch.inference_mode():
+        res["pp_ms"] = _timed_ms(lambda: pp.pipeline_blocks(block_fn, local, x0, mesh,
+                                                            PP_MICRO))
+    del local, final, per_layer
+
+    # (c) SP: the UNet-64 at 256 px in 2 shards of 128 rows (H on the data
+    # axis of the world, every rank the whole batch)
+    ucfg = C.UNET_NOAUG
+    mesh_sp = get_mesh("cuda")
+    unet = C.build_model(ucfg, dev, torch.Generator().manual_seed(0))
+    unet.load_state_dict(shared["unet"])
+    sp.partition_model(unet, mesh_sp)
+    ux = sp.shard_batch_spatial(shared["unet_x"].to(dev), mesh_sp)
+    _mp_zero(K)
+    with torch.inference_mode(), _recording_k1_shapes() as slabs:
+        saved["sp"] = unet(ux).cpu()
+    torch.cuda.synchronize()
+    res["sp_counts"], res["sp_slabs"] = _mp_counts(K), slabs
+    with torch.inference_mode():
+        res["sp_ms"] = _timed_ms(lambda: unet(ux))
+    unet = C.build_model(ucfg, dev, torch.Generator().manual_seed(0))
+    unet.load_state_dict(shared["unet_step_init"])
+    sp.partition_model(unet, mesh_sp)
+    st = TrainState(unet, *C.build_optimizer(ucfg, unet))
+    sx, sy = sp.shard_batch_spatial((shared["unet_step_x"].to(dev),
+                                     shared["unet_step_y"].to(dev)), mesh_sp)
+    res["sp_step_loss"] = float(train_step(st, C.build_loss(ucfg), sx, sy, ucfg.accum_steps))
+    saved["sp_state"] = {k: v.detach().cpu().clone() for k, v in unet.state_dict().items()}
+    res["sp_step_ms"] = _timed_ms(lambda: train_step(st, C.build_loss(ucfg), sx, sy,
+                                                     ucfg.accum_steps), iters=1)
+    torch.save(saved, spec["out"] + ".pt")
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return res
+
+
+def _staged_batch(entry, n: int, seed: int) -> list:
+    """n staged requests of a family, as uint8 (fast_transfer)."""
+    rng = np.random.default_rng(seed)
+    t = entry.target_size
+    xs = [rng.integers(0, 256, (n, t, t, 3), dtype=np.uint8)]
+    if entry.needs_prompt:
+        heat = np.zeros((n, t, t, 1), np.uint8)
+        heat[:, t // 3:t // 2, t // 3:t // 2] = 255
+        xs.append(heat)
+    return xs
+
+
+def phase_mesh_serving(K, launches: dict, card: str, devices=("cuda:0", "cuda:0")) -> None:
+    """(d): the four full-width families on InferenceEngine(devices=[cuda:0,
+    cuda:0]) against the one-device engine, on batches of 4 (--max-batch
+    4): each runs as one chunk a device, a replica on each; the scores
+    equal the one-device engine's chunk by chunk, and the launches are
+    those of the chunks."""
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.serve.engine import InferenceEngine
+
+    specs = (("unet", C.UNET_NOAUG, 256, False), ("autoencoder", C.AUTOENCODER, 256, False),
+             ("clip", C.CLIPUNET, 224, False), ("prompt_model", C.PROMPT, 224, True))
+    one = InferenceEngine("cuda")
+    meshed = InferenceEngine(devices=list(devices))
+    n = len(devices)
+    for i, (name, cfg, t, prompt) in enumerate(specs):
+        model = C.build_model(cfg, "cuda", torch.Generator().manual_seed(20 + i))
+        _perturb_batchnorm_(model, 30 + i)
+        one.register(name, model, t, needs_prompt=prompt)
+        meshed.register(name, model, t, needs_prompt=prompt)
+    for name, *_ in specs:
+        xs = _staged_batch(meshed.models[name], 4, 7)
+        one.forward(name, *xs)  # warm both engines: each replica's first call
+        meshed.forward(name, *xs)
+        _mp_zero(K)
+        want = np.concatenate([one.forward(name, *(np.array_split(x, n)[i] for x in xs))
+                               for i in range(n)])
+        chunk = _mp_counts(K)
+        _mp_zero(K)
+        t0 = time.perf_counter()
+        got = meshed.forward(name, *xs)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _mp_counts(K)
+        _add_counts(launches, counts)
+        whole = one.forward(name, *xs)
+        err = float(np.abs(got - want).max())
+        tol = REL_TOL * float(np.abs(want).max())
+        print(f"[mp] (d) mesh serving {name}: a batch of 4 on {list(devices)} in {n} chunks "
+              f"of {4 // n}, launches (K3, K4, K1, K4 TP) {counts} vs the one-device chunks "
+              f"{chunk}; "
+              f"scores vs the one-device chunks max abs {err} (bit-equal "
+              f"{bool(np.array_equal(got, want))}, tol {tol}: {TOL_REASON}), vs the one-device "
+              f"batch of 4 max abs {float(np.abs(got - whole).max())}; {ms:.1f} ms ({card})")
+        if counts != chunk or not err <= tol:
+            raise AssertionError(f"mesh serving {name}: launches {counts} vs {chunk}, "
+                                 f"scores {err} > {tol}")
+    print("[mp] (d) the mesh engine's prompt_model is the monolithic PromptModel "
+          f"(score cache {meshed.models['prompt_model'].score_cache})")
+
+
+def phase_model_parallel(K, launches: dict, card: str, tmp: str, unet_refs: dict,
+                         world: int = 2) -> None:
+    """Phase 16 (module docstring): (a) TP, (b) PP and (c) SP in 2 ranks
+    sharing the card (children of this script, gloo), each against one
+    process on the same weights and inputs; (d) mesh serving; (e) times.
+    With `world` 4 on four cards the ranks take a card each over NCCL:
+    (a) and (b) on a (2 x 2) mesh, each data row holding every row, (c) in
+    4 shards of 64 rows, (d) over the four cards."""
+    import dataclasses
+    import os
+
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.models.clip_vit import ClipViT, ClipViTConfig
+    from image_segmentation_tpu_torch.train.state import TrainState
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    rng = np.random.default_rng(16)
+    cfg = C.CLIPUNET
+    clip = C.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
+    _perturb_batchnorm_(clip, 16)
+    clip_init = {k: v.detach().cpu().clone() for k, v in clip.state_dict().items()}
+    clip_x = torch.from_numpy(rng.uniform(0, 1, (8, 224, 224, 3)).astype(np.float32)).cuda()
+    n_step = cfg.batch_size * cfg.accum_steps
+    step_x = torch.from_numpy(rng.uniform(0, 1, (n_step, 224, 224, 3)).astype(np.float32))
+    step_y = torch.from_numpy(rng.integers(0, 4, (n_step, 224, 224)))
+    f32 = C.build_model(dataclasses.replace(cfg, use_kernels=False), "cuda",
+                        torch.Generator().manual_seed(0))
+    f32.load_state_dict(clip_init)
+    f32.dtype = torch.float32
+    with torch.inference_mode():
+        one_tp, f32_tp = clip(clip_x).cpu(), f32(clip_x).cpu()
+        one_tp_ms = _timed_ms(lambda: clip(clip_x))
+        # (b)'s references: the ViT's hidden states, bf16 kernels and f32 plain
+        vit = clip.vision_model
+        _, hid = vit(clip_x.to(torch.bfloat16))
+        pp_x0 = hid[0].cpu()
+        one_pp = [h.cpu() for h in hid[1:]]
+        _, hid32 = f32.vision_model(clip_x)
+        f32_pp = [h.cpu() for h in hid32[1:]]
+        one_pp_ms = _timed_ms(lambda: vit(clip_x.to(torch.bfloat16)))
+    st = TrainState(clip, *C.build_optimizer(cfg, clip))
+    one_step_loss = float(train_step(st, C.build_loss(cfg), step_x.cuda(), step_y.cuda(),
+                                     cfg.accum_steps))
+    one_step_ms = _timed_ms(lambda: train_step(st, C.build_loss(cfg), step_x.cuda(),
+                                               step_y.cuda(), cfg.accum_steps), iters=1)
+    del clip, f32, st, vit, hid, hid32
+    # (c)'s references: the UNet-64 eval forward through K1 and through the
+    # f32 module path, at 256 px, batch 8
+    ucfg = C.UNET_NOAUG
+    unet = C.build_model(ucfg, "cuda", torch.Generator().manual_seed(1))
+    _perturb_batchnorm_(unet, 17)
+    unet_init = {k: v.detach().cpu().clone() for k, v in unet.state_dict().items()}
+    unet_x = torch.from_numpy(rng.uniform(0, 1, (8, 256, 256, 3)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        one_sp = unet(unet_x).cpu()
+        one_sp_ms = _timed_ms(lambda: unet(unet_x))
+        unet.use_kernels, unet.dtype = False, torch.float32
+        f32_sp = unet(unet_x).cpu()
+    del unet
+    torch.cuda.empty_cache()
+    inputs = os.path.join(tmp, "mp_inputs.pt")
+    torch.save({"clip": clip_init, "clip_x": clip_x.cpu(), "clip_step_x": step_x,
+                "clip_step_y": step_y, "pp_x0": pp_x0, "unet": unet_init,
+                "unet_x": unet_x.cpu(), "unet_step_init": unet_refs["init"],
+                "unet_step_x": unet_refs["x"], "unet_step_y": unet_refs["y"]}, inputs)
+    del clip_x, unet_x
+    torch.cuda.empty_cache()
+
+    procs = _dp_start("mp", world, tmp, {"inputs": inputs})
+    res = _dp_wait(procs)
+    out = [torch.load(p[1] + ".pt") for p in procs]
+    for r in res:
+        for key in ("tp_counts", "tp_step_counts", "pp_counts", "sp_counts"):
+            _add_counts(launches, r[key][:3])
+            launches["fused_mlp_partial"] += r[key][3]
+    failed = []
+    # (a) TP
+    err, bound = _own_bound(out[0]["tp"], one_tp, f32_tp)
+    n_vit = cfg.accum_steps * 12
+    print(f"[mp] (a) TP, full-width ClipUNet (ViT-B/16, 224 px, B 8, bf16, K3/K4 on), "
+          f"dp{world // 2} x tp2, {world} ranks ({res[0]['backend']}): logits rel L2 from the f32 "
+          f"forward {err:.3e}, bound {bound:.3e} (1.5x one process's bf16 forward's); ranks "
+          f"equal {torch.equal(out[0]['tp'], out[1]['tp'])}; launches (K3, K4, K1, K4 TP) per "
+          f"rank {[r['tp_counts'] for r in res]}, want (12, 0, 0, 12)")
+    if not (err <= bound and torch.equal(out[0]["tp"], out[1]["tp"])
+            and all(tuple(r["tp_counts"]) == (12, 0, 0, 12) for r in res)):
+        failed.append("TP forward")
+    rel = abs(res[0]["tp_step_loss"] - one_step_loss) / abs(one_step_loss)
+    print(f"[mp] (a) TP, one clipunet in-line step (micro {cfg.batch_size} x accum "
+          f"{cfg.accum_steps}, frozen ViT under TP): loss {res[0]['tp_step_loss']:.6f} / "
+          f"{res[1]['tp_step_loss']:.6f} vs one process {one_step_loss:.6f} (rel {rel:.2e}, "
+          f"bound {BF16_LOSS_RTOL}); launches per rank {[r['tp_step_counts'] for r in res]}, "
+          f"want ({n_vit}, 0, 0, {n_vit})")
+    if not (rel <= BF16_LOSS_RTOL and res[0]["tp_step_loss"] == res[1]["tp_step_loss"]
+            and all(tuple(r["tp_step_counts"]) == (n_vit, 0, 0, n_vit) for r in res)):
+        failed.append("TP step")
+    # (b) PP
+    per_stage = PP_MICRO * 12 // PP_STAGES
+    worst = max((_own_bound(out[0]["pp_layers"][i], one_pp[i], f32_pp[i]) for i in range(12)),
+                key=lambda eb: eb[0] / max(eb[1], 1e-300))
+    fin = _own_bound(out[0]["pp_final"], one_pp[-1], f32_pp[-1])
+    same = all(torch.equal(out[0][k], out[1][k]) for k in ("pp_final", "pp_layers"))
+    print(f"[mp] (b) PP, ViT-B/16's 12 blocks in {PP_STAGES} stages of 6, M = {PP_MICRO} at "
+          f"B 8, forward: final rel L2 from f32 {fin[0]:.3e} (bound {fin[1]:.3e}), the "
+          f"per-layer state nearest its bound {worst[0]:.3e} (bound {worst[1]:.3e}); stages "
+          f"equal {same}; launches (K3, K4, K1, K4 TP) per stage "
+          f"{[r['pp_counts'] for r in res]}, want ({per_stage}, {per_stage}, 0, 0) (bubble "
+          f"ticks skipped)")
+    if not (fin[0] <= fin[1] and worst[0] <= worst[1] and same
+            and all(tuple(r["pp_counts"]) == (per_stage, per_stage, 0, 0) for r in res)):
+        failed.append("PP forward")
+    # (c) SP
+    sp_logits = torch.cat([o["sp"] for o in out], dim=1)
+    err, bound = _own_bound(sp_logits, one_sp, f32_sp)
+    print(f"[mp] (c) SP, UNet-64 at 256 px, B 8, {world} shards of {256 // world} rows, eval "
+          f"through K1 on "
+          f"haloed slabs: logits rel L2 from the f32 module path {err:.3e}, bound {bound:.3e} "
+          f"(1.5x one process's K1 forward's); vs one process max abs "
+          f"{float((sp_logits - one_sp).abs().max()):.3e}; launches per rank "
+          f"{[r['sp_counts'] for r in res]}, want (0, 0, 9, 0)")
+    unchecked = [_unchecked_slabs(r["sp_slabs"]) for r in res]
+    print(f"[mp] (c) SP, the slabs K1 ran on, rank 0 {res[0]['sp_slabs']}, last rank "
+          f"{res[-1]['sp_slabs']}; not held against the plain version in phase 3: {unchecked}")
+    if not (err <= bound and all(tuple(r["sp_counts"]) == (0, 0, 9, 0) for r in res)
+            and not any(unchecked)):
+        failed.append("SP forward")
+    init, bf16s, f32s = unet_refs["init"], unet_refs["after"][torch.bfloat16], \
+        unet_refs["after"][torch.float32]
+    one_loss = unet_refs["losses"][torch.bfloat16]
+    d_sp, d_bf16, d_f32 = (_update(init, s) for s in (out[0]["sp_state"], bf16s, f32s))
+    cos_sp, cos_own = _cosine(d_sp, d_bf16), _cosine(d_bf16, d_f32)
+    loss_rel = abs(res[0]["sp_step_loss"] - one_loss) / abs(one_loss)
+    stat_err = max(float((out[0]["sp_state"][k] - v).abs().max() / max(1.0, float(v.abs().max())))
+                   for k, v in bf16s.items() if "running" in k)
+    same = all(torch.equal(out[0]["sp_state"][k], out[1]["sp_state"][k]) for k in init)
+    print(f"[mp] (c) SP, one full-width step (UNet-64, 256 px, micro 8 x accum 8, bf16, module "
+          f"path, 1-row halos): loss {res[0]['sp_step_loss']:.6f} vs one process "
+          f"{one_loss:.6f} (rel {loss_rel:.2e}); update cosine {cos_sp:.6f} (bf16 vs f32 in one "
+          f"process {cos_own:.6f}); running statistics max scaled diff {stat_err:.3e}; ranks' "
+          f"states equal {same}")
+    if not (loss_rel <= BF16_LOSS_RTOL and stat_err <= BF16_STAT_TOL and same
+            and 1 - cos_sp <= BF16_GRAD_RATIO * (1 - cos_own)):
+        failed.append("SP step")
+    # (e) times
+    ms = lambda r, k: [round(t, 2) for t in r[k]]  # noqa: E731
+    print(f"[mp] (e) ms (perf_counter around synchronised calls), {world} ranks "
+          f"({res[0]['backend']}) against one process: TP forward "
+          f"{[ms(r, 'tp_ms') for r in res]} vs {[round(t, 2) for t in one_tp_ms]}; TP step {[ms(r, 'tp_step_ms') for r in res]} vs "
+          f"{[round(t, 2) for t in one_step_ms]}; PP forward {[ms(r, 'pp_ms') for r in res]} vs "
+          f"the ViT in one process {[round(t, 2) for t in one_pp_ms]}; SP eval "
+          f"{[ms(r, 'sp_ms') for r in res]} vs {[round(t, 2) for t in one_sp_ms]}; SP step "
+          f"{[ms(r, 'sp_step_ms') for r in res]} vs {[round(t, 2) for t in unet_refs['one_ms']]} "
+          f"({card}); {HOST_COLLECTIVES if res[0]['backend'] == 'gloo' else 'NCCL'}")
+    if failed:
+        raise AssertionError(f"phase 16: {failed} out of bounds (lines above)")
+    phase_mesh_serving(K, launches, card, tuple(f"cuda:{i % torch.cuda.device_count()}"
+                                               for i in range(max(2, world))))
+
+
+def _card_line() -> str:
+    """The first card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def four_cards() -> int:
+    """Phase 16 over four cards, one rank a card over NCCL: (a) and (b) on a
+    (2 x 2) mesh, each data row holding every row, (c) in 4 shards of 64
+    rows, (d) over the four cards; first K3 at a TP rank's heads and K1 at
+    every SP slab are held against their plain versions. The smoke itself
+    (no arguments) needs one card; this needs four, and runs as
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.four_cards())'
+    """
+    import tempfile
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        print("four_cards: needs four cards", file=sys.stderr)
+        return 1
+    from image_segmentation_tpu_torch.ops.kernels import _build
+    from image_segmentation_tpu_torch.ops.kernels import attention as A
+    from image_segmentation_tpu_torch.ops.kernels import double_conv as D
+    from image_segmentation_tpu_torch.ops.kernels import mlp as M
+
+    card = _card_line()
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+          f"torch {torch.__version__} CUDA {torch.version.cuda}")
+    _build.build()
+    _build.load()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn(8, 197, 384, generator=g, device="cuda").bfloat16()
+               .view(8, 197, 6, 64) for _ in range(3))
+    _compare("attention (8, 197, 6, 64)", A.fused_attention(q, k, v),
+             A.attention_reference(q, k, v))
+    check_double_conv(D, g, [c for c in K1_CASES if c[0][0] == 8 and c[0][1] != c[0][2]],
+                      [c for c in K1_CAT_CASES if c[0][0] == 8])
+    launches = dict.fromkeys(KERNEL_NAMES + ("fused_mlp_partial",), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        refs = unet_step_refs()
+        t0 = time.time()
+        phase_model_parallel((A, M, D), launches, card, tmp, refs, world=4)
+    print(f"[phase 16, 4 cards] {time.time() - t0:.1f} s; launches {launches}")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def _header_version(header: str) -> str:
@@ -2819,9 +3405,7 @@ def main() -> int:
     from image_segmentation_tpu_torch.ops.kernels import double_conv as D
     from image_segmentation_tpu_torch.ops.kernels import mlp as M
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = _card_line()
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2871,11 +3455,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         timed(phase_host_data, K, launches, card, tmp)
         torch.cuda.empty_cache()
-        timed(phase_data_parallel, K, launches, card, tmp)
+        unet_refs = timed(phase_data_parallel, K, launches, card, tmp)
+        torch.cuda.empty_cache()
+        launches["fused_mlp_partial"] = 0
+        timed(phase_model_parallel, K, launches, card, tmp, unet_refs)
     print(f"[done] every phase passed in {time.time() - start:.1f} s from the build on")
 
     sources = {"fused_attention": ("attention.cu", "image_segmentation_tpu/ops/pallas/attention.py:99"),
                "fused_mlp": ("mlp.cu", "image_segmentation_tpu/ops/pallas/mlp.py:118"),
+               "fused_mlp_partial": ("mlp.cu", "image_segmentation_tpu/ops/pallas/mlp.py:118"),
                "fused_double_conv": ("double_conv.cu",
                                      "image_segmentation_tpu/ops/pallas/double_conv.py:185")}
     kernels = [

@@ -41,6 +41,13 @@
 //   in split order, then b2 and the residual.
 // The plan (token tiles, F runs, splits) comes from mlp_plan in
 // ops/kernels/mlp.py.
+// The tensor-parallel entry (istpu_mlp_partial_bf16) runs the same two
+// stages on one model rank's F/T columns of fc1 and rows of fc2 and stops
+// at the f32 sum: fc2 writes its f32 partials (into the output itself when
+// F is not split) and a reduce adds the splits in order, with neither b2
+// nor the residual. The model group all-reduces these f32 sums and adds
+// b2 and the residual once (models/clip_vit.py). At ViT-B/16 with T = 2
+// (F 1536) a call is half of K4's operations over half its weights.
 #include <algorithm>
 
 #include "common.cuh"
@@ -253,12 +260,14 @@ mlp_fc1_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
 }
 
 // fc2: y[m, o] = G[m, :] . W2[o, :] over the split's chunks of F. One
-// split: out = bf16(x + bf16(y + b2)); several: y to partial[split].
+// split and not `raw`: out = bf16(x + bf16(y + b2)); otherwise y to
+// partial[split] (for `raw` with one split, partial is the f32 output).
 // Grid (token tiles, H / 128, splits).
 __global__ void __launch_bounds__(128)
 mlp_fc2_kernel(const __grid_constant__ CUtensorMap tg, const __grid_constant__ CUtensorMap tw2,
                const bf16* __restrict__ x, const float* __restrict__ b2, bf16* __restrict__ out,
-               float* __restrict__ partial, int M, int H, int F, int chunks_per_split) {
+               float* __restrict__ partial, int M, int H, int F, int chunks_per_split,
+               bool raw) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* As = align_1024(smem_raw);         // kStages x (64 x 64) of G
   unsigned char* Bs = As + kStages * kSlabBytes;    // kStages x (128 x 64) of W2
@@ -287,11 +296,12 @@ mlp_fc2_kernel(const __grid_constant__ CUtensorMap tg, const __grid_constant__ C
   const int row0 = m0 + warp * 16 + gq;
   // This thread's columns n0 + 8 j + 2 gt (+ 1): their biases, loaded now
   // so their latency hides behind the products.
+  const bool epilogue = gridDim.z == 1 && !raw;
   float bias[16][2];
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    bias[j][0] = b2[n0 + 8 * j + 2 * gt];
-    bias[j][1] = b2[n0 + 8 * j + 2 * gt + 1];
+    bias[j][0] = epilogue ? b2[n0 + 8 * j + 2 * gt] : 0.f;
+    bias[j][1] = epilogue ? b2[n0 + 8 * j + 2 * gt + 1] : 0.f;
   }
   float acc[64];
 #pragma unroll
@@ -312,7 +322,7 @@ mlp_fc2_kernel(const __grid_constant__ CUtensorMap tg, const __grid_constant__ C
   wgmma_wait<0>();
   fence_regs(acc);
 
-  if (gridDim.z == 1) {
+  if (epilogue) {
     // The residual, all loads issued before any is used.
     __nv_bfloat162 xv[16][2];
 #pragma unroll
@@ -377,6 +387,25 @@ __global__ void mlp_reduce_kernel(const float* __restrict__ partial, int splits,
   }
 }
 
+// out = sum of partials in split order, f32, no bias, no residual (the
+// tensor-parallel entry), two columns per thread.
+__global__ void mlp_reduce_raw_kernel(const float* __restrict__ partial, int splits,
+                                      float* __restrict__ out, int M, int H) {
+  const long long pairs = static_cast<long long>(M) * H / 2;
+  const long long stride = static_cast<long long>(M) * H;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       i < pairs; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long idx = 2 * i;
+    float2 y = make_float2(0.f, 0.f);
+    for (int sp = 0; sp < splits; ++sp) {
+      const float2 p = *reinterpret_cast<const float2*>(partial + sp * stride + idx);
+      y.x += p.x;
+      y.y += p.y;
+    }
+    *reinterpret_cast<float2*>(out + idx) = y;
+  }
+}
+
 // A 2-D map over a row-major (rows, cols) bf16 matrix, boxes of
 // box_rows x 64 columns.
 cudaError_t matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
@@ -400,24 +429,15 @@ cudaError_t launch_fc1(const CUtensorMap& tx, const CUtensorMap& tw1, const floa
   return cudaGetLastError();
 }
 
-}  // namespace
-}  // namespace istpu
-
-extern "C" {
-
-
-// x, out: contiguous bf16 (M, H); w1: bf16 (F, H); w2: bf16 (H, F);
-// ln_w, ln_b, b2: f32 (H,); b1: f32 (F,); g: bf16 scratch (M, F);
-// partial: f32 scratch (splits, M, H), unused when splits is 1.
-// H in {128, 256, ..., 768}, F a multiple of 64. fc1 runs over
-// `runs` x `tiles_per_run` F tiles of 128, fc2 over `splits` x
-// `chunks_per_split` chunks of 64 (ops/kernels/mlp.py: mlp_plan).
-// Returns a cudaError_t.
-int istpu_mlp_bf16(const void* x, const void* ln_w, const void* ln_b, const void* w1,
-                   const void* b1, const void* w2, const void* b2, void* g, void* partial,
-                   void* out, int M, int H, int F, int runs, int tiles_per_run, int splits,
-                   int chunks_per_split, float eps, int device, void* stream) {
-  using namespace istpu;
+// Both entries: fc1 over `runs` x `tiles_per_run` F tiles of 128, fc2 over
+// `splits` x `chunks_per_split` chunks of 64 (ops/kernels/mlp.py: mlp_plan).
+// With `raw`, out_f32 receives the f32 fc2 sums (no b2, no residual);
+// otherwise out receives bf16(x + bf16(fc2 + b2)).
+cudaError_t run_mlp(const void* x, const void* ln_w, const void* ln_b, const void* w1,
+                    const void* b1, const void* w2, const void* b2, void* g, void* partial,
+                    bf16* out, float* out_f32, bool raw, int M, int H, int F, int runs,
+                    int tiles_per_run, int splits, int chunks_per_split, float eps, int device,
+                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const int f_tiles = (F + kTN - 1) / kTN, k_chunks = F / kTK;
@@ -433,7 +453,6 @@ int istpu_mlp_bf16(const void* x, const void* ln_w, const void* ln_b, const void
   const auto* b2p = static_cast<const float*>(b2);
   auto* gp = static_cast<bf16*>(g);
   auto* pp = static_cast<float*>(partial);
-  auto* op = static_cast<bf16*>(out);
   auto s = static_cast<cudaStream_t>(stream);
 
   CUtensorMap tx, tw1, tg, tw2;
@@ -464,14 +483,52 @@ int istpu_mlp_bf16(const void* x, const void* ln_w, const void* ln_b, const void
                              static_cast<int>(smem2));
   if (err != cudaSuccess) return err;
   const dim3 grid2((M + kTM - 1) / kTM, H / kTN, splits);
-  mlp_fc2_kernel<<<grid2, 128, smem2, s>>>(tg, tw2, xp, b2p, op, pp, M, H, F,
-                                           chunks_per_split);
+  mlp_fc2_kernel<<<grid2, 128, smem2, s>>>(tg, tw2, xp, b2p, out,
+                                           raw && splits == 1 ? out_f32 : pp, M, H, F,
+                                           chunks_per_split, raw);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const long long pairs = static_cast<long long>(M) * H / 2;
   const int blocks = static_cast<int>(std::min<long long>((pairs + 255) / 256, 1024));
-  mlp_reduce_kernel<<<blocks, 256, 0, s>>>(pp, splits, xp, b2p, op, M, H);
+  if (raw)
+    mlp_reduce_raw_kernel<<<blocks, 256, 0, s>>>(pp, splits, out_f32, M, H);
+  else
+    mlp_reduce_kernel<<<blocks, 256, 0, s>>>(pp, splits, xp, b2p, out, M, H);
   return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace istpu
+
+extern "C" {
+
+// x, out: contiguous bf16 (M, H); w1: bf16 (F, H); w2: bf16 (H, F);
+// ln_w, ln_b, b2: f32 (H,); b1: f32 (F,); g: bf16 scratch (M, F);
+// partial: f32 scratch (splits, M, H), unused when splits is 1.
+// H in {128, 256, ..., 768}, F a multiple of 64. fc1 runs over
+// `runs` x `tiles_per_run` F tiles of 128, fc2 over `splits` x
+// `chunks_per_split` chunks of 64 (ops/kernels/mlp.py: mlp_plan).
+// Returns a cudaError_t.
+int istpu_mlp_bf16(const void* x, const void* ln_w, const void* ln_b, const void* w1,
+                   const void* b1, const void* w2, const void* b2, void* g, void* partial,
+                   void* out, int M, int H, int F, int runs, int tiles_per_run, int splits,
+                   int chunks_per_split, float eps, int device, void* stream) {
+  if (b2 == nullptr) return cudaErrorInvalidValue;
+  return istpu::run_mlp(x, ln_w, ln_b, w1, b1, w2, b2, g, partial,
+                        static_cast<istpu::bf16*>(out), nullptr, false, M, H, F, runs,
+                        tiles_per_run, splits, chunks_per_split, eps, device, stream);
+}
+
+// The tensor-parallel entry: out is f32 (M, H), the fc2 sums over this
+// rank's F columns, with no b2 and no residual; the other arguments as
+// istpu_mlp_bf16's.
+int istpu_mlp_partial_bf16(const void* x, const void* ln_w, const void* ln_b, const void* w1,
+                           const void* b1, const void* w2, void* g, void* partial, void* out,
+                           int M, int H, int F, int runs, int tiles_per_run, int splits,
+                           int chunks_per_split, float eps, int device, void* stream) {
+  return istpu::run_mlp(x, ln_w, ln_b, w1, b1, w2, nullptr, g, partial, nullptr,
+                        static_cast<float*>(out), true, M, H, F, runs, tiles_per_run, splits,
+                        chunks_per_split, eps, device, stream);
 }
 
 }  // extern "C"

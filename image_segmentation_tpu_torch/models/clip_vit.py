@@ -17,6 +17,15 @@ plain versions themselves.
 Parameters are float32; the compute dtype is the dtype of the pixels the
 ClipViT is given (the ClipUNet casts them).
 
+Under tensor parallelism (`parallel.tp.shard_params_tp`, which sets a
+module's `tp_mesh`) a rank holds H/T heads and F/T hidden units of each
+block. The attention runs K3 on the local q/k/v as they are; the local
+out_proj partial is summed over the model group in f32 and its bias
+added once. The MLP runs K4's TP entry (`fused_mlp_partial`) on the local
+fc1/fc2; the f32 partials are summed over the model group and
+x + (Σ + b2) is rounded once to the compute dtype, as K4 rounds it.
+Without a model axis the blocks are as above.
+
 Pretrained weights travel as the `.npz` that the JAX package's converter
 writes (flat '/'-joined flax names, `block_0/attn/q_proj/kernel`, ...;
 JAX clip_vit.py:255-342): `hf_vision_npz_arrays` makes that layout from
@@ -39,7 +48,14 @@ from image_segmentation_tpu_torch.ops.kernels.attention import (
     attention_reference,
     fused_attention,
 )
-from image_segmentation_tpu_torch.ops.kernels.mlp import fused_mlp, mlp_reference
+from image_segmentation_tpu_torch.ops.kernels.mlp import (
+    K_CHUNK,
+    fused_mlp,
+    fused_mlp_partial,
+    mlp_partial_reference,
+    mlp_reference,
+)
+from image_segmentation_tpu_torch.parallel.tp import copy_to_model, reduce_from_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +90,10 @@ def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
 
 
 class MultiHeadAttention(nn.Module):
-    """q/k/v/out projections with bias around softmax(QKᵀ/√d)·V."""
+    """q/k/v/out projections with bias around softmax(QKᵀ/√d)·V; with
+    `tp_mesh` set, this rank's heads (module docstring)."""
+
+    tp_mesh = None
 
     def __init__(self, cfg: ClipViTConfig, use_kernels: bool):
         super().__init__()
@@ -87,11 +106,19 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
         n, s, _ = x.shape
-        split = lambda t: t.view(n, s, c.num_heads, c.hidden_size // c.num_heads)
+        head_dim = c.hidden_size // c.num_heads
+        if self.tp_mesh is not None:
+            x = copy_to_model(x, self.tp_mesh)
+        width = self.q_proj.weight.shape[0]  # H, or H / T under TP
+        split = lambda t: t.view(n, s, width // head_dim, head_dim)  # noqa: E731
         q, k, v = (split(linear(x, p)) for p in (self.q_proj, self.k_proj, self.v_proj))
         attend = fused_attention if self.use_kernels else attention_reference
-        out = attend(q, k, v).reshape(n, s, c.hidden_size)
-        return linear(out, self.out_proj)
+        out = attend(q, k, v).reshape(n, s, width)
+        if self.tp_mesh is None:
+            return linear(out, self.out_proj)
+        part = out.float() @ self.out_proj.weight.to(x.dtype).float().t()
+        y = reduce_from_model(part, self.tp_mesh) + self.out_proj.bias.to(x.dtype).float()
+        return y.to(x.dtype)
 
 
 class ClipMLP(nn.Module):
@@ -102,7 +129,10 @@ class ClipMLP(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-norm block: x + attn(ln1(x)); x + mlp(ln2(x))."""
+    """Pre-norm block: x + attn(ln1(x)); x + mlp(ln2(x)); with `tp_mesh` set,
+    the MLP over this rank's F/T hidden units (module docstring)."""
+
+    tp_mesh = None
 
     def __init__(self, cfg: ClipViTConfig, use_kernels: bool):
         super().__init__()
@@ -110,15 +140,31 @@ class TransformerBlock(nn.Module):
         self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.mlp = ClipMLP(cfg)
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.use_kernels = use_kernels
         self.fuse_mlp = (use_kernels and cfg.hidden_size % 128 == 0
                          and cfg.mlp_dim % 128 == 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.self_attn(layer_norm(x, self.layer_norm1))
         ln, fc1, fc2 = self.layer_norm2, self.mlp.fc1, self.mlp.fc2
+        if self.tp_mesh is not None:
+            return self._mlp_tp(x)
         run_mlp = fused_mlp if self.fuse_mlp else mlp_reference
         return run_mlp(x, ln.weight, ln.bias, fc1.weight.to(x.dtype), fc1.bias,
                        fc2.weight.to(x.dtype), fc2.bias, ln.eps)
+
+    def _mlp_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """x + MLP(LN(x)) from this rank's fc1 rows and fc2 columns: K4's TP
+        entry where the kernel takes the shapes, the f32 partials summed
+        over the model group, then b2 and the residual."""
+        ln, fc1, fc2, mesh = self.layer_norm2, self.mlp.fc1, self.mlp.fc2, self.tp_mesh
+        fuse = (self.use_kernels and x.shape[-1] % 128 == 0
+                and fc1.weight.shape[0] % K_CHUNK == 0)
+        run = fused_mlp_partial if fuse else mlp_partial_reference
+        xi, lw, lb = (copy_to_model(t, mesh) for t in (x, ln.weight, ln.bias))
+        part = run(xi, lw, lb, fc1.weight.to(x.dtype), fc1.bias, fc2.weight.to(x.dtype), ln.eps)
+        y = reduce_from_model(part, mesh) + fc2.bias.float()
+        return x + y.to(x.dtype)
 
 
 class ClipEncoder(nn.Module):

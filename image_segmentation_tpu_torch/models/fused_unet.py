@@ -8,7 +8,9 @@ all, in the UNet's compute dtype (bf16 on CUDA), with the folded scale
 and bias in f32. The 1×1 head is computed outside the kernel, as in the
 JAX package: an f32 product of the compute-dtype operands plus the f32
 bias, giving f32 logits. Folding and casting happen per call, as in JAX.
-Inference only: training BN needs live batch statistics.
+Inference only: training BN needs live batch statistics. Under spatial
+partitioning (`unet.spatial`) x is this shard's rows and every K1 runs on
+a haloed slab (ops/kernels/blocks.py `haloed`); the 1×1 head is row-local.
 """
 from __future__ import annotations
 
@@ -16,7 +18,11 @@ from typing import TYPE_CHECKING
 
 import torch
 
-from image_segmentation_tpu_torch.ops.kernels.blocks import fused_down_block, fused_up_block
+from image_segmentation_tpu_torch.ops.kernels.blocks import (
+    fused_down_block,
+    fused_up_block,
+    haloed,
+)
 from image_segmentation_tpu_torch.ops.kernels.double_conv import fold_bn, fused_double_conv
 
 if TYPE_CHECKING:
@@ -40,13 +46,15 @@ def _dc_args(dc: "DoubleConv", dtype: torch.dtype) -> tuple:
 def fused_unet_forward(unet: "UNet", x: torch.Tensor) -> torch.Tensor:
     """x (N, H, W, Cin) → f32 logits (N, H, W, classes), both NHWC. K1's
     wrapper pads a stem of Cin = 3 or 4 to 8 channels."""
-    dt = unet.dtype
-    feats = [fused_double_conv(x.to(dt).contiguous(), *_dc_args(unet.down1, dt))]
+    dt, spatial = unet.dtype, unet.spatial
+    feats = [haloed(fused_double_conv, [x.to(dt).contiguous()], _dc_args(unet.down1, dt),
+                    spatial)]
     for down in (unet.down2, unet.down3, unet.down4, unet.down5):
-        feats.append(fused_down_block(feats[-1], *_dc_args(down.conv, dt)))
+        feats.append(fused_down_block(feats[-1], *_dc_args(down.conv, dt), spatial=spatial))
     v = feats[-1]
     for up, skip in zip((unet.up1, unet.up2, unet.up3, unet.up4), reversed(feats[:-1])):
-        v = fused_up_block(skip, v, up.up.up.weight, up.up.up.bias, *_dc_args(up.conv, dt))
+        v = fused_up_block(skip, v, up.up.up.weight, up.up.up.bias, *_dc_args(up.conv, dt),
+                           spatial=spatial)
     head = unet.output
     w = head.weight.to(dt).float().flatten(1)  # (classes, C)
     return v.float() @ w.t() + head.bias.float()

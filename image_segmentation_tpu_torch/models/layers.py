@@ -19,7 +19,13 @@ deviations from that global mean (two passes, as a single process's
 batch norm is exact in the deviations), and the running update uses the
 global mean and biased variance. The sums go through a differentiable
 all-reduce, so the backward is the single-process one (the derivation is
-in parallel/mesh.py). Initialisers match
+in parallel/mesh.py). Under spatial partitioning (parallel/sp.py, inside
+`sp.partitioned`, which `UNet.forward` enters) each `ConvBNRelu` takes 1
+row from each neighbouring shard before its 3×3 conv and crops them after
+(`sp.halo_exchange`); `Down`'s pool and `Up`'s transpose conv and concat
+are row-local, and train-mode BN keeps the global sums above, which over
+row blocks are the sums over (N, H, W). Outside SP the path is as above.
+Initialisers match
 the JAX package's distributions (not its random bits): decoder convs
 are Kaiming-uniform over fan_in (`conv_kernel_init`), dense kernels are
 LeCun-normal (flax's default).
@@ -32,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from image_segmentation_tpu_torch.parallel import sp
 from image_segmentation_tpu_torch.parallel.mesh import all_reduce_sum, world_size
 
 BN_EPS = 1e-5
@@ -111,7 +118,12 @@ class ConvBNRelu(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.conv.weight.to(x.dtype)
         b = None if self.conv.bias is None else self.conv.bias.to(x.dtype)
-        return F.relu(self.bn(F.conv2d(x, w, b, padding=1)))
+        spatial = sp.active()
+        if spatial is None:
+            return F.relu(self.bn(F.conv2d(x, w, b, padding=1)))
+        slab, top, bottom = sp.halo_exchange(x, 1, spatial, dim=2)
+        y = sp.crop_rows(F.conv2d(slab, w, b, padding=1), top, bottom, dim=2)
+        return F.relu(self.bn(y))
 
     def init_weights(self, generator: torch.Generator) -> None:
         conv_kernel_init_(self.conv.weight, self.conv.weight[0].numel(), generator)

@@ -19,6 +19,10 @@ forward without autograd (under `no_grad` or `inference_mode`) is
 current running statistics. K1 has no backward and folds eval-mode BN,
 so a train-mode forward, or one that records gradients, always takes
 the module path.
+
+Under spatial partitioning (`parallel.sp.partition_model`, which sets
+`spatial`) the forward takes this rank's block of rows of H, a multiple
+of 16, and both paths exchange halos at every 3×3 conv (parallel/sp.py).
 """
 from __future__ import annotations
 
@@ -33,9 +37,12 @@ from image_segmentation_tpu_torch.models.layers import (
     conv1x1,
     init_conv1x1_,
 )
+from image_segmentation_tpu_torch.parallel import sp
 
 
 class UNet(nn.Module):
+    spatial = None  # the SP axis (parallel/sp.py), or None
+
     def __init__(self, num_classes: int = 4, base: int = 64,
                  dtype: torch.dtype = torch.float32, use_kernels: bool = False,
                  in_channels: int = 3):
@@ -55,8 +62,13 @@ class UNet(nn.Module):
         self.output = nn.Conv2d(b, num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        sp.local_height_check(x.shape[1], self.spatial)
         if self.use_kernels and not self.training and not torch.is_grad_enabled():
             return fused_unet_forward(self, x)
+        with sp.partitioned(self.spatial):
+            return self._module_forward(x)
+
+    def _module_forward(self, x: torch.Tensor) -> torch.Tensor:
         x1 = self.down1(x.to(self.dtype).permute(0, 3, 1, 2))  # channels_last NCHW
         x2 = self.down2(x1)
         x3 = self.down3(x2)

@@ -109,6 +109,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.istpu_attention_bf16.restype = i32
     lib.istpu_mlp_bf16.argtypes = [vp] * 10 + [i32] * 7 + [f32, i32, vp]
     lib.istpu_mlp_bf16.restype = i32
+    lib.istpu_mlp_partial_bf16.argtypes = [vp] * 9 + [i32] * 7 + [f32, i32, vp]
+    lib.istpu_mlp_partial_bf16.restype = i32
     lib.istpu_conv3x3_bf16.argtypes = [vp] * 7 + [i32] * 10 + [vp]
     lib.istpu_conv3x3_bf16.restype = i32
     lib.istpu_error_string.argtypes = [i32]

@@ -13,6 +13,12 @@ version concatenates.
 
 Transpose-conv weights are in torch's ConvTranspose2d layout
 (Cin, Cout, 2, 2), already flipped from flax's by models/convert.py.
+
+Under spatial partitioning (`spatial`, a `parallel.sp.SpatialAxis`) each
+block takes this shard's rows: the pool and the transpose conv are
+row-local (even shard heights), and K1 runs on the slab with K1's
+asymmetric 2-row halo (`haloed`), the up block's skip and up both haloed,
+then crops back to the shard's rows.
 """
 from __future__ import annotations
 
@@ -23,6 +29,10 @@ from image_segmentation_tpu_torch.ops.kernels.double_conv import (
     fused_double_conv,
     fused_double_conv_cat,
 )
+from image_segmentation_tpu_torch.parallel import sp
+
+# Rows K1 takes from each neighbouring shard: its two 3×3 convs' reach.
+K1_HALO = 2
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -45,14 +55,29 @@ def transpose_conv_2x2(x: torch.Tensor, weight: torch.Tensor,
     return _nhwc(F.conv_transpose2d(_nchw(x), weight.to(x.dtype), b, stride=2))
 
 
-def fused_down_block(x, w1, scale1, bias1, w2, scale2, bias2) -> torch.Tensor:
+def haloed(k1, xs, args, spatial=None) -> torch.Tensor:
+    """`k1(*xs, *args)`, a double conv of NHWC inputs of one height, on this
+    shard's rows: each of `xs` with K1's asymmetric halo (none at the
+    image's edges, where K1's zero padding acts), the result cropped to
+    the shard's rows. `k1` itself without `spatial`."""
+    if spatial is None:
+        return k1(*xs, *args)
+    slabs = [sp.halo_exchange(x, K1_HALO, spatial, dim=1) for x in xs]
+    _, top, bottom = slabs[0]
+    y = k1(*(s.contiguous() for s, _, _ in slabs), *args)
+    return sp.crop_rows(y, top, bottom, dim=1).contiguous()
+
+
+def fused_down_block(x, w1, scale1, bias1, w2, scale2, bias2, spatial=None) -> torch.Tensor:
     """max pool 2×2, then the fused double conv (reference Down block)."""
-    return fused_double_conv(max_pool_2x2(x), w1, scale1, bias1, w2, scale2, bias2)
+    return haloed(fused_double_conv, [max_pool_2x2(x)], (w1, scale1, bias1, w2, scale2, bias2),
+                  spatial)
 
 
 def fused_up_block(skip, x, up_weight, up_bias, w1, scale1, bias1, w2, scale2,
-                   bias2) -> torch.Tensor:
+                   bias2, spatial=None) -> torch.Tensor:
     """transpose conv ×2 (halving channels), then the fused double conv of
     concat [skip, up] (reference Up block)."""
     up = transpose_conv_2x2(x, up_weight, up_bias)
-    return fused_double_conv_cat(skip, up, w1, scale1, bias1, w2, scale2, bias2)
+    return haloed(fused_double_conv_cat, [skip, up], (w1, scale1, bias1, w2, scale2, bias2),
+                  spatial)

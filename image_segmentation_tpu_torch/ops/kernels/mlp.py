@@ -14,6 +14,17 @@ CUDA tensor it launches the kernel or raises; the kernel has no backward,
 so under grad mode an argument that requires grad is refused. While
 torch.export traces, it emits `mlp_op` (`istpu::fused_mlp`) instead,
 whose CUDA implementation is the same launcher.
+
+`fused_mlp_partial(x, ln_w, ln_b, w1, b1, w2)` is K4's tensor-parallel
+entry: fc2(quickGELU(fc1(LN(x)))) as f32 (tokens, H), with neither the fc2
+bias nor the residual, for a rank that holds F/T of fc1's outputs and of
+fc2's inputs (parallel/tp.py). The partial sums of the model group are
+all-reduced in f32 before `x + (Σ + b2)` is rounded once, as K4 rounds it;
+a bf16 output with the residual in it would lose the bits that matter.
+On a card it is the same source's fc1 stage and fc2 stage, whose f32
+partials (one per split of F, reduced in split order) are the output, with
+no bias + residual epilogue. Its plain version is `mlp_partial_reference`,
+its count `PARTIAL_LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -26,8 +37,9 @@ import torch
 from image_segmentation_tpu_torch.ops.kernels import _build
 
 # Launches of the CUDA kernel since the last reset (the plain version on
-# the CPU does not count).
+# the CPU does not count), and of its tensor-parallel entry.
 LAUNCHES = 0
+PARTIAL_LAUNCHES = 0
 
 HIDDEN_SIZES = (128, 256, 384, 512, 640, 768)
 TOKEN_TILE = 64  # tokens per tile, the M of wgmma (csrc/mlp.cu kTM)
@@ -35,20 +47,29 @@ OUT_TILE = 128  # output columns per tile: fc1's F, fc2's H (kTN)
 K_CHUNK = 64  # reduction columns per pipeline stage (kTK)
 
 
-def mlp_reference(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
-    """Plain PyTorch x + fc2(quickGELU(fc1(LN(x)))) with the kernel's casts."""
+def _gelu_stage(x, ln_w, ln_b, w1, b1, eps: float):
+    """G = quickGELU(fc1(LN(x))) rounded to x's dtype, with the kernel's casts."""
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
     h = (xf - mu) * torch.rsqrt(var + eps)
     h = (h * ln_w.float() + ln_b.float()).to(x.dtype)
     h = h.float() @ w1.float().t() + b1.float()
-    h = (h * torch.sigmoid(1.702 * h)).to(x.dtype)
-    y = h.float() @ w2.float().t() + b2.float()
+    return (h * torch.sigmoid(1.702 * h)).to(x.dtype)
+
+
+def mlp_reference(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
+    """Plain PyTorch x + fc2(quickGELU(fc1(LN(x)))) with the kernel's casts."""
+    y = _gelu_stage(x, ln_w, ln_b, w1, b1, eps).float() @ w2.float().t() + b2.float()
     return x + y.to(x.dtype)
 
 
-def _check_cuda_args(x, ln_w, ln_b, w1, b1, w2, b2) -> None:
+def mlp_partial_reference(x, ln_w, ln_b, w1, b1, w2, eps: float = 1e-5):
+    """Plain PyTorch fc2(quickGELU(fc1(LN(x)))) as f32, no fc2 bias, no residual."""
+    return _gelu_stage(x, ln_w, ln_b, w1, b1, eps).float() @ w2.float().t()
+
+
+def _check_cuda_args(op: str, x, ln_w, ln_b, w1, b1, w2, b2=None) -> None:
     hdim = x.shape[-1]
     fdim = w1.shape[0]
     if hdim not in HIDDEN_SIZES or fdim <= 0 or fdim % K_CHUNK:
@@ -60,8 +81,9 @@ def _check_cuda_args(x, ln_w, ln_b, w1, b1, w2, b2) -> None:
     dtypes = {"x": torch.bfloat16, "w1": torch.bfloat16, "w2": torch.bfloat16,
               "ln_w": torch.float32, "ln_b": torch.float32,
               "b1": torch.float32, "b2": torch.float32}
-    args = {"x": x, "ln_w": ln_w, "ln_b": ln_b, "w1": w1, "b1": b1,
-            "w2": w2, "b2": b2}
+    args = {"x": x, "ln_w": ln_w, "ln_b": ln_b, "w1": w1, "b1": b1, "w2": w2}
+    if b2 is not None:
+        args["b2"] = b2
     for name, t in args.items():
         if name in shapes and tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shapes[name]}")
@@ -71,7 +93,7 @@ def _check_cuda_args(x, ln_w, ln_b, w1, b1, w2, b2) -> None:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    _build.refuse_grad("fused_mlp", *args.values())
+    _build.refuse_grad(op, *args.values())
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,11 +147,14 @@ def mlp_plan(tokens: int, hdim: int, fdim: int, sms: int) -> MlpPlan:
 
 
 def _launch(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
-    """The kernel on CUDA tensors: checks, the plan, one launch, the count."""
-    _check_cuda_args(x, ln_w, ln_b, w1, b1, w2, b2)
+    """The kernel on CUDA tensors: checks, the plan, one launch, the count.
+    With `b2` None it is the TP entry: the f32 partial, no bias, no residual."""
+    entry = "fused_mlp" if b2 is not None else "fused_mlp_partial"
+    _check_cuda_args(entry, x, ln_w, ln_b, w1, b1, w2, b2)
     hdim, fdim = x.shape[-1], w1.shape[0]
     m = x.numel() // hdim
-    out = torch.empty_like(x)
+    out = (torch.empty_like(x) if b2 is not None else
+           torch.empty(x.shape, dtype=torch.float32, device=x.device))
     if m == 0:
         return out
     lib = _build.load()
@@ -138,15 +163,20 @@ def _launch(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
     g = torch.empty(plan.g_shape, dtype=torch.bfloat16, device=x.device)
     partial = (None if plan.partial_shape is None else
                torch.empty(plan.partial_shape, dtype=torch.float32, device=x.device))
-    rc = lib.istpu_mlp_bf16(
-        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), g.data_ptr(),
-        None if partial is None else partial.data_ptr(), out.data_ptr(), m, hdim, fdim,
-        plan.runs, plan.tiles_per_run, plan.splits, plan.chunks_per_split, float(eps), dev,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    common = (g.data_ptr(), None if partial is None else partial.data_ptr(), out.data_ptr(),
+              m, hdim, fdim, plan.runs, plan.tiles_per_run, plan.splits,
+              plan.chunks_per_split, float(eps), dev,
+              torch.cuda.current_stream(x.device).cuda_stream)
+    global LAUNCHES, PARTIAL_LAUNCHES
+    if b2 is None:
+        rc = lib.istpu_mlp_partial_bf16(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+                                        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), *common)
+        _build.check(rc, "fused_mlp_partial launch")
+        PARTIAL_LAUNCHES += 1
+        return out
+    rc = lib.istpu_mlp_bf16(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
+                            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), *common)
     _build.check(rc, "fused_mlp launch")
-    global LAUNCHES
     LAUNCHES += 1
     return out
 
@@ -171,3 +201,14 @@ def fused_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp runs on cpu or cuda, not {x.device}")
     return _launch(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+
+
+def fused_mlp_partial(x, ln_w, ln_b, w1, b1, w2, eps: float = 1e-5):
+    """x: (..., H); returns fc2(quickGELU(fc1(LN(x)))) as f32 (..., H), with no
+    fc2 bias and no residual: one model rank's share of a row-parallel fc2
+    (module docstring). F (w1's rows) a multiple of K_CHUNK on a card."""
+    if x.device.type == "cpu":
+        return mlp_partial_reference(x, ln_w, ln_b, w1, b1, w2, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_partial runs on cpu or cuda, not {x.device}")
+    return _launch(x, ln_w, ln_b, w1, b1, w2, None, eps)

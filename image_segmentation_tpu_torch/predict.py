@@ -7,8 +7,9 @@ Counterpart of image_segmentation_tpu/predict.py: the serving pipeline
 geometry at the original resolution, argmax, colourise) as a batch tool,
 optionally scored against ground-truth labels with the reference's
 original-resolution protocol (macro Dice/IoU/Acc with the ignore class
-left out). Runs on the card unless `--device cpu`; JAX's `--mesh` is not
-ported. Images and labels decode through `data/png.py` `decode` (the
+left out). Runs on the card unless `--device cpu`; `--mesh` runs over
+every visible card (the CPU under `--device cpu`), as `serve.app --mesh`
+does. Images and labels decode through `data/png.py` `decode` (the
 native PNG/JPEG codec, else PIL, else the port's PNG codec).
 
 Usage:
@@ -172,6 +173,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain versions of the "
                         "kernels)")
+    p.add_argument("--mesh", action="store_true",
+                   help="run over every visible card (the CPU under --device cpu), as "
+                        "serve.app --mesh does")
     args = p.parse_args(argv)
     import torch
 
@@ -181,13 +185,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from image_segmentation_tpu_torch.serve.app import (
         build_demo_engine,
         build_engine_from_checkpoints,
+        mesh_devices,
     )
 
+    device, devices = torch.device(args.device), None
+    if args.mesh:
+        devices = mesh_devices(device)
+        device = devices[0]
+        print(f"[predict] mesh over {len(devices)} devices")
     if args.demo or not args.models_dir:
         print("[predict] demo mode: random-weight models")
-        engine = build_demo_engine(args.device)
+        engine = build_demo_engine(device, devices=devices)
     else:
-        engine = build_engine_from_checkpoints(args.models_dir, args.device)
+        engine = build_engine_from_checkpoints(args.models_dir, device, devices)
     names = engine.available()
     model = args.model or ("unet" if "unet" in names else names[0])
     if model not in names:

@@ -36,10 +36,15 @@ in bfloat16 with the hand-written kernels, on the CPU in float32 with
 their plain versions. `--device` is explicit: cuda by default, and the
 server refuses to start when there is none. With `--max-batch N` requests
 are micro-batched (`serve/batching.py`) after a warm-up of every batch
-size. `--mesh` is not ported.
+size. `--mesh` serves over every visible card (the CPU under `--device
+cpu`): each model replicated on each device, and a batch that divides the
+device count split into per-device chunks (`InferenceEngine(devices=)`,
+serve/engine.py); it pairs with `--max-batch`, whose batches are what it
+splits. With one card it is the plain plan.
 
 Run: python -m image_segmentation_tpu_torch.serve.app [--models-dir DIR]
-     [--exports-dir DIR] [--demo] [--device cpu] [--max-batch 4] [--port 8000]
+     [--exports-dir DIR] [--demo] [--device cpu] [--max-batch 4] [--mesh]
+     [--port 8000]
 """
 from __future__ import annotations
 
@@ -133,10 +138,18 @@ def register_families(eng: InferenceEngine, families) -> None:
             eng.register(name, model, tsize)
 
 
-def build_demo_engine(device="cuda", seed: int = 0) -> InferenceEngine:
+def mesh_devices(device) -> list:
+    """The devices `--mesh` serves over: every visible card, or the CPU."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return [device]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def build_demo_engine(device="cuda", seed: int = 0, devices=None) -> InferenceEngine:
     """A registry of the four random-weight, reduced-width families, on the
-    card unless `device` says otherwise."""
-    eng = InferenceEngine(device=device)
+    card unless `device` says otherwise (over `devices` with a mesh)."""
+    eng = InferenceEngine(device=device, devices=devices)
     register_families(eng, demo_model_specs(device, seed))
     return eng
 
@@ -204,10 +217,12 @@ def load_family_models(models_dir: str, device="cuda", only: Optional[str] = Non
         yield name, model, spec.target_size, spec.needs_prompt
 
 
-def build_engine_from_checkpoints(models_dir: str, device="cuda") -> InferenceEngine:
+def build_engine_from_checkpoints(models_dir: str, device="cuda",
+                                  devices=None) -> InferenceEngine:
     """A registry of every family with a trained checkpoint in `models_dir`,
-    on the card unless `device` says otherwise; raises when there is none."""
-    eng = InferenceEngine(device=device)
+    on the card unless `device` says otherwise (over `devices` with a
+    mesh); raises when there is none."""
+    eng = InferenceEngine(device=device, devices=devices)
     register_families(eng, load_family_models(models_dir, device))
     if not eng.models:
         raise RuntimeError(f"no model checkpoints found in {models_dir}")
@@ -346,20 +361,29 @@ def main(argv=None):
     p.add_argument("--max-batch", type=int, default=0,
                    help="micro-batch concurrent requests up to this size "
                         "(serve/batching.py); 0 = one forward per request")
+    p.add_argument("--mesh", action="store_true",
+                   help="serve over every visible card (the CPU under --device cpu): a "
+                        "replica a device, batches that divide the device count split "
+                        "over them (pair with --max-batch)")
     args = p.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available "
                          f"(pass --device cpu to serve on the CPU)")
+    devices = None
+    if args.mesh:
+        devices = mesh_devices(device)
+        device = devices[0]
+        print(f"[serve] mesh serving over {len(devices)} devices")
     if args.exports_dir:
-        engine = (build_engine_from_checkpoints(args.models_dir, device) if args.models_dir
-                  else InferenceEngine(device=device))
+        engine = (build_engine_from_checkpoints(args.models_dir, device, devices)
+                  if args.models_dir else InferenceEngine(device=device, devices=devices))
         register_exports(engine, args.exports_dir)
     elif args.demo or not args.models_dir:
         print("[serve] demo mode: random-weight models")
-        engine = build_demo_engine(device)
+        engine = build_demo_engine(device, devices=devices)
     else:
-        engine = build_engine_from_checkpoints(args.models_dir, device)
+        engine = build_engine_from_checkpoints(args.models_dir, device, devices)
     if args.max_batch > 1:
         from image_segmentation_tpu_torch.serve.batching import BatchingEngine
 

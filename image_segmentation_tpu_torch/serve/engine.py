@@ -24,16 +24,31 @@ the card unless built with device="cpu", where the same code runs
 without streams.
 
 `register_exported` serves a program of serve/export.py in place of a
-live model. Single-device only; the mesh comes with a later slice.
+live model.
+
+Mesh serving (JAX's `InferenceEngine(mesh=)`, engine.py:220-245, which
+replicates the variables over a data mesh and shards a batch that divides
+the device count): `InferenceEngine(devices=[...])` is one process over a
+list of devices, the first of them the engine's `device`. `register`
+puts a replica of the model on each device; a batch whose size divides
+`len(devices)` runs in per-device chunks, each under
+`torch.cuda.device(...)` on that device's own stream (the kernels launch
+on the current device's stream), and the scores are gathered on the first
+device; any other batch runs on the first device, as JAX runs it
+replicated. `register_prompt_composed` falls back to `register` under a
+mesh, the monolithic PromptModel (engine.py:331-337), and an exported
+program runs on the first device alone, with JAX's note
+(engine.py:409-410). With one device it is the plain engine.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import dataclasses
 import hashlib
 import threading
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -140,47 +155,99 @@ class ModelEntry:
 
 class InferenceEngine:
     """Serves on `device`, the card unless the caller asks for the CPU;
-    without a card the default raises rather than falling back."""
+    without a card the default raises rather than falling back. With
+    `devices`, serves over that list of devices, the first of them the
+    engine's `device` (module docstring)."""
 
-    def __init__(self, device="cuda", fast_transfer: bool = True):
-        self.device = torch.device(device)
+    def __init__(self, device="cuda", fast_transfer: bool = True,
+                 devices: Optional[Sequence] = None):
+        self.devices = [torch.device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"InferenceEngine(device={str(self.device)!r}): no CUDA device "
                                f"is available (pass device='cpu' to serve on the CPU)")
         self.fast_transfer = fast_transfer
         self.models: Dict[str, ModelEntry] = {}
         cuda = self.device.type == "cuda"
-        self.stream = torch.cuda.Stream(self.device) if cuda else None
+        self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                        for d in self.devices]
+        self.stream = self.streams[0]
         self._copy_stream = torch.cuda.Stream(self.device) if cuda else None
+
+    @property
+    def mesh(self) -> bool:
+        return len(self.devices) > 1
 
     # -- device half --------------------------------------------------------
 
-    def _upload(self, x: np.ndarray) -> torch.Tensor:
-        """A staged host array → the device, in its own dtype. Call on the
-        compute stream."""
+    def _upload(self, x: np.ndarray, device=None) -> torch.Tensor:
+        """A staged host array → `device` (the engine's by default), in its
+        own dtype. Call on that device's compute stream."""
+        device = self.device if device is None else device
         t = torch.from_numpy(np.ascontiguousarray(x))
-        if self.stream is not None:
-            t = t.pin_memory().to(self.device, non_blocking=True)
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
         return t
 
-    def _to_device(self, x: np.ndarray) -> torch.Tensor:
-        """A staged host array → float [0, 1] on the device (uint8 decodes
-        there). Call on the compute stream."""
-        t = self._upload(x)
+    def _to_device(self, x: np.ndarray, device=None) -> torch.Tensor:
+        """A staged host array → float [0, 1] on `device` (uint8 decodes
+        there). Call on that device's compute stream."""
+        t = self._upload(x, device)
         return t.float() / 255.0 if t.dtype == torch.uint8 else t.float()
+
+    def _stream_of(self, i: int):
+        """The device and stream context of device `i`."""
+        if self.streams[i] is None:
+            return contextlib.nullcontext()
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(torch.cuda.device(self.devices[i]))
+        ctx.enter_context(torch.cuda.stream(self.streams[i]))
+        return ctx
+
+    def _cast(self, scores: torch.Tensor) -> torch.Tensor:
+        return scores.to(torch.bfloat16) if self.fast_transfer else scores.float()
 
     def _on_device(self, forward: Callable[[], torch.Tensor]) -> Dispatched:
         """Run `forward` on the compute stream in inference mode; cast its
         scores for transfer and record the event a fetch waits on."""
-        stream = (torch.cuda.stream(self.stream) if self.stream is not None
-                  else contextlib.nullcontext())
-        with torch.inference_mode(), stream:
-            scores = forward()
-            scores = scores.to(torch.bfloat16) if self.fast_transfer else scores.float()
+        with torch.inference_mode(), self._stream_of(0):
+            scores = self._cast(forward())
             ready = None
             if self.stream is not None:
                 ready = torch.cuda.Event()
                 ready.record(self.stream)
+        return scores, ready
+
+    def _on_devices(self, replicas, xs: Sequence[np.ndarray]) -> Dispatched:
+        """Mesh dispatch: a batch that divides the devices runs in
+        per-device chunks, replica i on chunk i on device i's stream, the
+        scores gathered on the first device; any other batch runs on the
+        first device."""
+        n = len(self.devices)
+        if xs[0].shape[0] % n:
+            return self._on_device(lambda: replicas[0](*(self._to_device(x) for x in xs)))
+        parts, done = [], []
+        with torch.inference_mode():
+            for i, (model, dev) in enumerate(zip(replicas, self.devices)):
+                with self._stream_of(i):
+                    chunk = [self._to_device(x, dev) for x in
+                             (np.array_split(a, n)[i] for a in xs)]
+                    # a copy to another card runs on this device's stream
+                    parts.append(self._cast(model(*chunk)).to(self.device, non_blocking=True))
+                    if self.streams[i] is not None:
+                        done.append(torch.cuda.Event())
+                        done[-1].record(self.streams[i])
+            with self._stream_of(0):
+                for ev in done:
+                    self.stream.wait_event(ev)
+                for p, s in zip(parts, self.streams):
+                    if s is not None and s is not self.stream:
+                        p.record_stream(self.stream)
+                scores = torch.cat(parts)
+                ready = None
+                if self.stream is not None:
+                    ready = torch.cuda.Event()
+                    ready.record(self.stream)
         return scores, ready
 
     def fetch(self, scores: torch.Tensor, ready) -> np.ndarray:
@@ -202,18 +269,25 @@ class InferenceEngine:
 
     # -- registry ----------------------------------------------------------
 
-    def register(self, name: str, model: torch.nn.Module, target_size: int) -> None:
+    def register(self, name: str, model: torch.nn.Module, target_size: int,
+                 needs_prompt: bool = False) -> None:
         """Register an eval-mode segmentation model (weights already on the
-        engine's device) under `name`. Prompt models go through
-        `register_prompt_composed`."""
+        engine's device) under `name`; under a mesh, with a replica on each
+        device. Prompt models go through `register_prompt_composed` (which
+        comes here under a mesh, with `needs_prompt`: the model then takes
+        (images, heatmaps))."""
         model.eval()
+        replicas = [model] + [copy.deepcopy(model).to(d) for d in self.devices[1:]]
 
-        def dispatch(x: np.ndarray) -> Dispatched:
-            return self._on_device(lambda: model(self._to_device(x)))
+        def dispatch(*xs: np.ndarray) -> Dispatched:
+            if self.mesh:
+                return self._on_devices(replicas, xs)
+            return self._on_device(lambda: model(*(self._to_device(x) for x in xs)))
 
         self.models[name] = ModelEntry(
             name=name, dispatch=dispatch, target_size=target_size,
-            class_names=SEG_CLASS_NAMES)
+            class_names=PROMPT_CLASS_NAMES if needs_prompt else SEG_CLASS_NAMES,
+            needs_prompt=needs_prompt)
 
     def register_prompt_composed(self, name: str, model: torch.nn.Module,
                                  target_size: int) -> None:
@@ -231,7 +305,12 @@ class InferenceEngine:
         UNet and the float32 algebra), with no host round trip. The cache
         holds float32 logits under `fast_transfer` too: the JAX composed
         path softmaxes its bf16-cast transfer scores (engine.py:142), which
-        the monolithic path does not."""
+        the monolithic path does not. Under a mesh it falls back to
+        `register` (the monolithic PromptModel on each device), as JAX's
+        does."""
+        if self.mesh:
+            self.register(name, model, target_size, needs_prompt=True)
+            return
         model.eval()
         cache = _ScoreCache()
 
@@ -268,6 +347,9 @@ class InferenceEngine:
         if name in self.models:
             print(f"[serve] note: exported program {path} replaces the registered "
                   f"model {name!r}")
+        if self.mesh:
+            print(f"[serve] note: mesh serving does not apply to AOT "
+                  f"artifacts — {name!r} runs single-device")
 
         def dispatch(*xs: np.ndarray) -> Dispatched:
             return self._on_device(lambda: call(*(self._upload(x) for x in xs)))

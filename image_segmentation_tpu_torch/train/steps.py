@@ -45,6 +45,17 @@ micro-batch (global sums, parallel/mesh.py), so each micro-batch is JAX's
 processes once per step, before the division. (JAX's own multi-process
 layout gives each process a contiguous block of the whole step batch and
 lets XLA reshard it for the micro-batch split.)
+
+On a (data, model) mesh (parallel/mesh.py) the rows split over the data
+axis only (`local_step_rows` takes the mesh's data size and rank): the
+ranks of a model group hold the same rows. A model whose encoder is
+tensor-parallel (parallel/tp.py) has its split parameters' gradients
+summed over the data group alone and divided by the data size; every other
+gradient is summed over the world and divided by its size, as before
+(parallel/mesh.py gives both derivations). Under spatial partitioning
+(parallel/sp.py) the caller hands `train_step` its block of H of its rows;
+nothing here changes, since every parameter is replicated and the halo
+exchange is its own adjoint.
 """
 from __future__ import annotations
 
@@ -55,7 +66,12 @@ from typing import Callable, Iterable, Iterator, Optional, Sequence, Tuple, Unio
 import numpy as np
 import torch
 
-from image_segmentation_tpu_torch.parallel.mesh import DataAxis, all_reduce_, world_size
+from image_segmentation_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    DataAxis,
+    all_reduce_,
+    world_size,
+)
 from image_segmentation_tpu_torch.train.state import TrainState
 from image_segmentation_tpu_torch.utils import profiling
 
@@ -222,8 +238,9 @@ def local_step_rows(step_batch: int, accum_steps: int, axis: DataAxis) -> np.nda
     on: for micro-batch i, rows [i·micro + rank·k, i·micro + (rank + 1)·k)
     with k = micro / W, in micro-batch order, so that `train_step`'s split
     of them into accum_steps parts gives each process its share of each
-    micro-batch. A micro-batch that does not divide over the processes is
-    refused (JAX would reshard it)."""
+    micro-batch. W and rank are the data axis's: on a (data, model) mesh
+    the ranks of a model group take the same rows. A micro-batch that does
+    not divide over the data axis is refused (JAX would reshard it)."""
     micro = step_batch // accum_steps
     if micro % axis.size:
         raise ValueError(f"the micro-batch of {micro} rows does not divide over "
@@ -268,11 +285,18 @@ def train_step(state: TrainState, loss_fn: Callable,
         loss.backward()
         total = loss.detach() if total is None else total + loss.detach()
     world = world_size()
-    grads = [p.grad for g in opt.param_groups for p in g["params"] if p.grad is not None]
+    params = [p for g in opt.param_groups for p in g["params"] if p.grad is not None]
+    grads = [p.grad for p in params if getattr(p, "tp_split_dim", None) is None]
+    split = [p.grad for p in params if getattr(p, "tp_split_dim", None) is not None]
     if accum_steps * world > 1:
         all_reduce_(grads)
         torch._foreach_div_(grads, float(accum_steps * world))
         total = total / accum_steps
+    if split:  # tensor-parallel shards: over the data group only (parallel/mesh.py)
+        group, data_size, _ = model.tp_mesh.axis(DATA_AXIS)
+        all_reduce_(split, group)
+        torch._foreach_div_(split, float(accum_steps * data_size))
+    grads += split
     if profiling.NAN_CHECKS:
         profiling.check_finite("gradient", state.step, grads)
     opt.step()

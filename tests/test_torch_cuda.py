@@ -140,6 +140,27 @@ def test_mlp_refuses_what_the_kernel_does_not_take(cuda):
         K4.fused_mlp(x, lw, lb, w1, b1, w2, b2, eps)
 
 
+# K4's tensor-parallel entry at ViT-B/16's F / 2 (one request, the largest
+# bucket), a ragged token count, and an F a multiple of 64 only.
+@pytest.mark.parametrize("m,h,f", [(197, 768, 1536), (1576, 768, 1536), (333, 768, 1536),
+                                   (65, 256, 192)])
+def test_mlp_partial_entry(cuda, m, h, f):
+    x, lw, lb, w1, b1, w2, _, eps = _mlp_args(m, h, f, cuda)
+    before, whole = K4.PARTIAL_LAUNCHES, K4.LAUNCHES
+    got = K4.fused_mlp_partial(x, lw, lb, w1, b1, w2, eps)
+    torch.cuda.synchronize()
+    assert (K4.PARTIAL_LAUNCHES, K4.LAUNCHES) == (before + 1, whole)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    _close(got, K4.mlp_partial_reference(x, lw, lb, w1, b1, w2, eps))
+    assert torch.equal(got, K4.fused_mlp_partial(x, lw, lb, w1, b1, w2, eps))
+
+
+def test_mlp_partial_entry_refuses_grad(cuda):
+    x, lw, lb, w1, b1, w2, _, eps = _mlp_args(4, 768, 1536, cuda)
+    with pytest.raises(RuntimeError, match="fused_mlp_partial: the CUDA kernel has no backward"):
+        K4.fused_mlp_partial(x, lw.requires_grad_(), lb, w1, b1, w2, eps)
+
+
 def test_small_clip_unet_runs_both_kernels(cuda):
     """A reduced ClipUNet built as the config builds it on CUDA (bf16,
     kernels on): one launch of each kernel per block, finite logits close
@@ -193,6 +214,24 @@ def test_double_conv_kernel(cuda, xshape, c, bias1_offset):
     assert got.shape == xshape[:3] + (c,)
     _close(got, K1.double_conv_reference(*args))
     assert torch.equal(got, K1.fused_double_conv(*args))  # split-K summed in order: same bits
+
+
+# K1 on the row slabs of spatial partitioning (parallel/sp.py): an interior
+# shard's rows with 2 rows of each neighbour, cropped by 2 on each side, and
+# the top and bottom shards' with none on the image's side (K1's own zero
+# padding acts there), each equal to the plain double conv of the whole
+# image on those rows; odd slab heights run on 16-row tiles.
+@pytest.mark.parametrize("xshape,c,rows", [((2, 256, 256, 3), 64, (128, 256)),
+                                           ((2, 256, 256, 3), 64, (0, 128)),
+                                           ((1, 64, 64, 128), 64, (16, 32)),
+                                           ((1, 16, 16, 512), 1024, (4, 8))])
+def test_double_conv_on_haloed_slabs(cuda, xshape, c, rows):
+    args = _k1_args(xshape, c, 1.0, cuda)
+    a, b = rows
+    top, bottom = min(2, a), min(2, xshape[1] - b)
+    slab = args[0][:, a - top:b + bottom].contiguous()
+    got = K1.fused_double_conv(slab, *args[1:])[:, top:top + b - a]
+    _close(got, K1.double_conv_reference(*args)[:, a:b])
 
 
 # The up block's double conv with the concat in the load stage: the

@@ -330,6 +330,9 @@ def test_port_imports_no_jax():
         "import image_segmentation_tpu_torch.train.feature_cache\n"
         "import image_segmentation_tpu_torch.data.prompts\n"
         "import image_segmentation_tpu_torch.utils.convert_clip_weights\n"
+        "import image_segmentation_tpu_torch.parallel.tp, image_segmentation_tpu_torch.parallel.sp\n"
+        "import image_segmentation_tpu_torch.parallel.pp\n"
+        "import image_segmentation_tpu_torch.parallel.dryrun\n"
         "from image_segmentation_tpu_torch.data import native_pipeline\n"
         "from image_segmentation_tpu_torch.ops import native, native_codec\n"
         "native.available(), native_codec.available()\n"
