@@ -163,15 +163,37 @@ Phases (each prints its lines; any failure ends the run non-zero):
      the one-device engine's chunks and whose launches are twice a
      chunk's; (e) each part's ms against one process (gloo through the
      host: the code path, not scaling);
- 17. the last line is {"ok": true, "device": {...}}.
+ 17. the reference study (`phase_study`) at full width through the port's
+     study modules, as a user runs them: (a) `scripts/fullscale.py
+     --images 64 --epochs 1 --patience 0 --batch 8 --target-size 256`: a
+     pseudo-Pet source, its preparation (0.15/0.15), `unet_aug` (offline
+     augmentation) and `unet_noaug` at UNet-64, the 8 x 10 device-path sweep
+     of both on Test, K1 nine times per Val, Test and sweep batch; (b)
+     `scripts/reproduce_reference.py --rows clip_aug,clip_noaug,autoencoder,
+     prompt --epochs 1 --batch-size 8` on the same tree with a converted
+     random ViT-B/16 (`--clip-weights`); (c) the unet_noaug and prompt best
+     checkpoints re-scored on Test with the kernels off (acc, dice and iou
+     each within 2e-3; no launch), and the sweep's u8 device path against
+     its host path on 2 families x 2 severities (within 5e-3); (d)
+     `studies/ablations.py --images 32 --epochs 1 --clip-pre-epochs 1
+     --clip-epochs 1`, all five experiments (K1 in the UNet evals, K3/K4 in
+     the frozen ViT's forwards). First, K1, K3 and K4 are held against their
+     plain versions at the shapes this phase adds to phase 3's
+     (`check_study_kernels`: K1 at the sweep's batch of 9, the ablations'
+     base-32 UNets at 256 and 512 px and their Cin = 4 selection UNet; K3
+     and K4 at the ablations' narrow ViT). Each step's wall seconds, each
+     row's Test metrics and the sweep's images/s are printed; every metric
+     is of one epoch and random weights, not a quality result;
+ 18. the last line is {"ok": true, "device": {...}}.
 
 Phase 3 also prints each kernel's host dispatch at one request's shape
 through its wrapper's direct path and through its torch op (the path of
 an exported program), and checks and times K4's tensor-parallel entry
 (`fused_mlp_partial`) at 197 and 1576 tokens with F 1536 as it times K4.
-The launch counts of phases 4-16 are each set to 0 just before the path
+The launch counts of phases 4-17 are each set to 0 just before the path
 is driven and read just after (in each child process for phases 15 and
-16); the kernels line sums them.
+16); the kernels line sums them (phase 17's (c) compares paths and is not
+counted).
 
 Run from the repository root: python3 chip_smoke.py (no arguments).
 """
@@ -3314,6 +3336,248 @@ def phase_model_parallel(K, launches: dict, card: str, tmp: str, unet_refs: dict
                                                for i in range(max(2, world))))
 
 
+STUDY_LABEL = "1 epoch / random-init ViT: not a quality result"
+
+
+def _split_eval_batches(tree: str, split: str, batch: int) -> int:
+    """The device-protocol eval batches over one split of a prepared tree:
+    its canvas-size buckets (16 or more images), each cut into batches."""
+    import os
+
+    from PIL import Image
+
+    from image_segmentation_tpu_torch.train.fast_eval import plan_size_buckets
+
+    ldir = os.path.join(tree, split, "label")
+    labels = []
+    for f in sorted(os.listdir(ldir)):
+        with Image.open(os.path.join(ldir, f)) as im:
+            labels.append(np.zeros((im.height, im.width), np.uint8))
+    plan = plan_size_buckets(labels) if len(labels) >= 16 else [range(len(labels))]
+    return sum(-(-len(b) // batch) for b in plan)
+
+
+@contextlib.contextmanager
+def _plain_config(name: str):
+    """run.main builds config `name` with the kernels off while inside."""
+    import dataclasses
+
+    from image_segmentation_tpu_torch import config as C
+
+    kept = C.CONFIGS[name]
+    C.CONFIGS[name] = dataclasses.replace(kept, use_kernels=False)
+    try:
+        yield
+    finally:
+        C.CONFIGS[name] = kept
+
+
+def _logged(log_path: str, fn, *args):
+    """fn(*args) with its stdout appended to log_path; on an error, the
+    log's last lines go to stderr before the error propagates."""
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*args)
+    except BaseException:
+        print("\n".join(buf.getvalue().splitlines()[-40:]), file=sys.stderr)
+        raise
+    finally:
+        with open(log_path, "a") as f:
+            f.write(buf.getvalue())
+
+
+def unet_levels(side: int, cin: int, base: int):
+    """unet64_levels for a UNet of another base width."""
+    return [(h, ci if i == 0 else ci * base // 64, c * base // 64)
+            for i, (h, ci, c) in enumerate(unet64_levels(side, cin))]
+
+
+# The K1 shapes phase 17 adds to phase 3's, as (N, side, stem Cin, base):
+# the ablations' base-32 UNets, whose eval batch is 32 at 256 px and 8 at
+# 512 px, and their prompt model's base-32 selection UNet (Cin 4, 224 px)
+# at N = 32; the sweep's batch on the 256 px UNet-64 is added at run time.
+STUDY_UNETS = ((32, 256, 3, 32), (8, 512, 3, 32), (32, 224, 4, 32))
+# K3 and K4 at the ablations' frozen ViT (hidden 128 in 2 heads of 64, MLP
+# 256; 224 px, batch 32): (B, S, H, D) and (tokens, hidden, F).
+STUDY_ATTENTION = (32, 197, 2, 64)
+STUDY_MLP = (32 * 197, 128, 256)
+
+
+def check_study_kernels(K, sweep_batch: int) -> dict:
+    """K1 (and its concat entry), K3 and K4 at the shapes phase 17 gives
+    them that phase 3 does not check (STUDY_UNETS and the sweep's batch
+    of `sweep_batch` on the UNet-64), each against its plain version within
+    two bf16 steps; returns the largest error by kernel."""
+    A, M, D = K
+    g = torch.Generator(device="cuda").manual_seed(17)
+    cases, cat_cases = [], []
+    for n, side, cin, base in STUDY_UNETS + ((sweep_batch, 256, 3, 64),):
+        levels = unet_levels(side, cin, base)
+        cases += [((n, h, h, ci), c, 0.0) for h, ci, c in levels]
+        cat_cases += [((n, h, h), ci // 2, ci // 2, c) for h, ci, c in levels[5:]]
+    k1 = max(check_double_conv(D, g, cases, cat_cases))
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    q, k, v = (rnd(*STUDY_ATTENTION).bfloat16() for _ in range(3))
+    got = A.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    k3 = _compare(f"attention {STUDY_ATTENTION}", got, A.attention_reference(q, k, v))
+    m, h, f = STUDY_MLP
+    args = ((0.5 * rnd(1, m, h)).bfloat16(), 1.0 + 0.1 * rnd(h), 0.1 * rnd(h),
+            (rnd(f, h) / h ** 0.5).bfloat16(), 0.1 * rnd(f), (rnd(h, f) / f ** 0.5).bfloat16(),
+            0.1 * rnd(h), 1e-5)
+    got = M.fused_mlp(*args)
+    torch.cuda.synchronize()
+    k4 = _compare(f"mlp tokens={m} {h}->{f}->{h}", got, M.mlp_reference(*args))
+    return {"fused_attention": k3, "fused_mlp": k4, "fused_double_conv": k1}
+
+
+def phase_study(K, launches: dict, card: str, tmp: str) -> dict:
+    """Phase 17 (module docstring): the reference study on the card at full
+    width, through the port's study modules as a user runs them. Returns
+    the largest error of each kernel against its plain version at the
+    shapes this phase adds."""
+    import os
+
+    from image_segmentation_tpu_torch import run as R
+    from image_segmentation_tpu_torch.scripts import fullscale, reproduce_reference
+    from image_segmentation_tpu_torch.studies import ablations
+    from image_segmentation_tpu_torch.studies.robustness import PERTURBATIONS, robustness_sweep
+    from image_segmentation_tpu_torch.studies.robustness_pipeline import (
+        load_row_model,
+        materialize_test_split,
+    )
+    from image_segmentation_tpu_torch.train.state import TrainState
+    from image_segmentation_tpu_torch.train.steps import eval_forward
+
+    work = os.path.join(tmp, "study")
+    os.makedirs(work)
+    log = os.path.join(work, "study.log")
+    tree, runs = os.path.join(work, "tree"), os.path.join(work, "runs")
+    walls = {}
+
+    # (a) the converged-run script at 1 epoch: pseudo-Pet source, prepare,
+    # unet_aug (offline augmentation) and unet_noaug at UNet-64, 256 px, and
+    # the 8 x 10 device-path sweep of both on Test
+    _zero(K)
+    t0 = time.time()
+    fs = _logged(log, fullscale.main, [
+        "--workdir", work, "--images", "64", "--epochs", "1", "--patience", "0",
+        "--batch", "8", "--target-size", "256", "--device", "cuda"])
+    walls["fullscale"] = time.time() - t0
+    counts_a = _counts(K)
+    _add(launches, K)
+    n_test = len(os.listdir(os.path.join(tree, "Test", "color")))
+    sweep_batches = len(PERTURBATIONS) * 10 * -(-n_test // 64)
+    # the sweep runs batches of min(64, n_test) images
+    evals = _split_eval_batches(tree, "Val", 8) + _split_eval_batches(tree, "Test", 8)
+    want_a = (0, 0, 9 * 2 * (evals + sweep_batches))
+    sweep_s = fs["total_wall_s"] - fs["train_wall_s"]
+    print(f"[study] (a) fullscale --images 64 --epochs 1 --batch 8 --target-size 256: "
+          f"{walls['fullscale']:.1f} s (train rows {fs['train_wall_s']} s); {n_test} Test "
+          f"images; launches (attention, mlp, double_conv) {counts_a}, want {want_a}; sweep "
+          f"{2 * len(PERTURBATIONS) * 10 * n_test / sweep_s:.1f} images/s (2 rows x 80 cells "
+          f"x {n_test} images over {sweep_s:.1f} s, the Test split's materialisation "
+          f"included) ({card})")
+    for row, m in fs["table"].items():
+        print(f"[study] (a) {row} Test: acc {m['acc']!r} dice {m['dice']!r} iou {m['iou']!r} "
+              f"({STUDY_LABEL})")
+    print(f"[study] (a) mean Dice gap aug - noaug by family "
+          f"{fs['robustness_mean_dice_gap_aug_minus_noaug']}, aug wins "
+          f"{fs['robustness_aug_wins']} of 8 ({STUDY_LABEL})")
+    curves = fs["robustness_curves"]
+    finite = all(np.isfinite(v).all() and len(v) == 10 for cv in curves.values()
+                 for v in cv.values())
+    if counts_a != want_a or set(curves) != {"unet_aug", "unet_noaug"} or not finite:
+        raise AssertionError(f"fullscale: launches {counts_a} against {want_a}, curves "
+                             f"{curves}")
+    errs = check_study_kernels(K, min(64, n_test))
+
+    # (b) the rest of the table on the same tree and in the same runs
+    # directory, the CLIP rows on a converted full-width ViT-B/16
+    npz = _write_clip_npz(work, seed=17)
+    _zero(K)
+    t0 = time.time()
+    table = _logged(log, reproduce_reference.main, [
+        "--data-root", tree, "--save-dir", runs, "--rows",
+        "clip_aug,clip_noaug,autoencoder,prompt", "--epochs", "1", "--batch-size", "8",
+        "--clip-weights", npz, "--device", "cuda", "--json-out",
+        os.path.join(work, "repro_table.json")])
+    walls["reproduce"] = time.time() - t0
+    counts_b = _counts(K)
+    _add(launches, K)
+    test_b = _split_eval_batches(tree, "Test", 8)
+    print(f"[study] (b) reproduce_reference clip_aug,clip_noaug,autoencoder,prompt --epochs 1 "
+          f"--batch-size 8 --clip-weights (ViT-B/16, random): {walls['reproduce']:.1f} s; "
+          f"launches {counts_b} ({card})")
+    for row, m in table.items():
+        print(f"[study] (b) {row} Test: acc {m['acc']!r} dice {m['dice']!r} iou {m['iou']!r} "
+              f"({STUDY_LABEL})")
+    ok = (set(table) == {"clip_aug", "clip_noaug", "autoencoder", "prompt"}
+          and all(0.0 <= m["iou"] <= m["dice"] <= 1.0 for m in table.values()))
+    # 12 K3/K4 launches a ViT forward: at least the three CLIP-family rows'
+    # Test evals; K1 at least the prompt row's Test eval (its selection UNet)
+    if not (ok and counts_b[0] == counts_b[1] >= 12 * 3 * test_b and counts_b[2] >= 9 * test_b):
+        raise AssertionError(f"reproduce_reference: {table}, launches {counts_b}")
+
+    # (c) each kernel against its plain version on this path: the best
+    # unet_noaug and prompt checkpoints re-scored on Test with the kernels
+    # off, and the sweep's u8 device path against its host path
+    _zero(K)
+    t0 = time.time()
+    for row, m in (("unet_noaug", fs["table"]["unet_noaug"]), ("prompt", table["prompt"])):
+        with _plain_config(row):
+            plain = _logged(log, R.main, [
+                "--config", row, "--data-root", tree, "--evaluate", os.path.join(runs, row, row),
+                "--split", "Test", "--batch-size", "8", "--device", "cuda"])
+        gaps = {k: abs(float(plain[k]) - m[k]) for k in ("acc", "dice", "iou")}
+        print(f"[study] (c) {row} Test through the kernels vs the plain versions: gaps "
+              f"{gaps} (tolerance 2e-3 each); plain acc {float(plain['acc'])!r} dice "
+              f"{float(plain['dice'])!r} iou {float(plain['iou'])!r} ({card})")
+        if not all(g <= 2e-3 for g in gaps.values()):
+            raise AssertionError(f"{row}: kernel and plain Test metrics differ by {gaps}")
+    if _counts(K) != (0, 0, 0):
+        raise AssertionError(f"the plain re-scores launched kernels: {_counts(K)}")
+    val = materialize_test_split(tree, 256)
+    model = load_row_model(runs, "unet_noaug", "cuda")
+    kw = dict(severities=[3, 8], families=["gaussian_noise", "brightness_up"], verbose=False,
+              batch_size=64)
+    host = robustness_sweep(lambda x: eval_forward(model, x).float(), val, device="cuda", **kw)
+    dev = robustness_sweep(None, val, state=TrainState(model), **kw)
+    gap = max(abs(a - b) for k in host for a, b in zip(host[k], dev[k]))
+    print(f"[study] (c) sweep, u8 device path vs host path, 2 families x 2 severities: "
+          f"max Dice gap {gap!r} (tolerance 5e-3); {time.time() - t0:.1f} s ({card})")
+    if not gap <= 5e-3:
+        raise AssertionError(f"sweep device path vs host path: {dev} against {host}")
+    del model
+
+    # (d) the report's controlled comparisons at 32 images, 1 epoch each
+    _zero(K)
+    t0 = time.time()
+    abl = _logged(log, ablations.main, [
+        "--images", "32", "--epochs", "1", "--clip-pre-epochs", "1", "--clip-epochs", "1",
+        "--device", "cuda"])
+    walls["ablations"] = time.time() - t0
+    counts_d = _counts(K)
+    _add(launches, K)
+    print(f"[study] (d) ablations, all five, --images 32 --epochs 1 --clip-pre-epochs 1 "
+          f"--clip-epochs 1 (ViT hidden {abl['config']['vit_hidden']}, "
+          f"{abl['config']['vit_heads']} heads): {walls['ablations']:.1f} s; launches "
+          f"{counts_d} ({card})")
+    for s in abl["summaries"]:
+        print(f"[study] (d) {s['summary']}: mIoU {s['miou']} epoch s {s['epoch_s']} "
+              f"({STUDY_LABEL})")
+    want_exp = {"loss", "weights", "skips", "resolution", "prompt_freeze"}
+    if {s["summary"] for s in abl["summaries"]} != want_exp or not all(c > 0 for c in counts_d) \
+            or counts_d[0] != counts_d[1]:
+        raise AssertionError(f"ablations: {abl['summaries']}, launches {counts_d}")
+    print(f"[study] wall s {({k: round(v, 1) for k, v in walls.items()})}; launches counted "
+          f"(a) {counts_a} (b) {counts_b} (d) {counts_d}; log {os.path.getsize(log)} bytes")
+    return errs
+
+
 def _card_line() -> str:
     """The first card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -3459,6 +3723,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches["fused_mlp_partial"] = 0
         timed(phase_model_parallel, K, launches, card, tmp, unet_refs)
+        torch.cuda.empty_cache()
+        for name, err in timed(phase_study, K, launches, card, tmp).items():
+            timing[name]["max_abs_err"] = max(timing[name]["max_abs_err"], err)
     print(f"[done] every phase passed in {time.time() - start:.1f} s from the build on")
 
     sources = {"fused_attention": ("attention.cu", "image_segmentation_tpu/ops/pallas/attention.py:99"),

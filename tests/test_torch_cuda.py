@@ -997,6 +997,28 @@ def test_nccl_world_size_one_step_on_the_card(cuda, tmp_path):
     assert torch.equal(res["conf"], conf)
 
 
+def test_robustness_sweep_device_path_on_the_card_runs_k1(cuda):
+    """The robustness sweep's device path (u8 transport, canvas confusion on
+    the card) on a full-width UNet-64 at 256 px launches K1 nine times a
+    batch and lies within 5e-3 of its host path (JAX's tolerance between
+    the two, tests/test_ablations.py:127-131)."""
+    from image_segmentation_tpu_torch import config as C
+    from image_segmentation_tpu_torch.run import synthetic_materialized
+    from image_segmentation_tpu_torch.studies.robustness import robustness_sweep
+    from image_segmentation_tpu_torch.train.state import TrainState
+    from image_segmentation_tpu_torch.train.steps import eval_forward
+
+    model = C.build_model(C.UNET_NOAUG, cuda, torch.Generator().manual_seed(0))
+    val = synthetic_materialized(6, 256, seed=3, keep_orig_labels=True)
+    kw = dict(severities=[2, 7], families=["blur", "occlusion"], verbose=False, batch_size=4)
+    host = robustness_sweep(lambda x: eval_forward(model, x).float(), val, device=cuda, **kw)
+    before = K1.LAUNCHES
+    dev = robustness_sweep(None, val, state=TrainState(model), **kw)
+    assert K1.LAUNCHES - before == 9 * 2 * 2 * 2  # 9 a batch, 2 batches, 2 x 2 cells
+    for k in host:
+        np.testing.assert_allclose(dev[k], host[k], atol=5e-3, err_msg=k)
+
+
 if __name__ == "__main__":
     import os
     import sys
