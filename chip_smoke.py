@@ -184,16 +184,32 @@ Phases (each prints its lines; any failure ends the run non-zero):
      and K4 at the ablations' narrow ViT). Each step's wall seconds, each
      row's Test metrics and the sweep's images/s are printed; every metric
      is of one epoch and random weights, not a quality result;
- 18. the last line is {"ok": true, "device": {...}}.
+ 18. the speed probes and parity rehearsals (`phase_probes`) at full width
+     through their `main`s, as a user runs them: `probes.confusion_probe`
+     (bincount, one-hot product and scatter-add counts equal), `eval_bench
+     --images 128` (device and host protocols; metrics_match_host_oracle;
+     K1 nine times a batch; the device metrics within 2e-3 of the module
+     path's), `serve_profile --steps 20` (K1 in the forward; its mask on
+     >= 0.99 of the module path's pixels, and as close to the float32
+     forward's as the module path's bf16 mask), `profile_train_step
+     --steps 5`, `step_variants` (all five, 3 steps), `backward_anatomy
+     --per-conv` (the buckets within 2% of the trace's device time),
+     `reference_anchor --mode torch-samechip` over 2 windows of 32,
+     `studies.bn_regime --seeds 1 --epochs 1` and `studies.
+     convergence_rehearsal --epochs 2` (its first-step check); the K1
+     launches of each counted against its eval batches and forwards; then
+     K1 and its concat entry against their plain versions at every shape
+     the phase gave them that phase 3 does not check;
+ 19. the last line is {"ok": true, "device": {...}}.
 
 Phase 3 also prints each kernel's host dispatch at one request's shape
 through its wrapper's direct path and through its torch op (the path of
 an exported program), and checks and times K4's tensor-parallel entry
 (`fused_mlp_partial`) at 197 and 1576 tokens with F 1536 as it times K4.
-The launch counts of phases 4-17 are each set to 0 just before the path
+The launch counts of phases 4-18 are each set to 0 just before the path
 is driven and read just after (in each child process for phases 15 and
-16); the kernels line sums them (phase 17's (c) compares paths and is not
-counted).
+16); the kernels line sums them (phase 17's (c) and phase 18's comparisons
+with the module path and the plain version are not counted).
 
 Run from the repository root: python3 chip_smoke.py (no arguments).
 """
@@ -3339,6 +3355,16 @@ def phase_model_parallel(K, launches: dict, card: str, tmp: str, unet_refs: dict
 STUDY_LABEL = "1 epoch / random-init ViT: not a quality result"
 
 
+def _eval_batches_of(labels, batch: int) -> int:
+    """The device eval's batches over a val set with these native label
+    maps: its canvas-size buckets (16 or more images), each cut into batches
+    of `batch`."""
+    from image_segmentation_tpu_torch.train.fast_eval import plan_size_buckets
+
+    plan = plan_size_buckets(labels) if len(labels) >= 16 else [range(len(labels))]
+    return sum(-(-len(b) // batch) for b in plan)
+
+
 def _split_eval_batches(tree: str, split: str, batch: int) -> int:
     """The device-protocol eval batches over one split of a prepared tree:
     its canvas-size buckets (16 or more images), each cut into batches."""
@@ -3346,15 +3372,12 @@ def _split_eval_batches(tree: str, split: str, batch: int) -> int:
 
     from PIL import Image
 
-    from image_segmentation_tpu_torch.train.fast_eval import plan_size_buckets
-
     ldir = os.path.join(tree, split, "label")
     labels = []
     for f in sorted(os.listdir(ldir)):
         with Image.open(os.path.join(ldir, f)) as im:
             labels.append(np.zeros((im.height, im.width), np.uint8))
-    plan = plan_size_buckets(labels) if len(labels) >= 16 else [range(len(labels))]
-    return sum(-(-len(b) // batch) for b in plan)
+    return _eval_batches_of(labels, batch)
 
 
 @contextlib.contextmanager
@@ -3578,6 +3601,165 @@ def phase_study(K, launches: dict, card: str, tmp: str) -> dict:
     return errs
 
 
+def serve_profile_masks() -> dict:
+    """The masks (argmax of the float32 scores at the model's 256 px) of
+    serve_profile's request through its seeded UNet: the K1 forward, the
+    module path in bf16 and the module path in float32."""
+    from image_segmentation_tpu_torch.probes import serve_profile
+    from image_segmentation_tpu_torch.serve.engine import stage_request
+
+    masks = {}
+    for name, kernels, dtype in (("k1", True, None), ("module", False, None),
+                                 ("f32", False, torch.float32)):
+        engine, model = serve_profile.build(256, "cuda", use_kernels=kernels)
+        model.dtype = dtype or model.dtype
+        (staged,), _ = stage_request(serve_profile.image(), engine.models["unet"], None, True)
+        x = torch.from_numpy(staged[None]).cuda().float() / 255.0
+        with torch.inference_mode():
+            masks[name] = model(x)[0].argmax(-1)
+    return masks
+
+
+def _probe(K, launches: dict, shapes_seen: list, walls: dict, name: str, fn, *args):
+    """One probe's main through its entry point, its K1 shapes recorded and
+    its launches counted from 0; returns (result, launches of this run)."""
+    _zero(K)
+    t0 = time.time()
+    with _recording_k1_shapes() as shapes:
+        out = fn(*args)
+    walls[name] = time.time() - t0
+    counts = _counts(K)
+    _add(launches, K)
+    shapes_seen += shapes
+    return out, counts
+
+
+def phase_probes(K, launches: dict, card: str, tmp: str) -> float:
+    """Phase 18 (module docstring): the speed probes and parity rehearsals
+    at full width through their `main`s, short counts. Returns K1's largest
+    error against its plain version at the shapes this phase gave it that
+    phase 3 does not check."""
+    import os
+
+    from image_segmentation_tpu_torch.probes import (
+        backward_anatomy,
+        confusion_probe,
+        eval_bench,
+        profile_train_step,
+        reference_anchor,
+        serve_profile,
+        step_variants,
+    )
+    from image_segmentation_tpu_torch.studies import ablations, bn_regime, convergence_rehearsal
+
+    A, M, D = K
+    shapes, walls = [], {}
+    probe = lambda *a: _probe(K, launches, shapes, walls, *a)  # noqa: E731
+
+    # (a) the confusion formulations on eval-protocol canvases
+    conf, counts = probe("confusion_probe", confusion_probe.main,
+                         ["--iters", "10", "--repeat", "2", "--device", "cuda"])
+    if not conf["counts_equal"] or counts != (0, 0, 0):
+        raise AssertionError(f"confusion_probe: {conf}, launches {counts}")
+
+    # (b) eval_bench at 128 images, both protocols; K1 against the module path
+    eb, counts = probe("eval_bench", eval_bench.main, ["--images", "128", "--device", "cuda"])
+    dev_row = eb["rows"][0]
+    dev_batches = sum(-(-b["images"] // 16) for b in dev_row["bucket_plan"])
+    want = 9 * (2 * dev_batches + -(-128 // 16))  # device: untimed + timed; host once
+    val, plain, _ = eval_bench.setup(128, False, "cuda", use_kernels=False)
+    _, plain_m = eval_bench.measure(plain, val, ["device"], 16)
+    gaps = {k: abs(float(plain_m["device"][m]) - dev_row[k])
+            for k, m in (("dice", "dice"), ("miou", "iou"), ("val_loss", "loss"))}
+    print(f"[probes] (b) eval_bench --images 128: device {dev_row['value']!r} images/s, host "
+          f"{eb['rows'][1]['value']!r} images/s, metrics_match_host_oracle "
+          f"{eb['metrics_match_host_oracle']}, bit-identical {eb['metrics_bit_identical']}; "
+          f"launches {counts}, want K1 {want}; K1 device metrics vs the module path's: gaps "
+          f"{gaps} (tolerance 2e-3) ({card})")
+    if not eb["metrics_match_host_oracle"] or counts != (0, 0, want) \
+            or not all(g <= 2e-3 for g in gaps.values()):
+        raise AssertionError(f"eval_bench: {eb}, launches {counts}, gaps {gaps}")
+    del val, plain
+
+    # (c) serve_profile at 20 steps; the K1 mask against the module path's
+    steps = 20
+    sp, counts = probe("serve_profile", serve_profile.main, ["--steps", str(steps),
+                                                            "--device", "cuda"])
+    want = 9 * (2 + 3 * (steps + 1))  # warm-up, one dispatch, forward / fetch / e2e
+    # Random weights on a noise image leave near-ties everywhere: bf16 alone
+    # moves the module path's mask off the float32 forward's on about 0.6% of
+    # the pixels, so K1's mask is held to the module path's within 0.01 and
+    # to the float32 mask no worse than the module path's bf16 mask is
+    masks = serve_profile_masks()
+    agree = lambda a, b: float((masks[a] == masks[b]).float().mean())  # noqa: E731
+    pairs = {"k1_vs_module": agree("k1", "module"), "k1_vs_f32": agree("k1", "f32"),
+             "module_vs_f32": agree("module", "f32")}
+    print(f"[probes] (c) serve_profile --steps {steps}: stage {sp['stage_ms']!r} ms, upload "
+          f"{sp['upload_ms']!r}, forward {sp['forward_ms']!r}, fetch {sp['fetch_ms']!r}, "
+          f"unstage {sp['unstage_ms']!r}, e2e {sp['e2e_ms']!r}; launches {counts}, want K1 "
+          f"{want}; masks (argmax of float32 scores) agree on these shares of pixels: "
+          f"{pairs} (want K1 vs module >= 0.99, K1 vs f32 >= module vs f32 - 1e-3) ({card})")
+    if counts != (0, 0, want) or pairs["k1_vs_module"] < 0.99 \
+            or pairs["k1_vs_f32"] < pairs["module_vs_f32"] - 1e-3:
+        raise AssertionError(f"serve_profile: launches {counts}, mask agreement {pairs}")
+
+    # (d)-(g) the train step's probes (module path: no kernel launches)
+    pts, c_d = probe("profile_train_step", profile_train_step.main,
+                     ["--steps", "5", "--device", "cuda"])
+    sv, c_e = probe("step_variants", step_variants.main,
+                    ["--steps", "3", "--turns", "1", "--device", "cuda"])
+    ba, c_f = probe("backward_anatomy", backward_anatomy.main,
+                    ["--per-conv", "--steps", "3", "--device", "cuda"])
+    ra, c_g = probe("reference_anchor", reference_anchor.main,
+                    ["--mode", "torch-samechip", "--steps", "64", "--device", "cuda"])
+    print(f"[probes] (d) profile_train_step: step {pts['step']!r} ms, {pts['img_per_sec']!r} "
+          f"images/s, peak {pts['peak_memory_bytes']} bytes; (e) step_variants images/s "
+          f"{sv['img_per_sec']}; (f) backward_anatomy: device {ba['device_total_ms']!r} ms a "
+          f"step, attributed {ba['attributed_share']!r}, bwd/fwd {ba['bwd_over_fwd']!r}, "
+          f"outside the convs {ba['per_conv']['outside_conv_share']!r}; (g) torch-samechip "
+          f"{ra['images_per_sec']!r} images/s; launches {c_d} {c_e} {c_f} {c_g} ({card})")
+    if abs(ba["attributed_share"] - 1.0) > 0.02 or any(sum(c) for c in (c_d, c_e, c_f, c_g)) \
+            or set(sv["img_per_sec"]) != set(step_variants.VARIANTS):
+        raise AssertionError(f"train-step probes: anatomy {ba}, variants {sv}, launches "
+                             f"{c_d} {c_e} {c_f} {c_g}")
+
+    # (h) bn_regime, one seed per arm, 1 epoch, at its default sizes
+    bn, counts = probe("bn_regime", bn_regime.main, ["--seeds", "1", "--epochs", "1",
+                                                     "--device", "cuda"])
+    labels = [l for _, l in ablations.hard_synthetic_items(64, 100)]
+    want = 9 * sum(_eval_batches_of(labels, b) for _, b, _ in bn_regime.arms(True))
+    print(f"[probes] (h) bn_regime --seeds 1 --epochs 1: best Dice "
+          f"{ {r['arm']: r['best_dice'] for r in bn['rows']} }; launches {counts}, want K1 "
+          f"{want} (1 epoch: not a quality result) ({card})")
+    if counts != (0, 0, want) or [r["micro_batch"] for r in bn["rows"]] != [2, 64, 128]:
+        raise AssertionError(f"bn_regime: {bn['rows']}, launches {counts}")
+
+    # (i) convergence_rehearsal at 2 epochs with its first-step check
+    cr, counts = probe("convergence_rehearsal", convergence_rehearsal.main, [
+        "--epochs", "2", "--device", "cuda", "--out", os.path.join(tmp, "rehearsal.json")])
+    labels = [l for _, l in ablations.hard_synthetic_items(24, 99)]
+    want = 9 * 2 * _eval_batches_of(labels, 8)
+    print(f"[probes] (i) convergence_rehearsal --epochs 2: first step rel "
+          f"{cr['rel_drift']['first_step']!r}, first epoch max rel "
+          f"{cr['rel_drift']['first_epoch_max']!r}, checks {cr['checks']}; launches {counts}, "
+          f"want K1 {want} ({card})")
+    if not cr["checks"]["first_step_rel_lt_1e-3"] or counts != (0, 0, want):
+        raise AssertionError(f"convergence_rehearsal: {cr['rel_drift']}, launches {counts}")
+
+    # K1 against its plain version at every shape this phase gave it that
+    # phase 3 does not check
+    k1 = {(tuple(x), c) for x, c, _ in K1_CASES}
+    cat = {(nhw, cs, cu, c) for nhw, cs, cu, c in K1_CAT_CASES}
+    cases = sorted({(tuple(sh[0]), sh[1]) for sh in shapes if len(sh) == 2} - k1)
+    cat_cases = sorted({(tuple(sh[0]), *sh[1:]) for sh in shapes if len(sh) == 4} - cat)
+    g = torch.Generator(device="cuda").manual_seed(18)
+    errs = check_double_conv(D, g, [(x, c, 0.0) for x, c in cases], cat_cases)
+    print(f"[probes] K1 at {len(cases)} new shapes and its concat entry at {len(cat_cases)} "
+          f"against the plain version: largest error {max(errs)!r}; wall s "
+          f"{ {k: round(v, 1) for k, v in walls.items()} } ({card})")
+    return max(errs)
+
+
 def _card_line() -> str:
     """The first card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -3726,6 +3908,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         for name, err in timed(phase_study, K, launches, card, tmp).items():
             timing[name]["max_abs_err"] = max(timing[name]["max_abs_err"], err)
+        torch.cuda.empty_cache()
+        err = timed(phase_probes, K, launches, card, tmp)
+        timing["fused_double_conv"]["max_abs_err"] = max(
+            timing["fused_double_conv"]["max_abs_err"], err)
     print(f"[done] every phase passed in {time.time() - start:.1f} s from the build on")
 
     sources = {"fused_attention": ("attention.cu", "image_segmentation_tpu/ops/pallas/attention.py:99"),

@@ -1,9 +1,11 @@
-"""The reference report's studies, each runnable as
-`python -m image_segmentation_tpu_torch.studies.<name>`: the 8 x 10
-robustness sweep (`robustness`), its pipeline from a pseudo-Pet tree to
-both UNet rows' curves (`robustness_pipeline`) and the controlled
-comparisons (`ablations`). Counterparts of the JAX repository's
-benchmarks/{robustness,robustness_pipeline,ablations}.py."""
+"""The reference report's studies and the parity rehearsals, each
+runnable as `python -m image_segmentation_tpu_torch.studies.<name>`: the
+8 x 10 robustness sweep (`robustness`), its pipeline from a pseudo-Pet
+tree to both UNet rows' curves (`robustness_pipeline`), the controlled
+comparisons (`ablations`), the BatchNorm regime (`bn_regime`) and the
+reference recipe against the port's trainer (`convergence_rehearsal`).
+Counterparts of the JAX repository's benchmarks/{robustness,
+robustness_pipeline,ablations,bn_regime,convergence_rehearsal}.py."""
 
 import torch
 

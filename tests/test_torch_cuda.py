@@ -1019,6 +1019,68 @@ def test_robustness_sweep_device_path_on_the_card_runs_k1(cuda):
         np.testing.assert_allclose(dev[k], host[k], atol=5e-3, err_msg=k)
 
 
+def test_confusion_formulations_agree_on_the_card(cuda):
+    """The confusion probe's bincount, one-hot product and scatter-add on
+    an eval-protocol canvas batch with 15% FILL: equal integer counts."""
+    from image_segmentation_tpu_torch.probes import confusion_probe
+
+    labels, preds, valid = confusion_probe.inputs(16, 512, 4, cuda)
+    counts = {name: fn(labels, preds, valid, 4).cpu()
+              for name, fn in confusion_probe.FORMULATIONS.items()}
+    assert all(torch.equal(v, counts["bincount"]) for v in counts.values())
+    assert int(counts["bincount"].sum()) == int(valid.sum())
+
+
+def test_dts_up_conv_equals_the_transpose_conv_in_bf16(cuda):
+    """step_variants' dts: the 1×1 conv + pixel_shuffle on relabelled
+    weights against the transpose conv, bf16 on the card, within two bf16
+    steps of the output's largest magnitude (cuDNN sums in another order)."""
+    from image_segmentation_tpu_torch.models.layers import UpConv
+    from image_segmentation_tpu_torch.probes.step_variants import DtsUpConv
+
+    up = UpConv(1024, 512)
+    up.init_weights(torch.Generator().manual_seed(1))
+    up = up.to(cuda)
+    x = torch.randn(8, 1024, 16, 16, generator=torch.Generator().manual_seed(2)).to(
+        cuda, torch.bfloat16, memory_format=torch.channels_last)
+    with torch.no_grad():
+        _close(DtsUpConv(up)(x), up(x))
+
+
+def test_backward_anatomy_buckets_add_up_to_the_trace(cuda):
+    """backward_anatomy's buckets on a base-8 UNet step (bf16, 4 x 64²)
+    account for the trace's device time within 2%."""
+    from torch.profiler import record_function
+
+    from image_segmentation_tpu_torch.losses import DiceCELoss
+    from image_segmentation_tpu_torch.models.unet import UNet
+    from image_segmentation_tpu_torch.probes import backward_anatomy as BA
+    from image_segmentation_tpu_torch.train.state import TrainState, make_adamw
+    from image_segmentation_tpu_torch.train.steps import train_step
+
+    model = UNet(base=8, dtype=torch.bfloat16).init_weights(torch.Generator().manual_seed(0))
+    model = model.to(cuda, memory_format=torch.channels_last)
+    state = TrainState(model, make_adamw(model.parameters())[0])
+    g = torch.Generator().manual_seed(0)
+    x, y = torch.rand(4, 64, 64, 3, generator=g).to(cuda), torch.randint(0, 4, (4, 64, 64)).to(cuda)
+    loss = DiceCELoss(ignore_index=3)
+
+    def scoped(lg, t):
+        with record_function(BA.LOSS_SCOPE):
+            return loss(lg, t)
+
+    train_step(state, scoped, x, y)
+    torch.cuda.synchronize()
+    with BA.module_scopes(model):
+        prof = BA.whole_trace(lambda: [train_step(state, scoped, x, y) for _ in range(2)], cuda,
+                              record_shapes=True)
+    res = BA.anatomy(model, prof, cuda, 2, per_conv=True, dtype=torch.bfloat16)
+    assert abs(res["attributed_share"] - 1.0) <= 0.02, res
+    for k in ("fwd/conv", "fwd/bn", "bwd/conv", "bwd/bn", "loss", "optimizer/update"):
+        assert res["buckets_ms_per_step"][k] > 0, k
+    assert {r["kind"] for r in res["per_conv"]} == {"fwd", "dgrad", "wgrad", "bias"}
+
+
 if __name__ == "__main__":
     import os
     import sys
