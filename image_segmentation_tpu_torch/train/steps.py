@@ -56,6 +56,23 @@ gradient is summed over the world and divided by its size, as before
 (parallel/sp.py) the caller hands `train_step` its block of H of its rows;
 nothing here changes, since every parameter is replicated and the halo
 exchange is its own adjoint.
+
+`train_step` opens a span at each phase (`utils.profiling.span`), so
+that the host's time a step splits by phase. They record only while
+`utils.profiling.SPANS` holds a log (`record_spans()`, `trace_context`);
+off, they cost a read of that global each. Their times are on
+`time.perf_counter`, the host clock the benchmark's device trace is
+mapped onto, and all spans of one call carry its `state.step`:
+  * `train.step`: the whole call, augmentation included; its self time
+    is `zero_grad`, the micro-batch slicing, the loop and the NaN checks
+    of the losses;
+  * `train.forward` (micro-batch i): `model(...)`, train-mode BatchNorm
+    and its running statistics included;
+  * `train.loss` (i): `loss_fn(...)`;
+  * `train.backward` (i): `loss.backward()`, the autograd engine's
+    enqueue, which the caller waits for;
+  * `train.update`: the gradients collected, summed over processes and
+    divided, their NaN check, `opt.step()` and `scheduler.step()`.
 """
 from __future__ import annotations
 
@@ -268,41 +285,49 @@ def train_step(state: TrainState, loss_fn: Callable,
     number as well (parallel/mesh.py gives the derivation). Under
     `utils.profiling.enable_nan_checks()` a non-finite micro-batch loss or
     summed gradient raises FloatingPointError naming the step (its index
-    from 0) before the optimizer moves."""
-    if augment_fn is not None:
-        images, targets = augment_fn(images, targets, generator)
-    inputs = images if isinstance(images, tuple) else (images,)
-    model, opt = state.model, state.optimizer
-    model.train()
-    opt.zero_grad(set_to_none=True)
-    micro = targets.shape[0] // accum_steps
-    total = None
-    for i in range(accum_steps):
-        rows = slice(i * micro, (i + 1) * micro)
-        loss = loss_fn(model(*(x[rows] for x in inputs)), targets[rows])
-        if profiling.NAN_CHECKS:
-            profiling.check_finite(f"loss (micro-batch {i})", state.step, [loss])
-        loss.backward()
-        total = loss.detach() if total is None else total + loss.detach()
-    world = world_size()
-    params = [p for g in opt.param_groups for p in g["params"] if p.grad is not None]
-    grads = [p.grad for p in params if getattr(p, "tp_split_dim", None) is None]
-    split = [p.grad for p in params if getattr(p, "tp_split_dim", None) is not None]
-    if accum_steps * world > 1:
-        all_reduce_(grads)
-        torch._foreach_div_(grads, float(accum_steps * world))
-        total = total / accum_steps
-    if split:  # tensor-parallel shards: over the data group only (parallel/mesh.py)
-        group, data_size, _ = model.tp_mesh.axis(DATA_AXIS)
-        all_reduce_(split, group)
-        torch._foreach_div_(split, float(accum_steps * data_size))
-    grads += split
-    if profiling.NAN_CHECKS:
-        profiling.check_finite("gradient", state.step, grads)
-    opt.step()
-    if state.scheduler is not None:
-        state.scheduler.step()
-    state.step += 1
+    from 0) before the optimizer moves. Under `utils.profiling.record_spans()`
+    the call records its spans (the module docstring names them)."""
+    with profiling.span("train.step", step=state.step):
+        if augment_fn is not None:
+            images, targets = augment_fn(images, targets, generator)
+        inputs = images if isinstance(images, tuple) else (images,)
+        model, opt = state.model, state.optimizer
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        micro = targets.shape[0] // accum_steps
+        total = None
+        for i in range(accum_steps):
+            rows = slice(i * micro, (i + 1) * micro)
+            xs, ys = tuple(x[rows] for x in inputs), targets[rows]
+            with profiling.span("train.forward", micro=i):
+                out = model(*xs)
+            with profiling.span("train.loss", micro=i):
+                loss = loss_fn(out, ys)
+            if profiling.NAN_CHECKS:
+                profiling.check_finite(f"loss (micro-batch {i})", state.step, [loss])
+            with profiling.span("train.backward", micro=i):
+                loss.backward()
+            total = loss.detach() if total is None else total + loss.detach()
+        with profiling.span("train.update"):
+            world = world_size()
+            params = [p for g in opt.param_groups for p in g["params"] if p.grad is not None]
+            grads = [p.grad for p in params if getattr(p, "tp_split_dim", None) is None]
+            split = [p.grad for p in params if getattr(p, "tp_split_dim", None) is not None]
+            if accum_steps * world > 1:
+                all_reduce_(grads)
+                torch._foreach_div_(grads, float(accum_steps * world))
+                total = total / accum_steps
+            if split:  # tensor-parallel shards: over the data group only (parallel/mesh.py)
+                group, data_size, _ = model.tp_mesh.axis(DATA_AXIS)
+                all_reduce_(split, group)
+                torch._foreach_div_(split, float(accum_steps * data_size))
+            grads += split
+            if profiling.NAN_CHECKS:
+                profiling.check_finite("gradient", state.step, grads)
+            opt.step()
+            if state.scheduler is not None:
+                state.scheduler.step()
+        state.step += 1
     return total
 
 

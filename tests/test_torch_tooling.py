@@ -109,16 +109,6 @@ def test_nan_checks_raise_at_a_non_finite_gradient():
         train_step(_state(), loss, *_batch(), 1)
 
 
-def test_step_timer_skips_warmup_and_summarises():
-    timer = profiling.StepTimer(warmup_steps=1, device="cpu")
-    for _ in range(3):
-        with timer.step():
-            torch.ones(8).sum()
-    assert len(timer.times) == 2 and timer.mean_s > 0
-    assert timer.summary(batch_size=8).startswith("2 steps, mean")
-    assert profiling.StepTimer().images_per_sec(8) != profiling.StepTimer().images_per_sec(8)
-
-
 def test_logger_fans_out_arrays(tmp_path):
     lg = tb.TensorBoardLogger(str(tmp_path))
     lg.log(1, {"a": 0.5, "b": np.array([1.0, 2.0])})
