@@ -28,6 +28,7 @@ between them unchanged:
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -47,16 +48,34 @@ from image_segmentation_tpu_torch.models.layers import (
 from image_segmentation_tpu_torch.ops.geometry import _triangle_weight_matrix_np
 
 
+def _triangle_weights(n_in: int, n_out: int, dtype: torch.dtype,
+                      device: torch.device) -> torch.Tensor:
+    """The (n_out, n_in) triangle-weight matrix on `device`."""
+    w = _triangle_weight_matrix_np(n_in, n_out, True)
+    return torch.from_numpy(w).to(dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_triangle_weights(n_in: int, n_out: int, dtype: torch.dtype,
+                             device: torch.device) -> torch.Tensor:
+    """`_triangle_weights`, made once a shape, so that an eager forward
+    copies nothing from host memory (a CUDA graph can capture it,
+    train/graphs.py) and the tensor outlives every graph that reads it.
+    Made outside inference mode, so that a train step may save it for
+    backward after a serving call made it. While torch.export traces,
+    `resize_linear` makes the matrix in the trace instead, as a constant
+    of the program."""
+    with torch.inference_mode(False):
+        return _triangle_weights(n_in, n_out, dtype, device)
+
+
 def resize_linear(x: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:
     """jax.image.resize(method='linear') of an NCHW tensor, as two
     contractions with the triangle-weight matrices (antialias on, the
     jax default; it only matters when shrinking)."""
-    def weights(n_in, n_out):
-        w = _triangle_weight_matrix_np(int(n_in), int(n_out), True)
-        return torch.from_numpy(w).to(dtype=x.dtype, device=x.device)
-
-    wy = weights(x.shape[2], out_hw[0])
-    wx = weights(x.shape[3], out_hw[1])
+    weights = _triangle_weights if torch.compiler.is_compiling() else _cached_triangle_weights
+    wy = weights(int(x.shape[2]), int(out_hw[0]), x.dtype, x.device)
+    wx = weights(int(x.shape[3]), int(out_hw[1]), x.dtype, x.device)
     # rows, then columns: two products, the order a three-operand einsum
     # took, without its path search, which fixes the batch size in a trace
     y = torch.einsum("oh,nchw->ncow", wy, x)

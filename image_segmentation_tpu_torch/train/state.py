@@ -3,7 +3,9 @@
 Counterpart of image_segmentation_tpu/train/state.py. JAX threads an
 immutable pytree through a donated step; here the model's parameters and
 BatchNorm statistics and the optimizer's moments update in place, so the
-state is a small holder of the objects a step mutates.
+state is a small holder of the objects a step mutates, and of the CUDA
+graphs its train step replays (`graphs`, train/graphs.py), which go with
+it.
 
 `make_adamw` matches `optax.adamw` (b1 0.9, b2 0.999, eps 1e-8, decay
 on every trainable parameter, the decay scaled by the learning rate): in
@@ -20,6 +22,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from image_segmentation_tpu_torch.train.graphs import MicroBatchGraphs
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -27,6 +31,9 @@ class TrainState:
     optimizer: Optional[torch.optim.Optimizer] = None
     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None
     step: int = 0  # optimizer steps taken
+    # the CUDA graphs of the train step's micro-batches (train/graphs.py)
+    graphs: MicroBatchGraphs = dataclasses.field(default_factory=MicroBatchGraphs,
+                                                 repr=False, compare=False)
 
 
 def trainable_parameters(model: nn.Module, frozen_prefixes: Sequence[str] = ()):

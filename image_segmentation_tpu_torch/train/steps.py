@@ -33,6 +33,15 @@ A prompt set's batch is ((images, heatmaps), labels), and `train_step`
 applies `model(images, heatmaps)` to each micro-batch (JAX
 steps.py:75-79).
 
+On a card, one process, the micro-batches replay CUDA graphs of the
+model's train-mode forward and of its backward (train/graphs.py: captured
+at a micro-batch shape's first step, held on `state.graphs`), so that
+the host enqueues two graphs a micro-batch instead of hundreds of ops;
+the loss, its backward, the NaN checks and the update stay eager, and the
+summed gradients reach `.grad` after the loop. Everything else (the CPU,
+a process group, SP, TP, a hook a replay would skip) runs the eager loop
+below; `graphs.eager_reasons` and `graphs.model_signature` decide.
+
 `train_step(augment_fn=...)` augments the whole step batch (micro ×
 accum rows) before the micro-batch split, as JAX train/steps.py:228-231
 does, with draws from the caller's `generator`.
@@ -66,13 +75,21 @@ mapped onto, and all spans of one call carry its `state.step`:
   * `train.step`: the whole call, augmentation included; its self time
     is `zero_grad`, the micro-batch slicing, the loop and the NaN checks
     of the losses;
+  * `train.capture`: a new micro-batch shape's graphs warmed up and
+    captured (train/graphs.py), in the step that first meets the shape;
   * `train.forward` (micro-batch i): `model(...)`, train-mode BatchNorm
-    and its running statistics included;
+    and its running statistics included; under graphs, the micro-batch
+    copied in and the forward graph replayed;
   * `train.loss` (i): `loss_fn(...)`;
   * `train.backward` (i): `loss.backward()`, the autograd engine's
-    enqueue, which the caller waits for;
-  * `train.update`: the gradients collected, summed over processes and
-    divided, their NaN check, `opt.step()` and `scheduler.step()`.
+    enqueue, which the caller waits for; under graphs, the loss's
+    backward and the backward graph's replay;
+  * `train.update`: the gradients collected (under graphs, handed from
+    the graphs' buffers to `.grad`), summed over processes and divided,
+    their NaN check, `opt.step()` and `scheduler.step()`.
+Each micro-batch is counted (`utils.profiling.count`) as replayed
+(`train.replays`) or eager (`train.eager_micro_batches`), and each
+capture as `train.captures`.
 """
 from __future__ import annotations
 
@@ -295,12 +312,17 @@ def train_step(state: TrainState, loss_fn: Callable,
         model.train()
         opt.zero_grad(set_to_none=True)
         micro = targets.shape[0] // accum_steps
+        pair = state.graphs.for_step(model, tuple(x[:micro] for x in inputs))
         total = None
         for i in range(accum_steps):
             rows = slice(i * micro, (i + 1) * micro)
             xs, ys = tuple(x[rows] for x in inputs), targets[rows]
             with profiling.span("train.forward", micro=i):
-                out = model(*xs)
+                if pair is None:
+                    out = model(*xs)
+                    profiling.count("train.eager_micro_batches")
+                else:
+                    out = pair.forward(model, xs)
             with profiling.span("train.loss", micro=i):
                 loss = loss_fn(out, ys)
             if profiling.NAN_CHECKS:
@@ -309,6 +331,8 @@ def train_step(state: TrainState, loss_fn: Callable,
                 loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
         with profiling.span("train.update"):
+            if pair is not None:
+                pair.hand_grads()
             world = world_size()
             params = [p for g in opt.param_groups for p in g["params"] if p.grad is not None]
             grads = [p.grad for p in params if getattr(p, "tp_split_dim", None) is None]

@@ -29,7 +29,17 @@ While a torch.profiler session records, a span also enters
 beside the kernels, on the profiler's own clock. `train.steps.train_step`
 is the one caller: `train.step` around the call, and inside it
 `train.forward`, `train.loss` and `train.backward` per micro-batch and
-`train.update` once.
+`train.update` once; `train.capture` (train/graphs.py) where the step
+captures a micro-batch shape's CUDA graphs. Where the micro-batches
+replay graphs, `train.forward` times the forward graph's replay (and the
+copy of the micro-batch into its static inputs) and `train.backward` the
+loss's eager backward and the backward graph's replay: the host's enqueue
+of the graphs, not of the model's ops.
+
+Counts: `count(name)` adds to `SpanLog.counts` while spans are on and,
+off, costs one read of `SPANS`, as a span does. The train step counts
+`train.captures` (graph pairs captured), `train.replays` (micro-batches
+replayed) and `train.eager_micro_batches` (micro-batches run eagerly).
 
 Not ported: `enable_compilation_cache` (an XLA cache; nothing here
 compiles per program); `StepTimer` (:96; nothing read it, and a
@@ -37,6 +47,7 @@ compiles per program); `StepTimer` (:96; nothing read it, and a
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import threading
@@ -93,10 +104,12 @@ class Span:
 
 class SpanLog:
     """The spans of one region, in the order they opened, from every
-    thread; each thread keeps its own stack of open spans."""
+    thread; each thread keeps its own stack of open spans; and the
+    region's counts (`count`), by name."""
 
     def __init__(self):
         self.spans: List[Span] = []
+        self.counts: collections.Counter = collections.Counter()
         self._lock = threading.Lock()
         self._local = threading.local()
 
@@ -114,6 +127,14 @@ def span(name: str, micro: Optional[int] = None, step: Optional[int] = None):
     if log is None:
         return _OFF
     return Span(log, name, micro, step)
+
+
+def count(name: str) -> None:
+    """Add one to the count `name` of `SPANS`; nothing when spans are off."""
+    log = SPANS
+    if log is not None:
+        with log._lock:
+            log.counts[name] += 1
 
 
 @contextlib.contextmanager
