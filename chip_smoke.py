@@ -25,7 +25,12 @@ Phases (each prints its lines; any failure ends the run non-zero):
      cuDNN's conv kernels alone (F.conv2d, bf16, channels_last) and the
      whole library chain conv -> * scale + bias -> ReLU, twice. It also
      prints how far the kernels' SFU exp and division put K3's P and K4's
-     G from IEEE exp and division (`fastmath_gap`);
+     G from IEEE exp and division (`fastmath_gap`). Then Segment
+     Anything ViT-B's kernels (`phase_sam_kernels`): K5 against its plain
+     version at a windowed block's 200 windows of 14 x 14 and a global
+     block's 8 maps of 64 x 64, and K4 with the exact GELU at 32,768
+     tokens, eps 1e-6, each timed beside its bound; one SamViTB forward at
+     micro-batch 8 (1024 px) launches each 12 times;
   4. serving, clip family: a full-width ClipUNet (ViT-B/16 widths, seeded
      random weights, bf16, kernels on) registered in the port's
      InferenceEngine serves host images of several sizes; the launch
@@ -617,6 +622,93 @@ def op_dispatch_us(A, M, D, card: str) -> None:
         if not same or counted != 2:
             raise AssertionError(f"{name}: op and direct call differ ({same}) or "
                                  f"counted {counted} launches for 2 calls")
+
+
+# Segment Anything ViT-B's kernel calls at micro-batch 8 (models/sam.py):
+# K5 over the 200 14 x 14 windows of a windowed block and over the 8
+# global 64 x 64 maps, q, k and v sliced out of one qkv projection as the
+# encoder hands them over; K4 with the exact GELU at the encoder's 8 x
+# 4,096 tokens, eps 1e-6.
+SAM_K5_CASES = ((200, 14, 14), (8, 64, 64))
+SAM_MLP_TOKENS = 8 * 4096
+
+
+def relpos_bound(bp: int, h: int, w: int, heads: int = 12, d: int = 64):
+    """q, k, v read and out written in bf16, and the two tables; QKᵀ, P·V
+    and the relative terms' S·(h + w) dot products."""
+    s = h * w
+    return _bound(2 * (4 * bp * s * heads * d + (2 * h - 1 + 2 * w - 1) * d),
+                  4 * bp * heads * s * s * d + 2 * bp * heads * s * (h + w) * d)
+
+
+def phase_sam_kernels(M, card: str) -> tuple:
+    """K5 and K4's exact GELU against their plain versions at SAM ViT-B's
+    shapes, each timed beside its bound; then one SamViTB forward at
+    micro-batch 8 (1024 px, seeded random weights, bf16, kernels on) must
+    launch each 12 times. Returns (K5's row, K4's exact-GELU numbers,
+    the forward's (K5, K4) launches)."""
+    from image_segmentation_tpu_torch.models import sam
+    from image_segmentation_tpu_torch.ops.kernels import relpos_attention as R
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    errs, rows = [], {}
+    for bp, h, w in SAM_K5_CASES:
+        q, k, v = rnd(bp, h * w, 3, 12, 64).bfloat16().unbind(2)
+        args = (q, k, v, (0.1 * rnd(2 * h - 1, 64)).bfloat16(),
+                (0.1 * rnd(2 * w - 1, 64)).bfloat16())
+        got = R.relpos_attention(*args)
+        torch.cuda.synchronize()
+        shape = (bp, h * w, 12, 64)
+        errs.append(_compare(f"relpos_attention {shape} over {h} x {w}", got,
+                             R.relpos_attention_reference(*args)))
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = relpos_bound(bp, h, w)
+        row = {"device_ms": _device_ms(lambda: R.relpos_attention(*args)),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        rows[shape] = row
+        print(f"[kernels] relpos_attention {shape}: device {row['device_ms']:.4f} ms; bound "
+              f"{bound_ms:.5f} ms ({bound_by}); device / bound "
+              f"{row['device_ms'] / bound_ms:.2f} (20 calls, warm L2; {card})")
+    windows, glob = rows[(200, 196, 12, 64)], rows[(8, 4096, 12, 64)]
+    k5 = dict(windows, at="(200, 196, 12, 64) bf16, 14 x 14 windows", max_abs_err=max(errs),
+              device_ms_global=glob["device_ms"], bound_ms_global=glob["bound_ms"])
+
+    x = (0.5 * rnd(1, SAM_MLP_TOKENS, 768)).bfloat16()
+    args = (x, 1.0 + 0.1 * rnd(768), 0.1 * rnd(768), (0.03 * rnd(3072, 768)).bfloat16(),
+            0.1 * rnd(3072), (0.03 * rnd(768, 3072)).bfloat16(), 0.1 * rnd(768), 1e-6)
+    got = M.fused_mlp(*args, activation="gelu")
+    torch.cuda.synchronize()
+    err = _compare(f"mlp exact GELU tokens={SAM_MLP_TOKENS} 768->3072->768 eps 1e-6", got,
+                   M.mlp_reference(*args, activation="gelu"))
+    bound_ms, bound_by = mlp_bound(SAM_MLP_TOKENS, 768, 3072)
+    erf_ms = _device_ms(lambda: M.fused_mlp(*args, activation="gelu"))
+    print(f"[kernels] mlp exact GELU tokens={SAM_MLP_TOKENS}: device {erf_ms:.4f} ms; bound "
+          f"{bound_ms:.5f} ms ({bound_by}); device / bound {erf_ms / bound_ms:.2f} (20 calls, "
+          f"warm L2; {card})")
+    k4 = {"gelu_device_ms_32768": erf_ms, "gelu_bound_ms_32768": bound_ms,
+          "gelu_max_abs_err": err}
+    del x, args, got
+    torch.cuda.empty_cache()
+
+    model = sam.SamViTB(dtype=torch.bfloat16, use_kernels=True).init_weights(
+        torch.Generator().manual_seed(0)).to("cuda").eval()
+    images = torch.rand(8, 1024, 1024, 3, generator=g, device="cuda")
+    clicks = torch.tensor([[[512.0, 512.0, 1.0]]], device="cuda").expand(8, 1, 3)
+    before = (R.LAUNCHES, M.LAUNCHES)
+    with torch.no_grad():
+        masks, iou = model(images, clicks)
+    torch.cuda.synchronize()
+    launches = (R.LAUNCHES - before[0], M.LAUNCHES - before[1])
+    print(f"[kernels] SamViTB forward at micro-batch 8: K5 {launches[0]} launches, K4 "
+          f"{launches[1]} (12 blocks: 8 windowed, 4 global); masks {tuple(masks.shape)} "
+          f"finite {bool(torch.isfinite(masks).all() and torch.isfinite(iou).all())}")
+    if launches != (12, 12) or not torch.isfinite(masks).all():
+        raise AssertionError(f"SamViTB forward: launches {launches}, want (12, 12), or "
+                             f"non-finite masks")
+    del model, images, masks
+    torch.cuda.empty_cache()
+    return k5, k4, launches
 
 
 def phase_kernels(A, M, D, card: str) -> dict:
@@ -3874,7 +3966,11 @@ def main() -> int:
         return out
 
     timing = timed(phase_kernels, A, M, D, card)
+    timing["relpos_attention"], k4_gelu, sam_launches = timed(phase_sam_kernels, M, card)
+    timing["fused_mlp"].update(k4_gelu)
     launches, eng, clip = timed(phase_serving, A, M, card)
+    launches["relpos_attention"] = sam_launches[0]
+    launches["fused_mlp"] += sam_launches[1]
     launches["fused_double_conv"], unet = timed(phase_unet, eng, card)
     K = (A, M, D)
     eng4 = timed(phase_four_families, K, clip, unet, launches, card)
@@ -3918,7 +4014,8 @@ def main() -> int:
                "fused_mlp": ("mlp.cu", "image_segmentation_tpu/ops/pallas/mlp.py:118"),
                "fused_mlp_partial": ("mlp.cu", "image_segmentation_tpu/ops/pallas/mlp.py:118"),
                "fused_double_conv": ("double_conv.cu",
-                                     "image_segmentation_tpu/ops/pallas/double_conv.py:185")}
+                                     "image_segmentation_tpu/ops/pallas/double_conv.py:185"),
+               "relpos_attention": ("relpos_attention.cu", None)}
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"image_segmentation_tpu_torch/csrc/{src}", "replaces": tpu,

@@ -38,6 +38,7 @@ from image_segmentation_tpu_torch.models.autoencoder import (
 )
 from image_segmentation_tpu_torch.models.clip_unet import ClipUNet, ClipUNetNoSkips
 from image_segmentation_tpu_torch.models.prompt import PromptModel
+from image_segmentation_tpu_torch.models.sam import SamViTB
 from image_segmentation_tpu_torch.models.unet import UNet
 from image_segmentation_tpu_torch.train.state import make_adamw, trainable_parameters
 
@@ -95,10 +96,14 @@ PROMPT = ExperimentConfig(name="prompt", model="prompt", target_size=224,
 CONFIGS = {c.name: c for c in (UNET_NOAUG, UNET_AUG, RECON_AE, AUTOENCODER, CLIPUNET,
                                CLIPUNET_NOSKIPS, PROMPT)}
 
-# model name → (class, whether it reaches a hand-written kernel)
+# model name → (class, whether it reaches a hand-written kernel). `sam_vitb`
+# (Segment Anything's ViT-B, models/sam.py: K5 and K4 with the exact GELU in
+# its frozen image encoder) has no experiment config of the reference's: it
+# trains in the benchmark's `train_clicks` cells (perfbench/), not run.py.
 MODELS = {"unet": (UNet, True), "autoencoder": (SegmentationAutoencoder, False),
           "recon": (ReconstructionAutoencoder, False), "clipunet": (ClipUNet, True),
-          "clipunet_noskips": (ClipUNetNoSkips, True), "prompt": (PromptModel, True)}
+          "clipunet_noskips": (ClipUNetNoSkips, True), "prompt": (PromptModel, True),
+          "sam_vitb": (SamViTB, True)}
 
 
 def build_model(cfg: ExperimentConfig, device, generator: torch.Generator,
@@ -107,16 +112,18 @@ def build_model(cfg: ExperimentConfig, device, generator: torch.Generator,
     generator), in eval mode on `device`. `overrides` (keyword arguments of
     the model: `base` for the UNet and the autoencoder; `vit`,
     `skip_indices`, ... for the ClipUNet; those and `unet_base` for the
-    prompt model) cut the model to size for tests and the demo. The
-    config's `freeze_encoder` goes to the ClipUNets as `freeze_encoder` and
-    to the prompt model as `freeze_clip` (JAX config.py:127-146)."""
+    prompt model; `sam`, a `models.sam.SamConfig`, for SAM) cut the model
+    to size for tests and the demo. The config's `freeze_encoder` goes to
+    the ClipUNets as `freeze_encoder` and to the prompt model as
+    `freeze_clip` (JAX config.py:127-146); SAM's image encoder is always
+    frozen."""
     device = torch.device(device)
     on_cuda = device.type == "cuda"
     if cfg.model not in MODELS:
         raise ValueError(f"model {cfg.model!r} is not ported yet")
     cls, has_kernels = MODELS[cfg.model]
     kwargs = dict(dtype=torch.bfloat16 if on_cuda else torch.float32)
-    if cfg.model != "recon":  # the reconstruction's output is the image
+    if cfg.model not in ("recon", "sam_vitb"):  # reconstruction: the image; SAM: masks
         kwargs["num_classes"] = cfg.num_classes
     if has_kernels:
         kwargs["use_kernels"] = cfg.use_kernels and on_cuda

@@ -183,19 +183,6 @@ attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
 }
 
-// A 4-D map over a (B, S, H, D) bf16 tensor with element strides
-// (sb, ss, sh, 1); boxes of 64 tokens x one head x D.
-cudaError_t qkv_map(CUtensorMap* map, const void* base, int B, int S, int H, long long sb,
-                    long long ss, long long sh) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHeadDim), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kHeadDim, 1, kQTile, 1};
-  return make_tensor_map(map, base, 4, dims, strides, box);
-}
-
 template <int kChunks>
 cudaError_t launch_attention(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                              bf16* o, int B, int S, int H, int q_tiles, int smem,
@@ -233,9 +220,9 @@ int istpu_attention_bf16(const void* q, const void* k, const void* v, void* o, i
       static_cast<size_t>(smem) < attention_smem_bytes(chunks))
     return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  if ((err = qkv_map(&tq, q, B, S, H, qsb, qss, qsh)) != cudaSuccess) return err;
-  if ((err = qkv_map(&tk, k, B, S, H, ksb, kss, ksh)) != cudaSuccess) return err;
-  if ((err = qkv_map(&tv, v, B, S, H, vsb, vss, vsh)) != cudaSuccess) return err;
+  if ((err = head_tile_map(&tq, q, B, S, H, qsb, qss, qsh)) != cudaSuccess) return err;
+  if ((err = head_tile_map(&tk, k, B, S, H, ksb, kss, ksh)) != cudaSuccess) return err;
+  if ((err = head_tile_map(&tv, v, B, S, H, vsb, vss, vsh)) != cudaSuccess) return err;
   auto* op = static_cast<bf16*>(o);
   auto s = static_cast<cudaStream_t>(stream);
   switch (chunks) {

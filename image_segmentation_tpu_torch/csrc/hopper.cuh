@@ -183,6 +183,20 @@ inline cudaError_t make_tensor_map(CUtensorMap* map, const void* base, uint32_t 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A 4-D map over a (B, S, H, 64) bf16 tensor with element strides
+// (sb, ss, sh, 1); boxes of 64 tokens x one head x 64 (the attention
+// kernels' q, k and v tiles, read out of a strided qkv projection).
+inline cudaError_t head_tile_map(CUtensorMap* map, const void* base, int B, int S, int H,
+                                 long long sb, long long ss, long long sh) {
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  return make_tensor_map(map, base, 4, dims, strides, box);
+}
+
 // ---- wgmma ---------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a 128-byte-swizzled operand.

@@ -1,12 +1,15 @@
-// K4: fused ViT MLP, x + fc2(quickGELU(fc1(LayerNorm(x)))), for Hopper.
+// K4: fused ViT MLP, x + fc2(GELU(fc1(LayerNorm(x)))), for Hopper; the
+// GELU is CLIP's quick GELU (the default, every ClipUNet call) or the exact
+// erf GELU (`act` 1: Segment Anything's image encoder, models/sam.py).
 //
 // Replaces image_segmentation_tpu/ops/pallas/mlp.py:_mlp_kernel
 // (fused_mlp -> _fused_mlp_impl), the second half of every CLIP ViT
 // block. Cast points are the Pallas kernel's (mlp.py:75-88):
 //   LayerNorm statistics and affine in f32, result rounded to bf16;
 //   fc1 accumulated in f32, + f32 bias; quick-GELU h * sigmoid(1.702 h)
-//   in f32, rounded to bf16; fc2 accumulated in f32, + f32 bias, rounded
-//   to bf16; residual add in bf16.
+//   (or the exact 0.5 h (1 + erf(h / sqrt 2))) in f32, rounded to bf16;
+//   fc2 accumulated in f32, + f32 bias, rounded to bf16; residual add in
+//   bf16.
 // Weights use the nn.Linear layout: w1 is (F, H), w2 is (H, F).
 //
 // What bounds it on an H100: at ViT-B/16 shapes one call is
@@ -83,11 +86,24 @@ __device__ __forceinline__ float quick_gelu(float h) {
   return h * __fdividef(1.f, 1.f + __expf(-1.702f * h));
 }
 
-// fc1: G[m, f] = bf16(quickGELU(LN(x)[m, :] . W1[f, :] + b1[f])).
+// The exact GELU, 0.5 h (1 + erf(h / sqrt 2)) in f32; CUDA's erff is within
+// 2 f32 ulps (CUDA Programming Guide), far inside a bf16 step.
+__device__ __forceinline__ float erf_gelu(float h) {
+  return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
+}
+
+enum Act { kQuickGelu = 0, kErfGelu = 1 };
+
+template <int A>
+__device__ __forceinline__ float gelu(float h) {
+  return A == kErfGelu ? erf_gelu(h) : quick_gelu(h);
+}
+
+// fc1: G[m, f] = bf16(GELU_A(LN(x)[m, :] . W1[f, :] + b1[f])).
 // Grid (token tiles, F runs); run y covers F tiles [y * tiles, +tiles).
 // Two warpgroups: both normalise rows, warpgroup w multiplies columns
 // [64 w, 64 w + 64) of each 128-wide F tile and runs their epilogue.
-template <int H>
+template <int H, int A>
 __global__ void __launch_bounds__(kFc1Threads)
 mlp_fc1_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw1,
                const float* __restrict__ ln_w, const float* __restrict__ ln_b,
@@ -252,8 +268,8 @@ mlp_fc1_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
         const int row = row0 + 8 * half;
         if (f < F && row < M)
           *reinterpret_cast<uint32_t*>(g + static_cast<long long>(row) * F + f) =
-              pack_bf16(quick_gelu(acc[4 * j + 2 * half] + bias[j][0]),
-                        quick_gelu(acc[4 * j + 2 * half + 1] + bias[j][1]));
+              pack_bf16(gelu<A>(acc[4 * j + 2 * half] + bias[j][0]),
+                        gelu<A>(acc[4 * j + 2 * half + 1] + bias[j][1]));
       }
     }
   }
@@ -415,36 +431,49 @@ cudaError_t matrix_map(CUtensorMap* map, const void* base, int rows, int cols, i
   return make_tensor_map(map, base, 2, dims, strides, box);
 }
 
+template <int H, int A>
+cudaError_t launch_fc1_act(const CUtensorMap& tx, const CUtensorMap& tw1, const float* ln_w,
+                           const float* ln_b, const float* b1, bf16* g, int M, int F, int runs,
+                           int tiles_per_run, float eps, cudaStream_t stream) {
+  constexpr size_t smem = fc1_smem_bytes<H>();
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_fc1_kernel<H, A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + kTM - 1) / kTM, runs);
+  mlp_fc1_kernel<H, A><<<grid, kFc1Threads, smem, stream>>>(tx, tw1, ln_w, ln_b, b1, g, M, F,
+                                                    tiles_per_run, eps);
+  return cudaGetLastError();
+}
+
 template <int H>
 cudaError_t launch_fc1(const CUtensorMap& tx, const CUtensorMap& tw1, const float* ln_w,
                        const float* ln_b, const float* b1, bf16* g, int M, int F, int runs,
-                       int tiles_per_run, float eps, cudaStream_t stream) {
-  constexpr size_t smem = fc1_smem_bytes<H>();
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_fc1_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((M + kTM - 1) / kTM, runs);
-  mlp_fc1_kernel<H><<<grid, kFc1Threads, smem, stream>>>(tx, tw1, ln_w, ln_b, b1, g, M, F,
-                                                 tiles_per_run, eps);
-  return cudaGetLastError();
+                       int tiles_per_run, float eps, int act, cudaStream_t stream) {
+  if (act == kErfGelu)
+    return launch_fc1_act<H, kErfGelu>(tx, tw1, ln_w, ln_b, b1, g, M, F, runs, tiles_per_run,
+                                       eps, stream);
+  return launch_fc1_act<H, kQuickGelu>(tx, tw1, ln_w, ln_b, b1, g, M, F, runs, tiles_per_run,
+                                       eps, stream);
 }
 
 // Both entries: fc1 over `runs` x `tiles_per_run` F tiles of 128, fc2 over
 // `splits` x `chunks_per_split` chunks of 64 (ops/kernels/mlp.py: mlp_plan).
 // With `raw`, out_f32 receives the f32 fc2 sums (no b2, no residual);
-// otherwise out receives bf16(x + bf16(fc2 + b2)).
+// otherwise out receives bf16(x + bf16(fc2 + b2)). `act` picks the GELU.
 cudaError_t run_mlp(const void* x, const void* ln_w, const void* ln_b, const void* w1,
                     const void* b1, const void* w2, const void* b2, void* g, void* partial,
                     bf16* out, float* out_f32, bool raw, int M, int H, int F, int runs,
-                    int tiles_per_run, int splits, int chunks_per_split, float eps, int device,
-                    void* stream) {
+                    int tiles_per_run, int splits, int chunks_per_split, float eps, int act,
+                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const int f_tiles = (F + kTN - 1) / kTN, k_chunks = F / kTK;
   if (M <= 0 || F <= 0 || F % kTK != 0 || H % kTN != 0 || runs <= 0 || tiles_per_run <= 0 ||
       (runs - 1) * tiles_per_run >= f_tiles || runs * tiles_per_run < f_tiles ||
       splits <= 0 || chunks_per_split <= 0 || (splits - 1) * chunks_per_split >= k_chunks ||
-      splits * chunks_per_split < k_chunks || (splits > 1 && partial == nullptr))
+      splits * chunks_per_split < k_chunks || (splits > 1 && partial == nullptr) ||
+      (act != kQuickGelu && act != kErfGelu))
     return cudaErrorInvalidValue;
   const auto* xp = static_cast<const bf16*>(x);
   const auto* lw = static_cast<const float*>(ln_w);
@@ -462,9 +491,9 @@ cudaError_t run_mlp(const void* x, const void* ln_w, const void* ln_b, const voi
   if ((err = matrix_map(&tw2, w2, H, F, kTN)) != cudaSuccess) return err;
 
   switch (H) {
-#define ISTPU_FC1_CASE(HH)                                                                \
-  case HH:                                                                                \
-    err = launch_fc1<HH>(tx, tw1, lw, lb, b1p, gp, M, F, runs, tiles_per_run, eps, s);   \
+#define ISTPU_FC1_CASE(HH)                                                                  \
+  case HH:                                                                                  \
+    err = launch_fc1<HH>(tx, tw1, lw, lb, b1p, gp, M, F, runs, tiles_per_run, eps, act, s); \
     break;
     ISTPU_FC1_CASE(128)
     ISTPU_FC1_CASE(256)
@@ -507,16 +536,16 @@ extern "C" {
 // partial: f32 scratch (splits, M, H), unused when splits is 1.
 // H in {128, 256, ..., 768}, F a multiple of 64. fc1 runs over
 // `runs` x `tiles_per_run` F tiles of 128, fc2 over `splits` x
-// `chunks_per_split` chunks of 64 (ops/kernels/mlp.py: mlp_plan).
-// Returns a cudaError_t.
+// `chunks_per_split` chunks of 64 (ops/kernels/mlp.py: mlp_plan). `act`:
+// 0 quick GELU, 1 the exact erf GELU. Returns a cudaError_t.
 int istpu_mlp_bf16(const void* x, const void* ln_w, const void* ln_b, const void* w1,
                    const void* b1, const void* w2, const void* b2, void* g, void* partial,
                    void* out, int M, int H, int F, int runs, int tiles_per_run, int splits,
-                   int chunks_per_split, float eps, int device, void* stream) {
+                   int chunks_per_split, float eps, int act, int device, void* stream) {
   if (b2 == nullptr) return cudaErrorInvalidValue;
   return istpu::run_mlp(x, ln_w, ln_b, w1, b1, w2, b2, g, partial,
                         static_cast<istpu::bf16*>(out), nullptr, false, M, H, F, runs,
-                        tiles_per_run, splits, chunks_per_split, eps, device, stream);
+                        tiles_per_run, splits, chunks_per_split, eps, act, device, stream);
 }
 
 // The tensor-parallel entry: out is f32 (M, H), the fc2 sums over this
@@ -528,7 +557,7 @@ int istpu_mlp_partial_bf16(const void* x, const void* ln_w, const void* ln_b, co
                            int chunks_per_split, float eps, int device, void* stream) {
   return istpu::run_mlp(x, ln_w, ln_b, w1, b1, w2, nullptr, g, partial, nullptr,
                         static_cast<float*>(out), true, M, H, F, runs, tiles_per_run, splits,
-                        chunks_per_split, eps, device, stream);
+                        chunks_per_split, eps, istpu::kQuickGelu, device, stream);
 }
 
 }  // extern "C"

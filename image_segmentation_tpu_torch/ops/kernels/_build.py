@@ -35,7 +35,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libistpu_kernels.so")
-SOURCES = ("attention.cu", "mlp.cu", "double_conv.cu")
+SOURCES = ("attention.cu", "mlp.cu", "double_conv.cu", "relpos_attention.cu")
 HEADERS = ("common.cuh", "hopper.cuh")
 
 NVCC_FLAGS = (
@@ -107,12 +107,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.istpu_attention_bf16.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
                                          *([i64] * 9), i32, i32, i32, i32, vp]
     lib.istpu_attention_bf16.restype = i32
-    lib.istpu_mlp_bf16.argtypes = [vp] * 10 + [i32] * 7 + [f32, i32, vp]
+    lib.istpu_mlp_bf16.argtypes = [vp] * 10 + [i32] * 7 + [f32, i32, i32, vp]
     lib.istpu_mlp_bf16.restype = i32
     lib.istpu_mlp_partial_bf16.argtypes = [vp] * 9 + [i32] * 7 + [f32, i32, vp]
     lib.istpu_mlp_partial_bf16.restype = i32
     lib.istpu_conv3x3_bf16.argtypes = [vp] * 7 + [i32] * 10 + [vp]
     lib.istpu_conv3x3_bf16.restype = i32
+    lib.istpu_relpos_attention_bf16.argtypes = [vp] * 6 + [i32] * 6 + [i64] * 9 + [i32] * 5 + [vp]
+    lib.istpu_relpos_attention_bf16.restype = i32
     lib.istpu_error_string.argtypes = [i32]
     lib.istpu_error_string.restype = ctypes.c_char_p
 

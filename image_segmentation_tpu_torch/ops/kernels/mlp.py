@@ -1,12 +1,18 @@
-"""K4: fused ViT MLP, x + fc2(quickGELU(fc1(LayerNorm(x)))).
+"""K4: fused ViT MLP, x + fc2(GELU(fc1(LayerNorm(x)))).
 
 Replaces image_segmentation_tpu/ops/pallas/mlp.py:fused_mlp (the Pallas
 kernel at `_fused_mlp_impl`). The CUDA kernel is csrc/mlp.cu; its header
 says what bounds it on an H100 and how the design answers that.
 `mlp_reference` is the same function in plain PyTorch with the kernel's
 cast points (mlp.py:75-88): LayerNorm in f32 → cast to x's dtype → fc1
-with f32 accumulation + f32 bias → quick-GELU in f32 → cast → fc2 with
+with f32 accumulation + f32 bias → GELU in f32 → cast → fc2 with
 f32 accumulation + f32 bias → cast → residual add in x's dtype.
+
+`activation` picks the GELU: "quick_gelu" (h·sigmoid(1.702 h), CLIP's,
+the default, which every ClipUNet call takes) or "gelu" (the exact
+0.5 h (1 + erf(h/√2)), Segment Anything's image encoder,
+models/sam.py); the CUDA kernel compiles its fc1 epilogue once for each
+(`ACTIVATIONS` gives the number the C entry point takes).
 
 Weights use the nn.Linear layout: w1 is (F, H), w2 is (H, F).
 `fused_mlp` takes the plain version only for tensors on the CPU. On a
@@ -42,25 +48,33 @@ LAUNCHES = 0
 PARTIAL_LAUNCHES = 0
 
 HIDDEN_SIZES = (128, 256, 384, 512, 640, 768)
+# the GELUs of the fc1 epilogue, as csrc/mlp.cu numbers them (`Act`)
+ACTIVATIONS = {"quick_gelu": 0, "gelu": 1}
 TOKEN_TILE = 64  # tokens per tile, the M of wgmma (csrc/mlp.cu kTM)
 OUT_TILE = 128  # output columns per tile: fc1's F, fc2's H (kTN)
 K_CHUNK = 64  # reduction columns per pipeline stage (kTK)
 
 
-def _gelu_stage(x, ln_w, ln_b, w1, b1, eps: float):
-    """G = quickGELU(fc1(LN(x))) rounded to x's dtype, with the kernel's casts."""
+def _gelu_stage(x, ln_w, ln_b, w1, b1, eps: float, activation: str = "quick_gelu"):
+    """G = GELU(fc1(LN(x))) rounded to x's dtype, with the kernel's casts."""
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
     h = (xf - mu) * torch.rsqrt(var + eps)
     h = (h * ln_w.float() + ln_b.float()).to(x.dtype)
     h = h.float() @ w1.float().t() + b1.float()
+    if activation == "gelu":
+        return torch.nn.functional.gelu(h).to(x.dtype)
+    if activation != "quick_gelu":
+        raise ValueError(f"activation {activation!r}; known: {sorted(ACTIVATIONS)}")
     return (h * torch.sigmoid(1.702 * h)).to(x.dtype)
 
 
-def mlp_reference(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
-    """Plain PyTorch x + fc2(quickGELU(fc1(LN(x)))) with the kernel's casts."""
-    y = _gelu_stage(x, ln_w, ln_b, w1, b1, eps).float() @ w2.float().t() + b2.float()
+def mlp_reference(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
+                  activation: str = "quick_gelu"):
+    """Plain PyTorch x + fc2(GELU(fc1(LN(x)))) with the kernel's casts."""
+    y = (_gelu_stage(x, ln_w, ln_b, w1, b1, eps, activation).float() @ w2.float().t()
+         + b2.float())
     return x + y.to(x.dtype)
 
 
@@ -146,10 +160,15 @@ def mlp_plan(tokens: int, hdim: int, fdim: int, sms: int) -> MlpPlan:
                    (splits, tokens, hdim) if splits > 1 else None)
 
 
-def _launch(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+def _launch(x, ln_w, ln_b, w1, b1, w2, b2, eps: float,
+            activation: str = "quick_gelu") -> torch.Tensor:
     """The kernel on CUDA tensors: checks, the plan, one launch, the count.
-    With `b2` None it is the TP entry: the f32 partial, no bias, no residual."""
+    With `b2` None it is the TP entry: the f32 partial, no bias, no residual
+    (quick GELU only)."""
     entry = "fused_mlp" if b2 is not None else "fused_mlp_partial"
+    if activation not in ACTIVATIONS or (b2 is None and activation != "quick_gelu"):
+        raise ValueError(f"{entry} takes activation in {sorted(ACTIVATIONS)} (the TP entry "
+                         f"quick_gelu alone), got {activation!r}")
     _check_cuda_args(entry, x, ln_w, ln_b, w1, b1, w2, b2)
     hdim, fdim = x.shape[-1], w1.shape[0]
     m = x.numel() // hdim
@@ -165,17 +184,19 @@ def _launch(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
                torch.empty(plan.partial_shape, dtype=torch.float32, device=x.device))
     common = (g.data_ptr(), None if partial is None else partial.data_ptr(), out.data_ptr(),
               m, hdim, fdim, plan.runs, plan.tiles_per_run, plan.splits,
-              plan.chunks_per_split, float(eps), dev,
-              torch.cuda.current_stream(x.device).cuda_stream)
+              plan.chunks_per_split, float(eps))
+    tail = (dev, torch.cuda.current_stream(x.device).cuda_stream)
     global LAUNCHES, PARTIAL_LAUNCHES
     if b2 is None:
         rc = lib.istpu_mlp_partial_bf16(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
-                                        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), *common)
+                                        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), *common,
+                                        *tail)
         _build.check(rc, "fused_mlp_partial launch")
         PARTIAL_LAUNCHES += 1
         return out
     rc = lib.istpu_mlp_bf16(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
-                            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), *common)
+                            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), *common,
+                            ACTIVATIONS[activation], *tail)
     _build.check(rc, "fused_mlp launch")
     LAUNCHES += 1
     return out
@@ -186,21 +207,23 @@ def _launch(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
 mlp_op = torch.library.custom_op(
     "istpu::fused_mlp", _launch, mutates_args=(), device_types="cuda",
     schema="(Tensor x, Tensor ln_w, Tensor ln_b, Tensor w1, Tensor b1, Tensor w2, "
-           "Tensor b2, float eps) -> Tensor")
+           "Tensor b2, float eps, str activation=\"quick_gelu\") -> Tensor")
 mlp_op.register_kernel("cpu", mlp_reference)
 mlp_op.register_fake(lambda x, *_: x.new_empty(x.shape))
 
 
-def fused_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
-    """x: (..., H); returns x + MLP(LN(x)) in x's dtype."""
+def fused_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
+              activation: str = "quick_gelu"):
+    """x: (..., H); returns x + MLP(LN(x)) in x's dtype, the MLP's GELU
+    being `activation` (module docstring)."""
     if _build.tracing():
         _build.refuse_grad("fused_mlp", x, ln_w, ln_b, w1, b1, w2, b2)
-        return mlp_op(x, ln_w, ln_b, w1, b1, w2, b2, float(eps))
+        return mlp_op(x, ln_w, ln_b, w1, b1, w2, b2, float(eps), activation)
     if x.device.type == "cpu":
-        return mlp_reference(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+        return mlp_reference(x, ln_w, ln_b, w1, b1, w2, b2, eps, activation)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp runs on cpu or cuda, not {x.device}")
-    return _launch(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    return _launch(x, ln_w, ln_b, w1, b1, w2, b2, eps, activation)
 
 
 def fused_mlp_partial(x, ln_w, ln_b, w1, b1, w2, eps: float = 1e-5):

@@ -8,9 +8,11 @@ are captured once per micro-batch shape as a pair of CUDA graphs
 (`GraphPair`) and replayed for every micro-batch of that shape:
   * the forward graph: `model.forward` on static inputs, in train mode,
     the BatchNorm running-statistic updates included;
-  * the backward graph: the gradients of the static output, from a static
-    output gradient, with respect to every parameter that gets one, added
-    into gradient buffers the pair owns.
+  * the backward graph: the gradients of the static output (or of each
+    output, where the forward returns a tuple of tensors, as models/sam.py
+    returns its masks and IoU predictions), from static output gradients,
+    with respect to every parameter that gets one, added into gradient
+    buffers the pair owns.
 The caller's loss and its backward stay eager (the loss is a Python
 callable). `loss.backward()` reaches the pair through `_Replay`, an
 autograd function whose forward replays the forward graph and whose
@@ -170,19 +172,24 @@ def _input_key(inputs: Sequence[torch.Tensor]) -> tuple:
 
 def _launch_counters() -> List[Tuple[object, str]]:
     """(module, name) of every kernel launch counter of the port."""
-    from image_segmentation_tpu_torch.ops.kernels import attention, double_conv, mlp
+    from image_segmentation_tpu_torch.ops.kernels import (
+        attention,
+        double_conv,
+        mlp,
+        relpos_attention,
+    )
 
     return [(attention, "LAUNCHES"), (mlp, "LAUNCHES"), (mlp, "PARTIAL_LAUNCHES"),
-            (double_conv, "LAUNCHES")]
+            (double_conv, "LAUNCHES"), (relpos_attention, "LAUNCHES")]
 
 
 class _Replay(torch.autograd.Function):
     """Forward: the inputs copied into the pair's static inputs, the forward
-    graph replayed, its static output returned. Backward: the output's
-    gradient copied into the static output gradient, the backward graph
-    replayed (it adds into the pair's gradient buffers); no gradient flows
-    out. `anchor` is a leaf that requires grad, so that the output is
-    part of the autograd graph."""
+    graph replayed, its static output (or outputs) returned. Backward: the
+    outputs' gradients copied into the static output gradients, the
+    backward graph replayed (it adds into the pair's gradient buffers); no
+    gradient flows out. `anchor` is a leaf that requires grad, so that the
+    outputs are part of the autograd graph."""
 
     @staticmethod
     def forward(ctx, anchor, pair, *xs):
@@ -192,25 +199,35 @@ class _Replay(torch.autograd.Function):
         for mod, name, n in pair.launched:
             setattr(mod, name, getattr(mod, name) + n)
         ctx.pair = pair
+        if pair.multi:
+            return tuple(o.detach() for o in pair.out)
         return pair.out.detach()
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grads):
         pair = ctx.pair
-        pair.grad_out.copy_(grad)
+        for g_out, g in zip(pair.grad_outs, grads):
+            g_out.copy_(g)
         pair.bwd.replay()
         return (None, None) + (None,) * len(pair.inputs)
 
 
 class GraphPair:
     """The forward and backward graphs of one micro-batch shape, their
-    static tensors and the gradient buffers of `params`."""
+    static tensors and the gradient buffers of `params`. `out` is the
+    static output, or the tuple of them where the forward returns a tuple
+    (`multi`); `grad_outs` holds a static gradient for each (a tensor
+    alone for a single output)."""
 
-    def __init__(self, key, inputs, fwd, bwd, out, grad_out, params, bufs, launched):
+    def __init__(self, key, inputs, fwd, bwd, out, grad_outs, params, bufs, launched):
         self.key, self.inputs, self.fwd, self.bwd = key, inputs, fwd, bwd
-        self.out, self.grad_out, self.params, self.bufs = out, grad_out, params, bufs
+        self.out, self.params, self.bufs = out, params, bufs
+        self.multi = isinstance(out, tuple)
+        self.grad_outs = (tuple(grad_outs) if isinstance(grad_outs, (tuple, list))
+                          else (grad_outs,))
         self.launched = launched  # (module, counter, launches) the forward graph holds
-        self.anchor = torch.empty(0, device=out.device, requires_grad=True)
+        device = (out[0] if self.multi else out).device
+        self.anchor = torch.empty(0, device=device, requires_grad=True)
 
     def begin_step(self) -> None:
         """Zero the gradient buffers; a buffer still some parameter's `.grad`
@@ -286,6 +303,17 @@ class MicroBatchGraphs:
         return pair
 
 
+def _outputs(out) -> Optional[Tuple[torch.Tensor, ...]]:
+    """The forward's output as a tuple of tensors that carry a gradient
+    (a tensor, or a tuple of them); None for anything else, which a pair
+    cannot replay."""
+    outs = out if isinstance(out, tuple) else (out,)
+    if not outs or not all(isinstance(o, torch.Tensor) and o.grad_fn is not None
+                           for o in outs):
+        return None
+    return outs
+
+
 def _capture(model: nn.Module, xs: Tuple[torch.Tensor, ...]) -> Optional[GraphPair]:
     """Warm up and capture the pair for micro-batches shaped as `xs`
     (module docstring); None if the model cannot be captured."""
@@ -301,13 +329,13 @@ def _capture(model: nn.Module, xs: Tuple[torch.Tensor, ...]) -> Optional[GraphPa
     try:
         with torch.cuda.stream(side):
             for _ in range(WARMUP_PASSES):
-                out = model.forward(*inputs)
-                if not isinstance(out, torch.Tensor) or out.grad_fn is None or not params:
+                outs = _outputs(model.forward(*inputs))
+                if outs is None or not params:
                     return None
-                grads = torch.autograd.grad(out, params, torch.zeros_like(out),
+                grads = torch.autograd.grad(outs, params, [torch.zeros_like(o) for o in outs],
                                             allow_unused=True)
             used = [p for p, g in zip(params, grads) if g is not None]
-            del out, grads
+            del outs, grads
             if not used:
                 return None
         torch.cuda.current_stream(device).wait_stream(side)
@@ -317,13 +345,14 @@ def _capture(model: nn.Module, xs: Tuple[torch.Tensor, ...]) -> Optional[GraphPa
         reserved = torch.cuda.memory_reserved(device)
         with torch.cuda.graph(fwd, stream=side, capture_error_mode="thread_local"):
             out = model.forward(*inputs)
+        outs = _outputs(out)
         launched = [(m, n, getattr(m, n) - b) for (m, n), b in zip(counters, before)
                     if getattr(m, n) != b]
-        grad_out = torch.empty_like(out)
+        grad_outs = [torch.empty_like(o) for o in outs]
         bufs = [torch.zeros_like(p) for p in used]
         with torch.cuda.graph(bwd, pool=fwd.pool(), stream=side,
                               capture_error_mode="thread_local"):
-            torch._foreach_add_(bufs, torch.autograd.grad(out, used, grad_out))
+            torch._foreach_add_(bufs, torch.autograd.grad(outs, used, grad_outs))
         nbytes = torch.cuda.memory_reserved(device) - reserved
     except RuntimeError as e:
         warnings.warn(f"the micro-batch of shapes {[tuple(x.shape) for x in xs]} could not be "
@@ -338,7 +367,8 @@ def _capture(model: nn.Module, xs: Tuple[torch.Tensor, ...]) -> Optional[GraphPa
             setattr(m, n, c)
     if not _MEMORY.fits(device, nbytes):
         return None
-    pair = GraphPair(_input_key(xs), inputs, fwd, bwd, out.detach(), grad_out, used, bufs,
+    static = tuple(o.detach() for o in outs) if isinstance(out, tuple) else out.detach()
+    pair = GraphPair(_input_key(xs), inputs, fwd, bwd, static, grad_outs, used, bufs,
                      launched)
     _MEMORY.hold(pair, device, nbytes)
     return pair

@@ -110,12 +110,17 @@ from image_segmentation_tpu_torch.train.state import TrainState
 from image_segmentation_tpu_torch.utils import profiling
 
 
+def _is_u8(a) -> bool:
+    return getattr(a, "dtype", None) in (np.uint8, torch.uint8)
+
+
 def quantize_u8(a: np.ndarray) -> np.ndarray:
     """[0, 1] floats → 0..255 uint8, round to nearest (JAX loop.py:447),
-    in bounded slabs so no full-size float temporary is made."""
-    a = np.asarray(a)
-    if a.dtype == np.uint8:
+    in bounded slabs so no full-size float temporary is made. A set that is
+    uint8 already (a numpy array or a tensor) is returned as it is."""
+    if _is_u8(a):
         return a
+    a = np.asarray(a)
     out = np.empty(a.shape, np.uint8)
     flat_in, flat_out = a.reshape(-1), out.reshape(-1)
     step = 1 << 24
@@ -130,7 +135,10 @@ def quantize_u8(a: np.ndarray) -> np.ndarray:
 
 
 def labels_u8(labels: np.ndarray) -> np.ndarray:
-    """Class-id labels → uint8 (ids 0..C-1, or sentinels ≤ 255)."""
+    """Class-id labels → uint8 (ids 0..C-1, or sentinels ≤ 255); uint8
+    labels (a numpy array or a tensor) are returned as they are."""
+    if _is_u8(labels):
+        return labels
     labels = np.asarray(labels)
     if labels.min() < 0 or labels.max() > 255:
         raise ValueError(f"labels outside uint8 range [{labels.min()}, {labels.max()}]")
@@ -206,38 +214,61 @@ def stream_rows(arrays: Sequence[np.ndarray], rows: Iterable[np.ndarray],
 
 def _assemble(x: torch.Tensor, heatmaps: Optional[torch.Tensor],
               labels: Optional[torch.Tensor]):
-    """A step batch: (images, labels), ((images, heatmaps), labels), or
-    (images, images) in reconstruction mode."""
+    """A step batch: (images, labels), ((images, heatmaps or prompts),
+    labels), or (images, images) in reconstruction mode."""
     if labels is None:
         return x, x
     return (x if heatmaps is None else (x, heatmaps)), labels.long()
 
 
+def _upload(a, device) -> Optional[torch.Tensor]:
+    """A numpy array or a tensor, contiguous on `device` (a tensor already
+    there is not copied)."""
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        return a.to(device).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
 class ResidentTrainSet:
     """A train set uploaded to `device` once; `batch(idx)` gathers a step
-    batch there as (float32 NHWC images, int64 labels), with heatmaps as
-    ((images, heatmaps), labels), or, with `labels=None`
-    (reconstruction), as (images, the same images)."""
+    batch there as (float32 NHWC images, int64 labels), with heatmaps or
+    prompts as ((images, heatmaps or prompts), labels), or, with
+    `labels=None` (reconstruction), as (images, the same images).
+
+    The arrays may be numpy arrays or tensors (a tensor already on `device`
+    is held as it is). Images that are uint8 already are held so, as
+    `quantize` holds a float set, and decoded per gathered batch: a set too
+    large for float32 anywhere (SAM's 1024 px one, perfbench's
+    `train_clicks` kind) is made in uint8 chunk by chunk. `prompts` (SAM's
+    clicks, (N, 1, 3) float32 pixel coordinates and labels) are gathered
+    with the same indices and never quantised; heatmaps are quantised with
+    the images."""
 
     def __init__(self, images: np.ndarray, labels: Optional[np.ndarray], device,
-                 quantize: bool, heatmaps: Optional[np.ndarray] = None):
-        self.quantize = quantize
-        if quantize:
+                 quantize: bool, heatmaps: Optional[np.ndarray] = None,
+                 prompts: Optional[np.ndarray] = None):
+        if heatmaps is not None and prompts is not None:
+            raise ValueError("a train set holds heatmaps or prompts, not both")
+        self.quantize = quantize or _is_u8(images)
+        if self.quantize:
             images = quantize_u8(images)
             heatmaps = None if heatmaps is None else quantize_u8(heatmaps)
             labels = None if labels is None else labels_u8(labels)
-        upload = lambda a: (None if a is None  # noqa: E731
-                            else torch.from_numpy(np.ascontiguousarray(a)).to(device))
-        self.images, self.heatmaps, self.labels = upload(images), upload(heatmaps), upload(labels)
+        self.images, self.heatmaps, self.labels = (_upload(a, device)
+                                                   for a in (images, heatmaps, labels))
+        self.prompts = None if prompts is None else _upload(prompts, device).float()
 
     def _gather(self, a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         x = a.index_select(0, idx)
         return x.float() * (1.0 / 255.0) if self.quantize else x
 
     def batch(self, idx: torch.Tensor):
+        extra = (self._gather(self.heatmaps, idx) if self.heatmaps is not None
+                 else None if self.prompts is None else self.prompts.index_select(0, idx))
         return _assemble(
-            self._gather(self.images, idx),
-            None if self.heatmaps is None else self._gather(self.heatmaps, idx),
+            self._gather(self.images, idx), extra,
             None if self.labels is None else self.labels.index_select(0, idx))
 
     def batches(self, order: np.ndarray) -> Iterator[tuple]:

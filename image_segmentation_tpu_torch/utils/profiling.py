@@ -39,7 +39,10 @@ of the graphs, not of the model's ops.
 Counts: `count(name)` adds to `SpanLog.counts` while spans are on and,
 off, costs one read of `SPANS`, as a span does. The train step counts
 `train.captures` (graph pairs captured), `train.replays` (micro-batches
-replayed) and `train.eager_micro_batches` (micro-batches run eagerly).
+replayed) and `train.eager_micro_batches` (micro-batches run eagerly);
+models/sam.py counts its encoder's attention calls by kind and the padded
+tokens its windows add, and opens `sam.image_encoder`,
+`sam.prompt_encoder` and `sam.mask_decoder` spans in its forward.
 
 Not ported: `enable_compilation_cache` (an XLA cache; nothing here
 compiles per program); `StepTimer` (:96; nothing read it, and a
@@ -129,12 +132,12 @@ def span(name: str, micro: Optional[int] = None, step: Optional[int] = None):
     return Span(log, name, micro, step)
 
 
-def count(name: str) -> None:
-    """Add one to the count `name` of `SPANS`; nothing when spans are off."""
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the count `name` of `SPANS`; nothing when spans are off."""
     log = SPANS
     if log is not None:
         with log._lock:
-            log.counts[name] += 1
+            log.counts[name] += n
 
 
 @contextlib.contextmanager

@@ -20,6 +20,7 @@ import torch
 from image_segmentation_tpu_torch.ops.kernels import attention as K3
 from image_segmentation_tpu_torch.ops.kernels import double_conv as K1
 from image_segmentation_tpu_torch.ops.kernels import mlp as K4
+from image_segmentation_tpu_torch.ops.kernels import relpos_attention as K5
 
 pytestmark = pytest.mark.cuda
 
@@ -138,6 +139,54 @@ def test_mlp_refuses_what_the_kernel_does_not_take(cuda):
     x, lw, lb, w1, b1, w2, b2, eps = _mlp_args(4, 64, 128, cuda)
     with pytest.raises(ValueError, match="H in"):
         K4.fused_mlp(x, lw, lb, w1, b1, w2, b2, eps)
+
+
+# SAM's encoder MLP (models/sam.py): the exact GELU at eps 1e-6, at one
+# image's 4,096 tokens and at ragged and ClipUNet-sized token counts.
+@pytest.mark.parametrize("m", [65, 1576, 4096])
+def test_mlp_kernel_erf_gelu(cuda, m):
+    x, lw, lb, w1, b1, w2, b2, _ = _mlp_args(m, 768, 3072, cuda, seed=3)
+    before = K4.LAUNCHES
+    got = K4.fused_mlp(x, lw, lb, w1, b1, w2, b2, 1e-6, activation="gelu")
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES == before + 1
+    _close(got, K4.mlp_reference(x, lw, lb, w1, b1, w2, b2, 1e-6, activation="gelu"))
+    quick = K4.fused_mlp(x, lw, lb, w1, b1, w2, b2, 1e-6)
+    assert not torch.equal(got, quick)
+
+
+def _relpos_args(b, h, w, device, seed=0):
+    """q, k, v sliced out of one (B, S, 3, 12, 64) qkv projection, as SAM's
+    encoder hands them to K5, and random bf16 tables."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, h * w, 3, 12, 64, generator=g).to(device).bfloat16()
+    q, k, v = qkv.unbind(2)
+    rh = (0.1 * torch.randn(2 * h - 1, 64, generator=g)).to(device).bfloat16()
+    rw = (0.1 * torch.randn(2 * w - 1, 64, generator=g)).to(device).bfloat16()
+    return q, k, v, rh, rw
+
+
+# The windowed blocks' 14 x 14 windows (25 an image), a global map at
+# 64 x 64 (the row-tile path), and maps that take neither path's shape.
+@pytest.mark.parametrize("b,h,w", [(25, 14, 14), (2, 64, 64), (3, 9, 11), (1, 32, 64)])
+def test_relpos_attention_kernel(cuda, b, h, w):
+    args = _relpos_args(b, h, w, cuda)
+    assert not args[0].is_contiguous()
+    before = K5.LAUNCHES
+    got = K5.relpos_attention(*args)
+    torch.cuda.synchronize()
+    assert K5.LAUNCHES == before + 1 and got.dtype == torch.bfloat16
+    _close(got, K5.relpos_attention_reference(*args))
+
+
+def test_relpos_attention_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v, rh, rw = _relpos_args(1, 4, 4, cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        K5.relpos_attention(q.float(), k.float(), v.float(), rh, rw)
+    with pytest.raises(ValueError, match="map"):
+        K5.relpos_attention(q, k, v, rh, rw[:5])
+    with pytest.raises(RuntimeError, match="no backward"):
+        K5.relpos_attention(q.detach().clone().requires_grad_(True), k, v, rh, rw)
 
 
 # K4's tensor-parallel entry at ViT-B/16's F / 2 (one request, the largest
