@@ -29,8 +29,10 @@ Phases (each prints its lines; any failure ends the run non-zero):
      Anything ViT-B's kernels (`phase_sam_kernels`): K5 against its plain
      version at a windowed block's 200 windows of 14 x 14 and a global
      block's 8 maps of 64 x 64, and K4 with the exact GELU at 32,768
-     tokens, eps 1e-6, each timed beside its bound; one SamViTB forward at
-     micro-batch 8 (1024 px) launches each 12 times;
+     tokens, eps 1e-6 (v3, the many-token design, beside v2), each timed
+     beside its bound; K4's crossover sweep, v2 against v3 at 1,576 to
+     32,768 tokens with both GELUs; one SamViTB forward at micro-batch 8
+     (1024 px) launches each 12 times, K4 all 12 on v3;
   4. serving, clip family: a full-width ClipUNet (ViT-B/16 widths, seeded
      random weights, bf16, kernels on) registered in the port's
      InferenceEngine serves host images of several sizes; the launch
@@ -641,11 +643,55 @@ def relpos_bound(bp: int, h: int, w: int, heads: int = 12, d: int = 64):
                   4 * bp * heads * s * s * d + 2 * bp * heads * s * (h + w) * d)
 
 
+# K4 v3 against v2 at H 768, F 3,072, both GELUs: the sweep behind the
+# crossover `ops/kernels/mlp.py` MANY_TOKENS.
+MLP_SWEEP_TOKENS = (1576, 3152, 4096, 6304, 8192, 12608, 32768)
+
+
+@contextlib.contextmanager
+def _mlp_design(M, design: str):
+    """K4 held to one design, "v2" or "v3", whatever the token count."""
+    keep = M.MANY_TOKENS
+    M.MANY_TOKENS = 1 if design == "v3" else 10**9
+    try:
+        yield
+    finally:
+        M.MANY_TOKENS = keep
+
+
+def mlp_crossover_sweep(M, g, card: str) -> list:
+    """Device ms and ms from Python (`_cuda_ms`, which holds the host's
+    enqueue) of v2 and v3 at each MLP_SWEEP_TOKENS count and GELU, and
+    which design the plan takes there."""
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for act in ("gelu", "quick_gelu"):
+        for m in MLP_SWEEP_TOKENS:
+            args = ((0.5 * rnd(1, m, 768)).bfloat16(), 1.0 + 0.1 * rnd(768), 0.1 * rnd(768),
+                    (0.03 * rnd(3072, 768)).bfloat16(), 0.1 * rnd(3072),
+                    (0.03 * rnd(768, 3072)).bfloat16(), 0.1 * rnd(768), 1e-6)
+            fn = lambda: M.fused_mlp(*args, activation=act)  # noqa: E731
+            row = {"activation": act, "tokens": m,
+                   "plan": "v3" if M.mlp_plan(m, 768, 3072, sms).many_tokens else "v2"}
+            for design in ("v2", "v3"):
+                with _mlp_design(M, design):
+                    row[design] = (_device_ms(fn), _cuda_ms(fn))
+            print(f"[kernels] mlp sweep {act} tokens={m}: device v2 {row['v2'][0]:.4f} v3 "
+                  f"{row['v3'][0]:.4f} ms; from Python v2 {row['v2'][1]:.4f} v3 "
+                  f"{row['v3'][1]:.4f} ms; the plan takes {row['plan']} ({card})")
+            rows.append(row)
+    return rows
+
+
+
 def phase_sam_kernels(M, card: str) -> tuple:
     """K5 and K4's exact GELU against their plain versions at SAM ViT-B's
-    shapes, each timed beside its bound; then one SamViTB forward at
-    micro-batch 8 (1024 px, seeded random weights, bf16, kernels on) must
-    launch each 12 times. Returns (K5's row, K4's exact-GELU numbers,
+    shapes, each timed beside its bound, K4 (which the plan sends to v3 at
+    32,768 tokens) beside v2 at the same shape, then K4's crossover sweep
+    (`mlp_crossover_sweep`); then one SamViTB forward at micro-batch 8
+    (1024 px, seeded random weights, bf16, kernels on) must launch each 12
+    times, K4 all 12 on v3. Returns (K5's row, K4's exact-GELU numbers,
     the forward's (K5, K4) launches)."""
     from image_segmentation_tpu_torch.models import sam
     from image_segmentation_tpu_torch.ops.kernels import relpos_attention as R
@@ -677,17 +723,26 @@ def phase_sam_kernels(M, card: str) -> tuple:
     x = (0.5 * rnd(1, SAM_MLP_TOKENS, 768)).bfloat16()
     args = (x, 1.0 + 0.1 * rnd(768), 0.1 * rnd(768), (0.03 * rnd(3072, 768)).bfloat16(),
             0.1 * rnd(3072), (0.03 * rnd(768, 3072)).bfloat16(), 0.1 * rnd(768), 1e-6)
+    before = M.MANY_TOKEN_LAUNCHES
     got = M.fused_mlp(*args, activation="gelu")
     torch.cuda.synchronize()
-    err = _compare(f"mlp exact GELU tokens={SAM_MLP_TOKENS} 768->3072->768 eps 1e-6", got,
+    if M.MANY_TOKEN_LAUNCHES != before + 1:
+        raise AssertionError(f"K4 at {SAM_MLP_TOKENS} tokens did not run v3")
+    err = _compare(f"mlp exact GELU tokens={SAM_MLP_TOKENS} 768->3072->768 eps 1e-6 (v3)", got,
                    M.mlp_reference(*args, activation="gelu"))
     bound_ms, bound_by = mlp_bound(SAM_MLP_TOKENS, 768, 3072)
-    erf_ms = _device_ms(lambda: M.fused_mlp(*args, activation="gelu"))
-    print(f"[kernels] mlp exact GELU tokens={SAM_MLP_TOKENS}: device {erf_ms:.4f} ms; bound "
-          f"{bound_ms:.5f} ms ({bound_by}); device / bound {erf_ms / bound_ms:.2f} (20 calls, "
-          f"warm L2; {card})")
-    k4 = {"gelu_device_ms_32768": erf_ms, "gelu_bound_ms_32768": bound_ms,
-          "gelu_max_abs_err": err}
+    fn = lambda: M.fused_mlp(*args, activation="gelu")  # noqa: E731
+    rows = _device_profile(fn)
+    erf_ms = sum(rows.values())
+    with _mlp_design(M, "v2"):
+        v2_ms = _device_ms(fn)
+    print(f"[kernels] mlp exact GELU tokens={SAM_MLP_TOKENS}: v3 device {erf_ms:.4f} ms ("
+          + ", ".join(f"{_short(k)} {t:.4f}" for k, t in rows.items())
+          + f"); v2 {v2_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}); bound / device "
+          f"{bound_ms / erf_ms:.1%} (v2 {bound_ms / v2_ms:.1%}) (20 calls, warm L2; {card})")
+    k4 = {"gelu_device_ms_32768": erf_ms, "gelu_v2_device_ms_32768": v2_ms,
+          "gelu_bound_ms_32768": bound_ms, "gelu_max_abs_err": err,
+          "crossover_sweep": mlp_crossover_sweep(M, g, card)}
     del x, args, got
     torch.cuda.empty_cache()
 
@@ -695,17 +750,19 @@ def phase_sam_kernels(M, card: str) -> tuple:
         torch.Generator().manual_seed(0)).to("cuda").eval()
     images = torch.rand(8, 1024, 1024, 3, generator=g, device="cuda")
     clicks = torch.tensor([[[512.0, 512.0, 1.0]]], device="cuda").expand(8, 1, 3)
-    before = (R.LAUNCHES, M.LAUNCHES)
+    before = (R.LAUNCHES, M.LAUNCHES, M.MANY_TOKEN_LAUNCHES)
     with torch.no_grad():
         masks, iou = model(images, clicks)
     torch.cuda.synchronize()
     launches = (R.LAUNCHES - before[0], M.LAUNCHES - before[1])
+    many = M.MANY_TOKEN_LAUNCHES - before[2]
     print(f"[kernels] SamViTB forward at micro-batch 8: K5 {launches[0]} launches, K4 "
-          f"{launches[1]} (12 blocks: 8 windowed, 4 global); masks {tuple(masks.shape)} "
-          f"finite {bool(torch.isfinite(masks).all() and torch.isfinite(iou).all())}")
-    if launches != (12, 12) or not torch.isfinite(masks).all():
-        raise AssertionError(f"SamViTB forward: launches {launches}, want (12, 12), or "
-                             f"non-finite masks")
+          f"{launches[1]}, {many} of them v3 (12 blocks: 8 windowed, 4 global); masks "
+          f"{tuple(masks.shape)} finite "
+          f"{bool(torch.isfinite(masks).all() and torch.isfinite(iou).all())}")
+    if launches != (12, 12) or many != 12 or not torch.isfinite(masks).all():
+        raise AssertionError(f"SamViTB forward: launches {launches} ({many} v3), want (12, "
+                             f"12) all v3, or non-finite masks")
     del model, images, masks
     torch.cuda.empty_cache()
     return k5, k4, launches

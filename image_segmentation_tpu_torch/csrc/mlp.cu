@@ -44,6 +44,27 @@
 //   in split order, then b2 and the residual.
 // The plan (token tiles, F runs, splits) comes from mlp_plan in
 // ops/kernels/mlp.py.
+// v3, the many-token design (mlp_plan takes it from MANY_TOKENS tokens on,
+// SAM's encoder at 32,768 tokens among them). There a call is 309 GFLOP,
+// 0.313 ms at the tensor cores' peak, and v2 ran at a quarter of that: fc1
+// loaded and normalised each 64-token tile once for every two F tiles
+// (twelve times a row), with the tensor cores idle meanwhile, and fc2's
+// column tiles of one token tile ran a whole wave apart, so G came from
+// HBM once for each. v3 normalises each row once, in a pass of its own
+// (mlp_fc1_kernel_ln, v2's arithmetic, so its bf16 rows are v2's A
+// operand), and runs fc1 and fc2 as one persistent GEMM design
+// (many_gemm): a block an SM walks 128 x 128 output tiles in band order, a
+// producer warpgroup keeps a ring of TMA loads in flight behind full and
+// empty mbarriers, and two consumer warpgroups (232 registers each by
+// setmaxnreg) take the tiles in turn, so one's epilogue (b1 and the GELU,
+// or b2 and the residual, staged in shared memory and stored by TMA)
+// overlaps the other's products. On an H100 at 32,768 tokens with the
+// exact GELU a call takes 0.59 ms (v2 1.21): the products alone run at
+// about 90% of the tensor cores' rate, the loads alone at about 10 TB/s
+// from L2, and while one warpgroup's epilogue runs beside the other's
+// products both slow, so fc1 with the erf epilogue (30 instructions an
+// element) is bound by the two sharing an SM, and fc2 by the products
+// and the loads together (PERF.md §6). Its outputs equal v2's bit for bit.
 // The tensor-parallel entry (istpu_mlp_partial_bf16) runs the same two
 // stages on one model rank's F/T columns of fc1 and rows of fc2 and stops
 // at the f32 sum: fc2 writes its f32 partials (into the output itself when
@@ -99,6 +120,69 @@ __device__ __forceinline__ float gelu(float h) {
   return A == kErfGelu ? erf_gelu(h) : quick_gelu(h);
 }
 
+// LayerNorm of a row of H spread over a warp: lane l owns the 16-byte
+// vectors l + 32 u of the row (columns 8 (l + 32 u) .. +7).
+template <int H>
+__host__ __device__ constexpr int ln_per_lane() {
+  return (H / 8 + 31) / 32;
+}
+
+// This lane's LayerNorm weights and biases (columns past the row clamped).
+template <int H>
+__device__ __forceinline__ void ln_params(const float* __restrict__ ln_w,
+                                          const float* __restrict__ ln_b, int lane,
+                                          float (&lw)[ln_per_lane<H>()][8],
+                                          float (&lb)[ln_per_lane<H>()][8]) {
+#pragma unroll
+  for (int u = 0; u < ln_per_lane<H>(); ++u)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int c = min(8 * (lane + 32 * u) + q, H - 1);
+      lw[u][q] = ln_w[c];
+      lb[u][q] = ln_b[c];
+    }
+}
+
+// One row: v holds this lane's raw values (zeros past the row). Two-pass
+// f32 statistics over the row, then (x - mu) * rstd * ln_w + ln_b rounded
+// to bf16, vector u into out[u] (meaningless past the row).
+template <int H>
+__device__ __forceinline__ void ln_row(const float (&v)[ln_per_lane<H>()][8],
+                                       const float (&lw)[ln_per_lane<H>()][8],
+                                       const float (&lb)[ln_per_lane<H>()][8], float eps,
+                                       int lane, uint4 (&out)[ln_per_lane<H>()]) {
+  constexpr int kVecs = H / 8, kPerLane = ln_per_lane<H>();
+  float part[kPerLane];
+#pragma unroll
+  for (int u = 0; u < kPerLane; ++u)
+    part[u] = ((v[u][0] + v[u][1]) + (v[u][2] + v[u][3])) +
+              ((v[u][4] + v[u][5]) + (v[u][6] + v[u][7]));
+  float sum = 0.f;
+#pragma unroll
+  for (int u = 0; u < kPerLane; ++u) sum += part[u];
+  const float mu = warp_sum(sum) / H;
+#pragma unroll
+  for (int u = 0; u < kPerLane; ++u) {
+    float d[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) d[q] = lane + 32 * u < kVecs ? v[u][q] - mu : 0.f;
+    part[u] = ((d[0] * d[0] + d[1] * d[1]) + (d[2] * d[2] + d[3] * d[3])) +
+              ((d[4] * d[4] + d[5] * d[5]) + (d[6] * d[6] + d[7] * d[7]));
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int u = 0; u < kPerLane; ++u) ss += part[u];
+  const float rstd = rsqrtf(warp_sum(ss) / H + eps);
+#pragma unroll
+  for (int u = 0; u < kPerLane; ++u) {
+    uint32_t* pw = reinterpret_cast<uint32_t*>(&out[u]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      pw[q] = pack_bf16((v[u][2 * q] - mu) * rstd * lw[u][2 * q] + lb[u][2 * q],
+                        (v[u][2 * q + 1] - mu) * rstd * lw[u][2 * q + 1] + lb[u][2 * q + 1]);
+  }
+}
+
 // fc1: G[m, f] = bf16(GELU_A(LN(x)[m, :] . W1[f, :] + b1[f])).
 // Grid (token tiles, F runs); run y covers F tiles [y * tiles, +tiles).
 // Two warpgroups: both normalise rows, warpgroup w multiplies columns
@@ -113,7 +197,7 @@ mlp_fc1_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
   constexpr int kStages = kFc1Stages;
   constexpr int kChunks = H / kTK;
   constexpr int kVecs = H / 8;  // 16-byte vectors per row
-  constexpr int kPerLane = (kVecs + 31) / 32;
+  constexpr int kPerLane = ln_per_lane<H>();
   constexpr int kWarps = kFc1Threads / 32;
   constexpr int kHalf = kTN / 2;  // columns per warpgroup
   extern __shared__ unsigned char smem_raw[];
@@ -150,20 +234,10 @@ mlp_fc1_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
     for (int i = 0; i < min(kStages, loads); ++i) issue(i);
   }
 
-  // LayerNorm in place: lane l owns the 16-byte vectors l + 32 u of every
-  // row (columns 8 (l + 32 u) .. +7), warp w the rows 8 w .. 8 w + 7.
-  // Two-pass f32 statistics over the row held in registers, then
-  // (x - mu) * rstd * ln_w + ln_b rounded to bf16, written back where the
-  // raw vector was; rows past M stay zero.
+  // LayerNorm in place (ln_row): warp w normalises rows 8 w .. 8 w + 7,
+  // each written back where its raw vectors were; rows past M stay zero.
   float lw[kPerLane][8], lb[kPerLane][8];
-#pragma unroll
-  for (int u = 0; u < kPerLane; ++u)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int c = min(8 * (lane + 32 * u) + q, H - 1);
-      lw[u][q] = ln_w[c];
-      lb[u][q] = ln_b[c];
-    }
+  ln_params<H>(ln_w, ln_b, lane, lw, lb);
   mbar_wait(x_full, 0);
   constexpr int kRows = kTM / kWarps;
   const int rows = min(kRows, M - m0 - warp * kRows);
@@ -171,7 +245,6 @@ mlp_fc1_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
   for (int r = warp * kRows; r < warp * kRows + rows; ++r) {
     uint4* slot[kPerLane];
     float v[kPerLane][8];
-    float part[kPerLane];
 #pragma unroll
     for (int u = 0; u < kPerLane; ++u) {
       const int vec = lane + 32 * u;
@@ -182,36 +255,12 @@ mlp_fc1_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
       const bf16* e = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
       for (int q = 0; q < 8; ++q) v[u][q] = __bfloat162float(e[q]);
-      part[u] = ((v[u][0] + v[u][1]) + (v[u][2] + v[u][3])) +
-                ((v[u][4] + v[u][5]) + (v[u][6] + v[u][7]));
     }
-    float sum = 0.f;
+    uint4 packed[kPerLane];
+    ln_row<H>(v, lw, lb, eps, lane, packed);
 #pragma unroll
-    for (int u = 0; u < kPerLane; ++u) sum += part[u];
-    const float mu = warp_sum(sum) / H;
-#pragma unroll
-    for (int u = 0; u < kPerLane; ++u) {
-      float d[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) d[q] = lane + 32 * u < kVecs ? v[u][q] - mu : 0.f;
-      part[u] = ((d[0] * d[0] + d[1] * d[1]) + (d[2] * d[2] + d[3] * d[3])) +
-                ((d[4] * d[4] + d[5] * d[5]) + (d[6] * d[6] + d[7] * d[7]));
-    }
-    float ss = 0.f;
-#pragma unroll
-    for (int u = 0; u < kPerLane; ++u) ss += part[u];
-    const float rstd = rsqrtf(warp_sum(ss) / H + eps);
-#pragma unroll
-    for (int u = 0; u < kPerLane; ++u) {
-      if (lane + 32 * u >= kVecs) continue;
-      uint4 packed;
-      uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        pw[q] = pack_bf16((v[u][2 * q] - mu) * rstd * lw[u][2 * q] + lb[u][2 * q],
-                          (v[u][2 * q + 1] - mu) * rstd * lw[u][2 * q + 1] + lb[u][2 * q + 1]);
-      *slot[u] = packed;
-    }
+    for (int u = 0; u < kPerLane; ++u)
+      if (lane + 32 * u < kVecs) *slot[u] = packed[u];
   }
   fence_proxy_async();  // the A tile's generic writes before wgmma reads them
   __syncthreads();
@@ -422,6 +471,242 @@ __global__ void mlp_reduce_raw_kernel(const float* __restrict__ partial, int spl
   }
 }
 
+// ---- v3: many tokens --------------------------------------------------------
+
+// x's LayerNorm written once, in bf16, for v3's fc1 to read by TMA: warp w
+// of a block normalises rows 8 blockIdx.x + w, then every 8 gridDim.x on;
+// the arithmetic is v2's (ln_row), so the bits are v2's A operand. The
+// LayerNorm parameters sit in shared memory and are read again for every
+// row, so a thread holds little besides its row and the SM keeps enough
+// warps to have the bytes of many rows in flight.
+template <int H>
+__global__ void __launch_bounds__(256)
+mlp_fc1_kernel_ln(const bf16* __restrict__ x, const float* __restrict__ ln_w,
+                  const float* __restrict__ ln_b, bf16* __restrict__ xn, int M, float eps) {
+  constexpr int kVecs = H / 8, kPerLane = ln_per_lane<H>();
+  __shared__ __align__(16) float sw[kPerLane * 256], sb[kPerLane * 256];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int c = threadIdx.x; c < kPerLane * 256; c += 256) {
+    sw[c] = ln_w[min(c, H - 1)];
+    sb[c] = ln_b[min(c, H - 1)];
+  }
+  __syncthreads();
+  for (int r = blockIdx.x * 8 + warp; r < M; r += gridDim.x * 8) {
+    const uint4* src = reinterpret_cast<const uint4*>(x + static_cast<long long>(r) * H);
+    uint4* dst = reinterpret_cast<uint4*>(xn + static_cast<long long>(r) * H);
+    float v[kPerLane][8];
+#pragma unroll
+    for (int u = 0; u < kPerLane; ++u) {
+      const int vec = lane + 32 * u;
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (vec < kVecs) raw = src[vec];
+      const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[u][q] = __bfloat162float(e[q]);
+    }
+    asm volatile("" ::: "memory");  // read the parameters anew for each row
+    float lw[kPerLane][8], lb[kPerLane][8];
+#pragma unroll
+    for (int u = 0; u < kPerLane; ++u)
+#pragma unroll
+      for (int q = 0; q < 8; q += 4) {
+        *reinterpret_cast<float4*>(&lw[u][q]) =
+            *reinterpret_cast<const float4*>(&sw[8 * (lane + 32 * u) + q]);
+        *reinterpret_cast<float4*>(&lb[u][q]) =
+            *reinterpret_cast<const float4*>(&sb[8 * (lane + 32 * u) + q]);
+      }
+    uint4 packed[kPerLane];
+    ln_row<H>(v, lw, lb, eps, lane, packed);
+#pragma unroll
+    for (int u = 0; u < kPerLane; ++u)
+      if (lane + 32 * u < kVecs) dst[u * 32 + lane] = packed[u];
+  }
+}
+
+constexpr int kManyHidden = 768;   // v3's one width (mlp.py MANY_TOKEN_HIDDEN)
+constexpr int kBand = 128;         // v3: tokens per tile, two m64 halves
+constexpr int kV3Stages = 5;       // A and B chunks in flight
+constexpr int kV3Threads = 384;    // a producer warpgroup and two consumers
+constexpr uint32_t kBandBytes = kBand * kTK * 2;  // 128 x 64 bf16, 16 KB
+constexpr uint32_t kOutTileBytes = kBand * kTN * 2;  // a consumer's 128 x 128 bf16 tile
+
+constexpr size_t many_smem_bytes() {
+  return 1024 + kV3Stages * (kBandBytes + kBTileBytes) + 2 * kOutTileBytes +
+         (2 * kV3Stages + 4) * sizeof(uint64_t);
+}
+
+// One persistent GEMM of v3: out[m, n] = epilogue(A[m, :] . B[n, :]) over
+// K / 64 chunks, in tiles of 128 rows x 128 columns. Block b takes tiles
+// b, b + gridDim.x, ..., tile t being (band t / col_tiles, column tile
+// t % col_tiles), so the tiles in flight on the card at once cover a few
+// neighbouring bands: fc1's LayerNormed rows and fc2's G band are read from
+// HBM once and served from L2 to every column tile. Warpgroup 0 is the
+// producer (one thread issues every TMA load of the block's tiles, in
+// order, through a ring of kV3Stages stages with full and empty
+// mbarriers); warpgroups 1 and 2 are consumers and take the block's tiles
+// in turn (ping-pong). A consumer starts its tile's products only after
+// the other has issued all of its previous tile's (the `turn` mbarriers),
+// so the products keep the ring's order and one consumer's epilogue
+// overlaps the other's products. The epilogue stages the bf16 tile in
+// shared memory in the swizzled layout and stores it by TMA:
+//   fc1 (kFc2 false): bf16(GELU_A(acc + b1)) into G;
+//   fc2: bf16(x + bf16(acc + b2)), the x tile loaded by TMA into the
+//   staging buffer while the products run, into out.
+// Each output's K sum is one pass over K in chunk order on one warpgroup,
+// with v2's k16 steps: no split, no atomics.
+template <bool kFc2, int A>
+__device__ __forceinline__ void many_gemm(const CUtensorMap* ta, const CUtensorMap* tb,
+                                          const CUtensorMap* tout, const CUtensorMap* tres,
+                                          const float* __restrict__ bias, int M, int N, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* As = align_1024(smem_raw);            // kV3Stages x (128 x 64)
+  unsigned char* Bs = As + kV3Stages * kBandBytes;     // kV3Stages x (128 x 64)
+  unsigned char* Os = Bs + kV3Stages * kBTileBytes;    // 2 x (128 x 128), two 64-column slabs
+  uint64_t* full = reinterpret_cast<uint64_t*>(Os + 2 * kOutTileBytes);
+  uint64_t* empty = full + kV3Stages;
+  uint64_t* turn = empty + kV3Stages;  // [2]: consumer w may start its next products
+  uint64_t* res_full = turn + 2;       // [2]: fc2's x tile has landed
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int col_tiles = (N + kTN - 1) / kTN;
+  const int tiles = ((M + kBand - 1) / kBand) * col_tiles;
+  const int chunks = K / kTK;
+  if (tid == 0) {
+    for (int st = 0; st < kV3Stages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 4);  // lane 0 of each warp of the consuming warpgroup
+    }
+    for (int c = 0; c < 2; ++c) {
+      mbar_init(&turn[c], 1);
+      mbar_init(&res_full[c], 1);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (tid != 0) return;
+    int i = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t / col_tiles) * kBand, n0 = (t % col_tiles) * kTN;
+      for (int c = 0; c < chunks; ++c, ++i) {
+        const int st = i % kV3Stages;
+        if (i >= kV3Stages) mbar_wait(&empty[st], ((i / kV3Stages) - 1) & 1);
+        mbar_arrive_expect_tx(&full[st], kBandBytes + kBTileBytes);
+        tma_load_2d(As + st * kBandBytes, ta, &full[st], c * kTK, m0);
+        tma_load_2d(Bs + st * kBTileBytes, tb, &full[st], c * kTK, n0);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int w = wg - 1, ctid = tid & 127, warp = ctid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, gt = lane & 3;
+  unsigned char* Ob = Os + w * kOutTileBytes;
+  int turns = 0, done = 0;  // waits on turn[w]; tiles finished
+  int j = 0;                // the block's tile count so far
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
+    if ((j & 1) != w) continue;
+    const int m0 = (t / col_tiles) * kBand, n0 = (t % col_tiles) * kTN;
+    const int i0 = j * chunks;  // the ring's load index of this tile's first chunk
+    if (kFc2 && ctid == 0) {
+      bulk_wait_read();  // the previous tile's store has read the staging buffer
+      mbar_arrive_expect_tx(&res_full[w], kOutTileBytes);
+      tma_load_2d(Ob, tres, &res_full[w], n0, m0);
+      tma_load_2d(Ob + kOutTileBytes / 2, tres, &res_full[w], n0 + kTK, m0);
+    }
+    if (j > 0) mbar_wait(&turn[w], (turns++) & 1);
+
+    float acc[2][64];
+#pragma unroll
+    for (int q = 0; q < 64; ++q) acc[0][q] = acc[1][q] = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      const int i = i0 + c, st = i % kV3Stages;
+      mbar_wait(&full[st], (i / kV3Stages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTK / 16; ++kk) {
+        const uint64_t db = kmajor_desc(Bs + st * kBTileBytes + 32 * kk);
+        wgmma_m64n128k16_ss(acc[0], kmajor_desc(As + st * kBandBytes + 32 * kk), db);
+        wgmma_m64n128k16_ss(acc[1], kmajor_desc(As + st * kBandBytes + kBandBytes / 2 + 32 * kk),
+                            db);
+      }
+      wgmma_commit();
+      if (c == chunks - 1 && ctid == 0) mbar_arrive(&turn[1 - w]);
+      wgmma_wait<1>();
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      if (c >= 1 && lane == 0) mbar_arrive(&empty[(i - 1) % kV3Stages]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    if (lane == 0) mbar_arrive(&empty[(i0 + chunks - 1) % kV3Stages]);
+
+    // Epilogue. This thread holds, of half h, rows 64 h + 16 warp + gq (+ 8)
+    // and columns 8 jj + 2 gt (+ 1) of the tile (hopper.cuh's layout).
+    if (kFc2) {
+      mbar_wait(&res_full[w], done & 1);
+    } else {
+      if (ctid == 0) bulk_wait_read();
+      named_barrier_sync(1 + w, 128);  // the staging buffer is free
+    }
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const int col = 8 * jj + 2 * gt;
+      float2 bb = make_float2(0.f, 0.f);
+      if (n0 + col < N) bb = *reinterpret_cast<const float2*>(bias + n0 + col);
+      unsigned char* slab = Ob + (jj / 8) * (kOutTileBytes / 2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = 64 * h + 16 * warp + gq + 8 * half;
+          uint32_t* p = reinterpret_cast<uint32_t*>(slab + sw128_offset(row, col % kTK));
+          const float a0 = acc[h][4 * jj + 2 * half], a1 = acc[h][4 * jj + 2 * half + 1];
+          if (kFc2) {
+            const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(p);
+            const float r0 = __bfloat162float(__float2bfloat16(a0 + bb.x));
+            const float r1 = __bfloat162float(__float2bfloat16(a1 + bb.y));
+            const __nv_bfloat162 o =
+                __floats2bfloat162_rn(__low2float(xv) + r0, __high2float(xv) + r1);
+            *p = *reinterpret_cast<const uint32_t*>(&o);
+          } else {
+            *p = pack_bf16(gelu<A>(a0 + bb.x), gelu<A>(a1 + bb.y));
+          }
+        }
+    }
+    fence_proxy_async();  // the generic writes before the TMA store reads them
+    named_barrier_sync(1 + w, 128);
+    if (ctid == 0) {
+      tma_store_2d(tout, Ob, n0, m0);
+      if (n0 + kTK < N) tma_store_2d(tout, Ob + kOutTileBytes / 2, n0 + kTK, m0);
+      bulk_commit();
+    }
+    ++done;
+  }
+  if (ctid == 0) bulk_wait();
+}
+
+// v3's fc1: G = bf16(GELU_A(xn . W1^T + b1)), xn the LayerNormed x.
+template <int A>
+__global__ void __launch_bounds__(kV3Threads, 1)
+mlp_fc1_kernel_ws(const __grid_constant__ CUtensorMap txn, const __grid_constant__ CUtensorMap tw1,
+                  const __grid_constant__ CUtensorMap tg, const float* __restrict__ b1, int M,
+                  int F, int H) {
+  many_gemm<false, A>(&txn, &tw1, &tg, nullptr, b1, M, F, H);
+}
+
+// v3's fc2: out = bf16(x + bf16(G . W2^T + b2)).
+__global__ void __launch_bounds__(kV3Threads, 1)
+mlp_fc2_kernel_ws(const __grid_constant__ CUtensorMap tg, const __grid_constant__ CUtensorMap tw2,
+                  const __grid_constant__ CUtensorMap tout, const __grid_constant__ CUtensorMap tx,
+                  const float* __restrict__ b2, int M, int H, int F) {
+  many_gemm<true, 0>(&tg, &tw2, &tout, &tx, b2, M, H, F);
+}
+
 // A 2-D map over a row-major (rows, cols) bf16 matrix, boxes of
 // box_rows x 64 columns.
 cudaError_t matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
@@ -526,6 +811,64 @@ cudaError_t run_mlp(const void* x, const void* ln_w, const void* ln_b, const voi
   return cudaGetLastError();
 }
 
+template <int A>
+cudaError_t launch_fc1_many(const CUtensorMap& txn, const CUtensorMap& tw1, const CUtensorMap& tg,
+                            const float* b1, int M, int F, int H, int blocks, cudaStream_t s) {
+  constexpr size_t smem = many_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_fc1_kernel_ws<A>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  mlp_fc1_kernel_ws<A><<<blocks, kV3Threads, smem, s>>>(txn, tw1, tg, b1, M, F, H);
+  return cudaGetLastError();
+}
+
+// v3 (ops/kernels/mlp.py: mlp_plan picks it for many tokens): the
+// LayerNorm pass into xn, then fc1 into g and fc2 into out, each a
+// persistent grid of at most `sms` blocks.
+cudaError_t run_mlp_many(const void* x, const void* ln_w, const void* ln_b, const void* w1,
+                         const void* b1, const void* w2, const void* b2, void* xn, void* g,
+                         void* out, int M, int H, int F, int sms, float eps, int act, int device,
+                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (M <= 0 || F <= 0 || F % kTK != 0 || H != kManyHidden || sms <= 0 ||
+      (act != kQuickGelu && act != kErfGelu))
+    return cudaErrorInvalidValue;
+  const auto* xp = static_cast<const bf16*>(x);
+  const auto* lw = static_cast<const float*>(ln_w);
+  const auto* lb = static_cast<const float*>(ln_b);
+  auto* xnp = static_cast<bf16*>(xn);
+  auto s = static_cast<cudaStream_t>(stream);
+
+  const int ln_blocks = std::min((M + 7) / 8, 8 * sms);
+  mlp_fc1_kernel_ln<kManyHidden><<<ln_blocks, 256, 0, s>>>(xp, lw, lb, xnp, M, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  CUtensorMap txn, tw1, tg, tw2, tout, tx;
+  if ((err = matrix_map(&txn, xn, M, H, kBand)) != cudaSuccess) return err;
+  if ((err = matrix_map(&tw1, w1, F, H, kTN)) != cudaSuccess) return err;
+  if ((err = matrix_map(&tg, g, M, F, kBand)) != cudaSuccess) return err;
+  if ((err = matrix_map(&tw2, w2, H, F, kTN)) != cudaSuccess) return err;
+  if ((err = matrix_map(&tout, out, M, H, kBand)) != cudaSuccess) return err;
+  if ((err = matrix_map(&tx, x, M, H, kBand)) != cudaSuccess) return err;
+
+  const int bands = (M + kBand - 1) / kBand;
+  const int blocks1 = std::min(sms, bands * ((F + kTN - 1) / kTN));
+  const auto* b1p = static_cast<const float*>(b1);
+  err = act == kErfGelu ? launch_fc1_many<kErfGelu>(txn, tw1, tg, b1p, M, F, H, blocks1, s)
+                        : launch_fc1_many<kQuickGelu>(txn, tw1, tg, b1p, M, F, H, blocks1, s);
+  if (err != cudaSuccess) return err;
+
+  constexpr size_t smem = many_smem_bytes();
+  err = cudaFuncSetAttribute(mlp_fc2_kernel_ws, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int blocks2 = std::min(sms, bands * (H / kTN));
+  mlp_fc2_kernel_ws<<<blocks2, kV3Threads, smem, s>>>(tg, tw2, tout, tx,
+                                                      static_cast<const float*>(b2), M, H, F);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace istpu
 
@@ -558,6 +901,18 @@ int istpu_mlp_partial_bf16(const void* x, const void* ln_w, const void* ln_b, co
   return istpu::run_mlp(x, ln_w, ln_b, w1, b1, w2, nullptr, g, partial, nullptr,
                         static_cast<float*>(out), true, M, H, F, runs, tiles_per_run, splits,
                         chunks_per_split, eps, istpu::kQuickGelu, device, stream);
+}
+
+// v3, the many-token design: the arguments as istpu_mlp_bf16's, H 768, with
+// xn a bf16 (M, H) scratch for the LayerNormed x and `sms` the persistent
+// grid's size (the card's SM count); no partials.
+int istpu_mlp_many_bf16(const void* x, const void* ln_w, const void* ln_b, const void* w1,
+                        const void* b1, const void* w2, const void* b2, void* xn, void* g,
+                        void* out, int M, int H, int F, int sms, float eps, int act, int device,
+                        void* stream) {
+  if (b2 == nullptr) return cudaErrorInvalidValue;
+  return istpu::run_mlp_many(x, ln_w, ln_b, w1, b1, w2, b2, xn, g, out, M, H, F, sms, eps, act,
+                             device, stream);
 }
 
 }  // extern "C"

@@ -111,6 +111,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.istpu_mlp_bf16.restype = i32
     lib.istpu_mlp_partial_bf16.argtypes = [vp] * 9 + [i32] * 7 + [f32, i32, vp]
     lib.istpu_mlp_partial_bf16.restype = i32
+    lib.istpu_mlp_many_bf16.argtypes = [vp] * 10 + [i32] * 4 + [f32, i32, i32, vp]
+    lib.istpu_mlp_many_bf16.restype = i32
     lib.istpu_conv3x3_bf16.argtypes = [vp] * 7 + [i32] * 10 + [vp]
     lib.istpu_conv3x3_bf16.restype = i32
     lib.istpu_relpos_attention_bf16.argtypes = [vp] * 6 + [i32] * 6 + [i64] * 9 + [i32] * 5 + [vp]

@@ -14,6 +14,16 @@ the default, which every ClipUNet call takes) or "gelu" (the exact
 models/sam.py); the CUDA kernel compiles its fc1 epilogue once for each
 (`ACTIVATIONS` gives the number the C entry point takes).
 
+The kernel has two designs, picked by `mlp_plan` from what the call shows
+(its token count and width, never the model or the activation): v2 for
+few tokens (ClipUNet's requests and batches, and always the TP entry),
+and v3 from MANY_TOKENS tokens on at a width in MANY_TOKEN_HIDDEN (SAM's
+encoder at 32,768 tokens a micro-batch of 8): a LayerNorm pass, then fc1
+and fc2 as persistent warp-specialised GEMMs over bands of 128 tokens
+(csrc/mlp.cu's header says why and what bounds each). The two give the
+same bits; `MANY_TOKEN_LAUNCHES` counts the calls that ran v3, which
+`LAUNCHES` counts too.
+
 Weights use the nn.Linear layout: w1 is (F, H), w2 is (H, F).
 `fused_mlp` takes the plain version only for tensors on the CPU. On a
 CUDA tensor it launches the kernel or raises; the kernel has no backward,
@@ -43,9 +53,11 @@ import torch
 from image_segmentation_tpu_torch.ops.kernels import _build
 
 # Launches of the CUDA kernel since the last reset (the plain version on
-# the CPU does not count), and of its tensor-parallel entry.
+# the CPU does not count), of its tensor-parallel entry, and of those
+# LAUNCHES that ran v3, the many-token design.
 LAUNCHES = 0
 PARTIAL_LAUNCHES = 0
+MANY_TOKEN_LAUNCHES = 0
 
 HIDDEN_SIZES = (128, 256, 384, 512, 640, 768)
 # the GELUs of the fc1 epilogue, as csrc/mlp.cu numbers them (`Act`)
@@ -53,6 +65,15 @@ ACTIVATIONS = {"quick_gelu": 0, "gelu": 1}
 TOKEN_TILE = 64  # tokens per tile, the M of wgmma (csrc/mlp.cu kTM)
 OUT_TILE = 128  # output columns per tile: fc1's F, fc2's H (kTN)
 K_CHUNK = 64  # reduction columns per pipeline stage (kTK)
+# v3 runs from MANY_TOKENS tokens on, at the widths in MANY_TOKEN_HIDDEN:
+# the smallest token count of a sweep on an H100 at H 768, F 3,072 with
+# both GELUs from which v3 is at least as fast as v2 both on the device and
+# from Python (PERF.md §6). Below it the callers are ClipUNet's serving
+# batches, where v3's extra launch and tensor maps cost more host time
+# than its kernels save. 768 is the one width the sweep measured, and the
+# one csrc/mlp.cu builds v3 for (kManyHidden).
+MANY_TOKENS = 3152
+MANY_TOKEN_HIDDEN = (768,)
 
 
 def _gelu_stage(x, ln_w, ln_b, w1, b1, eps: float, activation: str = "quick_gelu"):
@@ -117,11 +138,13 @@ def _sm_count(device_index: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class MlpPlan:
-    """How csrc/mlp.cu cuts one call. fc1: token tiles x `runs` blocks,
+    """How csrc/mlp.cu cuts one call. v2, fc1: token tiles x `runs` blocks,
     each over `tiles_per_run` F tiles of OUT_TILE. fc2: token tiles x
     H / OUT_TILE x `splits` blocks, each over `chunks_per_split` chunks of
     F of K_CHUNK. Scratch: the bf16 intermediate G, and f32 partials of
-    fc2 when F is split."""
+    fc2 when F is split. With `many_tokens` v3 runs instead (the LayerNorm
+    pass into the `ln_shape` scratch, then persistent fc1 and fc2 over
+    bands of 128 tokens, no partials) and the v2 fields go unused."""
 
     token_tiles: int
     runs: int
@@ -130,13 +153,17 @@ class MlpPlan:
     chunks_per_split: int
     g_shape: tuple
     partial_shape: Optional[tuple]
+    many_tokens: bool = False
+    ln_shape: Optional[tuple] = None
 
 
-def mlp_plan(tokens: int, hdim: int, fdim: int, sms: int) -> MlpPlan:
+def mlp_plan(tokens: int, hdim: int, fdim: int, sms: int, tp: bool = False) -> MlpPlan:
     """The cut for `tokens` rows on a card with `sms` SMs.
 
-    fc1 blocks hold their LayerNorm tile resident (one block an SM): the
-    run length is the one with the fewest waves x tiles per block, the
+    v3 runs at MANY_TOKENS tokens or more at a width in MANY_TOKEN_HIDDEN,
+    except for the tensor-parallel entry (`tp`), which always runs v2.
+    v2's fc1 blocks hold their LayerNorm tile resident (one block an SM):
+    the run length is the one with the fewest waves x tiles per block, the
     longer on a tie (fewer LayerNorm recomputations). fc2 splits F only
     when its output tiles are too few to cover the SMs, to about two
     blocks for every three SMs: more splits cost more in f32 partials and
@@ -156,6 +183,9 @@ def mlp_plan(tokens: int, hdim: int, fdim: int, sms: int) -> MlpPlan:
     want = max(1, min(k_chunks, -(-2 * sms // (3 * out_tiles))))
     chunks = -(-k_chunks // want)
     splits = -(-k_chunks // chunks)
+    if not tp and tokens >= MANY_TOKENS and hdim in MANY_TOKEN_HIDDEN:
+        return MlpPlan(tt, runs, per, splits, chunks, (tokens, fdim), None, True,
+                       (tokens, hdim))
     return MlpPlan(tt, runs, per, splits, chunks, (tokens, fdim),
                    (splits, tokens, hdim) if splits > 1 else None)
 
@@ -178,15 +208,26 @@ def _launch(x, ln_w, ln_b, w1, b1, w2, b2, eps: float,
         return out
     lib = _build.load()
     dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    plan = mlp_plan(m, hdim, fdim, _sm_count(dev))
+    plan = mlp_plan(m, hdim, fdim, _sm_count(dev), tp=b2 is None)
     g = torch.empty(plan.g_shape, dtype=torch.bfloat16, device=x.device)
+    tail = (dev, torch.cuda.current_stream(x.device).cuda_stream)
+    global LAUNCHES, PARTIAL_LAUNCHES, MANY_TOKEN_LAUNCHES
+    if plan.many_tokens:
+        xn = torch.empty(plan.ln_shape, dtype=torch.bfloat16, device=x.device)
+        rc = lib.istpu_mlp_many_bf16(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+                                     w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                                     b2.data_ptr(), xn.data_ptr(), g.data_ptr(),
+                                     out.data_ptr(), m, hdim, fdim, _sm_count(dev),
+                                     float(eps), ACTIVATIONS[activation], *tail)
+        _build.check(rc, "fused_mlp launch")
+        LAUNCHES += 1
+        MANY_TOKEN_LAUNCHES += 1
+        return out
     partial = (None if plan.partial_shape is None else
                torch.empty(plan.partial_shape, dtype=torch.float32, device=x.device))
     common = (g.data_ptr(), None if partial is None else partial.data_ptr(), out.data_ptr(),
               m, hdim, fdim, plan.runs, plan.tiles_per_run, plan.splits,
               plan.chunks_per_split, float(eps))
-    tail = (dev, torch.cuda.current_stream(x.device).cuda_stream)
-    global LAUNCHES, PARTIAL_LAUNCHES
     if b2 is None:
         rc = lib.istpu_mlp_partial_bf16(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
                                         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), *common,

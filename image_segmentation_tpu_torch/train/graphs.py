@@ -180,7 +180,8 @@ def _launch_counters() -> List[Tuple[object, str]]:
     )
 
     return [(attention, "LAUNCHES"), (mlp, "LAUNCHES"), (mlp, "PARTIAL_LAUNCHES"),
-            (double_conv, "LAUNCHES"), (relpos_attention, "LAUNCHES")]
+            (mlp, "MANY_TOKEN_LAUNCHES"), (double_conv, "LAUNCHES"),
+            (relpos_attention, "LAUNCHES")]
 
 
 class _Replay(torch.autograd.Function):

@@ -155,6 +155,56 @@ def test_mlp_kernel_erf_gelu(cuda, m):
     assert not torch.equal(got, quick)
 
 
+# K4 v3, the many-token design (SAM's micro-batch of 8: 32,768 tokens), at
+# ragged token counts past the last 128-token band too, with both GELUs
+# and both LayerNorm eps; the same bits over two calls.
+@pytest.mark.parametrize("m", [32768, 32700, 8260])
+@pytest.mark.parametrize("activation,eps", [("gelu", 1e-6), ("quick_gelu", 1e-5),
+                                            ("gelu", 1e-5), ("quick_gelu", 1e-6)])
+def test_mlp_many_token_kernel(cuda, m, activation, eps):
+    x, lw, lb, w1, b1, w2, b2, _ = _mlp_args(m, 768, 3072, cuda, seed=m)
+    assert K4.mlp_plan(m, 768, 3072, 132).many_tokens
+    before = K4.LAUNCHES, K4.MANY_TOKEN_LAUNCHES
+    got = K4.fused_mlp(x, lw, lb, w1, b1, w2, b2, eps, activation=activation)
+    torch.cuda.synchronize()
+    assert (K4.LAUNCHES - before[0], K4.MANY_TOKEN_LAUNCHES - before[1]) == (1, 1)
+    _close(got, K4.mlp_reference(x, lw, lb, w1, b1, w2, b2, eps, activation=activation))
+    assert torch.equal(got, K4.fused_mlp(x, lw, lb, w1, b1, w2, b2, eps, activation=activation))
+
+
+def test_mlp_many_token_kernel_keeps_v2s_bits(cuda, monkeypatch):
+    """v3 and v2 round at the same points and sum each output over K in the
+    same k16 order, so at SAM's 32,768 tokens with the exact GELU no output
+    differs (0 of 25,165,824 on the card)."""
+    x, lw, lb, w1, b1, w2, b2, _ = _mlp_args(32768, 768, 3072, cuda, seed=5)
+    v3 = K4.fused_mlp(x, lw, lb, w1, b1, w2, b2, 1e-6, activation="gelu")
+    monkeypatch.setattr(K4, "MANY_TOKENS", 10**9)
+    before = K4.MANY_TOKEN_LAUNCHES
+    v2 = K4.fused_mlp(x, lw, lb, w1, b1, w2, b2, 1e-6, activation="gelu")
+    torch.cuda.synchronize()
+    assert K4.MANY_TOKEN_LAUNCHES == before
+    assert int((v3 != v2).sum()) == 0
+
+
+# One ClipUNet request, a batch of 8 and the TP entry stay on v2 (the
+# parent's kernels and bits).
+@pytest.mark.parametrize("m,activation,partial", [(197, "quick_gelu", False),
+                                                  (1576, "quick_gelu", False),
+                                                  (1576, "gelu", False),
+                                                  (1576, "quick_gelu", True)])
+def test_mlp_few_tokens_and_tp_entry_run_v2(cuda, m, activation, partial):
+    x, lw, lb, w1, b1, w2, b2, eps = _mlp_args(m, 768, 1536 if partial else 3072, cuda)
+    before = K4.LAUNCHES, K4.MANY_TOKEN_LAUNCHES, K4.PARTIAL_LAUNCHES
+    if partial:
+        K4.fused_mlp_partial(x, lw, lb, w1, b1, w2, eps)
+    else:
+        K4.fused_mlp(x, lw, lb, w1, b1, w2, b2, eps, activation=activation)
+    torch.cuda.synchronize()
+    moved = tuple(a - b for a, b in zip((K4.LAUNCHES, K4.MANY_TOKEN_LAUNCHES,
+                                         K4.PARTIAL_LAUNCHES), before))
+    assert moved == ((0, 0, 1) if partial else (1, 0, 0))
+
+
 def _relpos_args(b, h, w, device, seed=0):
     """q, k, v sliced out of one (B, S, 3, 12, 64) qkv projection, as SAM's
     encoder hands them to K5, and random bf16 tables."""

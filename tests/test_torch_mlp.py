@@ -1,6 +1,8 @@
 """K4 in the PyTorch port: the plain version, the CPU routing of
 `fused_mlp`, and the ViT block's routing rule, held against the JAX
 package's Pallas kernel run in interpret mode."""
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -128,3 +130,74 @@ def test_mlp_plan_fc1_fits_one_wave_where_it_can():
     assert one.tiles_per_run == 1 and one.token_tiles * one.runs <= 132
     eight = K4.mlp_plan(1576, 768, 3072, 132)
     assert eight.token_tiles * eight.runs <= 132
+
+
+@pytest.mark.parametrize("tokens,hdim,fdim,tp,many", [
+    (197, 768, 3072, False, False), (1576, 768, 3072, False, False),
+    (6304, 128, 256, False, False), (32768, 768, 3072, True, False),
+    (32768, 768, 3072, False, True), (32700, 768, 3072, False, True)])
+def test_mlp_plan_routes_many_tokens_to_v3(tokens, hdim, fdim, tp, many):
+    """v3 takes MANY_TOKENS tokens or more at a width of MANY_TOKEN_HIDDEN;
+    one request and a ClipUNet batch of 8, the ablations' narrow ViT and
+    the TP entry keep v2 (the same cut as before v3 existed); a v3 plan
+    has no partials and a LayerNorm scratch of x's shape."""
+    plan = K4.mlp_plan(tokens, hdim, fdim, 132, tp=tp)
+    assert plan.many_tokens is many
+    assert (tokens >= K4.MANY_TOKENS and hdim in K4.MANY_TOKEN_HIDDEN and not tp) is many
+    if many:
+        assert plan.partial_shape is None and plan.ln_shape == (tokens, hdim)
+    else:
+        assert plan.ln_shape is None
+        assert plan == K4.mlp_plan(tokens, hdim, fdim, 132, tp=True)  # the v2 cut
+
+
+class _FakeLib:
+    """Records the C entry points the launcher calls, and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+def _route(monkeypatch, tokens, activation, partial=False):
+    """Runs `_launch` on the CPU against _FakeLib (no card: the tensors are
+    never touched); returns the entry point called and the counts moved."""
+    lib = _FakeLib()
+    monkeypatch.setattr(K4._build, "load", lambda: lib)
+    monkeypatch.setattr(K4, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    e = lambda *s, dt=torch.bfloat16: torch.empty(*s, dtype=dt)  # noqa: E731
+    h, f = 768, 3072 // (2 if partial else 1)
+    args = (e(1, tokens, h), e(h, dt=torch.float32), e(h, dt=torch.float32), e(f, h),
+            e(f, dt=torch.float32), e(h, f), None if partial else e(h, dt=torch.float32))
+    before = K4.LAUNCHES, K4.MANY_TOKEN_LAUNCHES, K4.PARTIAL_LAUNCHES
+    out = K4._launch(*args, 1e-6, activation)
+    assert out.shape == args[0].shape
+    (name, cargs), = lib.calls
+    moved = (K4.LAUNCHES - before[0], K4.MANY_TOKEN_LAUNCHES - before[1],
+             K4.PARTIAL_LAUNCHES - before[2])
+    return name, cargs, moved
+
+
+@pytest.mark.parametrize("activation", ["gelu", "quick_gelu"])
+def test_launcher_runs_v3_at_sam_tokens_with_either_gelu(monkeypatch, activation):
+    """SAM's micro-batch of 8 (32,768 tokens) goes to the many-token entry
+    with the activation's number, and counts in LAUNCHES and
+    MANY_TOKEN_LAUNCHES."""
+    name, cargs, moved = _route(monkeypatch, 32768, activation)
+    assert name == "istpu_mlp_many_bf16" and moved == (1, 1, 0)
+    assert cargs[15] == K4.ACTIVATIONS[activation]
+    assert cargs[10:14] == (32768, 768, 3072, 132)
+
+
+@pytest.mark.parametrize("tokens,activation,partial,entry", [
+    (197, "quick_gelu", False, "istpu_mlp_bf16"), (1576, "quick_gelu", False, "istpu_mlp_bf16"),
+    (197, "gelu", False, "istpu_mlp_bf16"), (32768, "quick_gelu", True, "istpu_mlp_partial_bf16")])
+def test_launcher_keeps_v2_for_few_tokens_and_the_tp_entry(monkeypatch, tokens, activation,
+                                                           partial, entry):
+    name, _, moved = _route(monkeypatch, tokens, activation, partial)
+    assert name == entry and moved == ((0, 0, 1) if partial else (1, 0, 0))

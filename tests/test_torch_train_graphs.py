@@ -212,6 +212,24 @@ def test_replay_wiring_accumulates_and_hands_gradients_as_the_eager_step():
     assert pair.anchor.grad is None
 
 
+def test_a_replay_credits_k4s_many_token_launches():
+    """A capture records every launch counter that moved (`_launch_counters`,
+    K4's many-token count among them) and each replay adds them again: a
+    SAM ViT-B forward at micro-batch 8 holds 12 K4 launches, all v3."""
+    from image_segmentation_tpu_torch.ops.kernels import mlp as K4
+
+    assert {(K4, "LAUNCHES"), (K4, "MANY_TOKEN_LAUNCHES")} <= set(G._launch_counters())
+    torch.manual_seed(0)
+    model = torch.nn.Linear(3, 4)
+    pair = _linear_pair(model)
+    pair.launched = [(K4, "LAUNCHES", 12), (K4, "MANY_TOKEN_LAUNCHES", 12)]
+    before = K4.LAUNCHES, K4.MANY_TOKEN_LAUNCHES
+    pair.begin_step()
+    for _ in range(8):
+        pair.forward(model, (torch.randn(2, 3),)).sum().backward()
+    assert (K4.LAUNCHES - before[0], K4.MANY_TOKEN_LAUNCHES - before[1]) == (96, 96)
+
+
 def test_a_gradient_kept_across_steps_is_not_zeroed_under_it():
     """A parameter the optimizer does not clear keeps its `.grad`: the next
     step's zeroing of the buffers hands it a copy first, and the new step's
