@@ -603,6 +603,8 @@ def op_dispatch_us(A, M, D, card: str) -> None:
     """Each kernel at one request's shape through its wrapper's direct path
     (eager serving) and through its torch.library op (the path an exported
     program takes): host µs a call, the same bits, one launch a call."""
+    from image_segmentation_tpu_torch.ops.kernels import _build
+
     g = torch.Generator(device="cuda").manual_seed(5)
     rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
     q, k, v = (rnd(1, 197, 12, 64).bfloat16() for _ in range(3))
@@ -610,13 +612,13 @@ def op_dispatch_us(A, M, D, card: str) -> None:
     mlp_args = (x, 1.0 + 0.1 * rnd(768), 0.1 * rnd(768), (0.03 * rnd(3072, 768)).bfloat16(),
                 0.1 * rnd(3072), (0.03 * rnd(768, 3072)).bfloat16(), 0.1 * rnd(768), 1e-5)
     dc_args = _k1_args(g, (1, 16, 16, 512), 1024, 0.0)
-    cases = (("fused_attention", A, (q, k, v), A.fused_attention, A.attention_op),
-             ("fused_mlp", M, mlp_args, M.fused_mlp, M.mlp_op),
-             ("fused_double_conv", D, dc_args, D.fused_double_conv, D.double_conv_op))
-    for name, mod, args, direct, op in cases:
-        before = mod.LAUNCHES
+    cases = (("fused_attention", (q, k, v), A.fused_attention, A.attention_op),
+             ("fused_mlp", mlp_args, M.fused_mlp, M.mlp_op),
+             ("fused_double_conv", dc_args, D.fused_double_conv, D.double_conv_op))
+    for name, args, direct, op in cases:
+        before = _build.launch_counts()
         same = torch.equal(direct(*args), op(*args))
-        counted = mod.LAUNCHES - before
+        counted = sum(_build.launches_since(before).values())
         d_us, o_us = _host_us(lambda: direct(*args)), _host_us(lambda: op(*args))
         print(f"[kernels] {name} host dispatch at one request's shape: direct {d_us:.1f} us a "
               f"call, torch op {o_us:.1f} us (+{o_us - d_us:.1f}); the op's bits equal the "
@@ -673,7 +675,8 @@ def mlp_crossover_sweep(M, g, card: str) -> list:
                     (0.03 * rnd(768, 3072)).bfloat16(), 0.1 * rnd(768), 1e-6)
             fn = lambda: M.fused_mlp(*args, activation=act)  # noqa: E731
             row = {"activation": act, "tokens": m,
-                   "plan": "v3" if M.mlp_plan(m, 768, 3072, sms).many_tokens else "v2"}
+                   "plan": ("v3" if isinstance(M.mlp_plan(m, 768, 3072, sms), M.ManyTokenPlan)
+                            else "v2")}
             for design in ("v2", "v3"):
                 with _mlp_design(M, design):
                     row[design] = (_device_ms(fn), _cuda_ms(fn))

@@ -9,10 +9,12 @@ pre-norm blocks (quick-GELU MLP), and the list of hidden states:
 [0] is the pre-layernorm output and [i] the output of block i.
 
 With `use_kernels`, each block's attention runs K3 (`fused_attention`)
-and its MLP half K4 (`fused_mlp`) when hidden and MLP widths are
-multiples of 128 (the rule of clip_vit.py:161); otherwise the plain
-versions of the same functions run. On CPU tensors the wrappers run the
-plain versions themselves.
+and its MLP half K4 (`fused_mlp`) at the widths K4 takes
+(`mlp.kernel_takes`: H in `HIDDEN_SIZES`, F a multiple of 64; the JAX
+package asks for multiples of 128, clip_vit.py:161, which puts every
+width this repo builds on the same side); otherwise the plain versions
+of the same functions run. On CPU tensors the wrappers run the plain
+versions themselves.
 
 Parameters are float32; the compute dtype is the dtype of the pixels the
 ClipViT is given (the ClipUNet casts them).
@@ -49,9 +51,9 @@ from image_segmentation_tpu_torch.ops.kernels.attention import (
     fused_attention,
 )
 from image_segmentation_tpu_torch.ops.kernels.mlp import (
-    K_CHUNK,
     fused_mlp,
     fused_mlp_partial,
+    kernel_takes,
     mlp_partial_reference,
     mlp_reference,
 )
@@ -141,8 +143,7 @@ class TransformerBlock(nn.Module):
         self.mlp = ClipMLP(cfg)
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.use_kernels = use_kernels
-        self.fuse_mlp = (use_kernels and cfg.hidden_size % 128 == 0
-                         and cfg.mlp_dim % 128 == 0)
+        self.fuse_mlp = use_kernels and kernel_takes(cfg.hidden_size, cfg.mlp_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.self_attn(layer_norm(x, self.layer_norm1))
@@ -158,8 +159,7 @@ class TransformerBlock(nn.Module):
         entry where the kernel takes the shapes, the f32 partials summed
         over the model group, then b2 and the residual."""
         ln, fc1, fc2, mesh = self.layer_norm2, self.mlp.fc1, self.mlp.fc2, self.tp_mesh
-        fuse = (self.use_kernels and x.shape[-1] % 128 == 0
-                and fc1.weight.shape[0] % K_CHUNK == 0)
+        fuse = self.use_kernels and kernel_takes(x.shape[-1], fc1.weight.shape[0])
         run = fused_mlp_partial if fuse else mlp_partial_reference
         xi, lw, lb = (copy_to_model(t, mesh) for t in (x, ln.weight, ln.bias))
         part = run(xi, lw, lb, fc1.weight.to(x.dtype), fc1.bias, fc2.weight.to(x.dtype), ln.eps)

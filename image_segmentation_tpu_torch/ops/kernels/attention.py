@@ -9,12 +9,10 @@ plain PyTorch with the kernel's cast points:
   logits = (q·k) in f32, then × 1/√D;  softmax in f32;
   probabilities cast to v's dtype;  P·V accumulated in f32;  out in q's dtype.
 
-`fused_attention` takes the plain version only for tensors on the CPU.
-On a CUDA tensor it launches the kernel (bf16, D = 64) or raises; the
-kernel has no backward, so under grad mode an argument that requires
-grad is refused. While torch.export traces, it emits `attention_op`
-(`istpu::fused_attention`) instead, whose CUDA implementation is the same
-launcher.
+`fused_attention` routes as every kernel entry does (`_build.kernel_entry`):
+the plain version on the CPU, the kernel on a CUDA tensor (bf16, D = 64;
+an argument that requires grad is refused under grad mode), and
+`attention_op` (`istpu::fused_attention`) while torch.export traces.
 """
 from __future__ import annotations
 
@@ -42,25 +40,6 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
     return out.to(q.dtype)
-
-
-def _check_cuda_args(q, k, v) -> None:
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(
-            f"fused_attention wants equal (B, S, H, D) shapes, got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA kernel takes bfloat16; {name} is {t.dtype}")
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(
-                f"{name} needs a contiguous last dim, 16-byte aligned rows "
-                f"and strides that are multiples of 8; got strides {t.stride()}")
-    if q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes head dim {HEAD_DIM}, got {q.shape[-1]}")
-    _build.refuse_grad("fused_attention", q, k, v)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,18 +70,17 @@ def attention_plan(b: int, s: int, h: int) -> AttentionPlan:
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The kernel on CUDA tensors: checks, the plan, one launch, the count."""
-    _check_cuda_args(q, k, v)
+    _build.check_heads("fused_attention", HEAD_DIM, q, k, v)
+    _build.refuse_grad("fused_attention", q, k, v)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     plan = attention_plan(b, s, h)  # raises past MAX_SEQ
-    lib = _build.load()
-    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    rc = lib.istpu_attention_bf16(
+    rc = _build.load().istpu_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], plan.grid[0], plan.chunks,
-        plan.smem_bytes, dev, torch.cuda.current_stream(q.device).cuda_stream,
+        plan.smem_bytes, *_build.device_and_stream(q),
     )
     _build.check(rc, "fused_attention launch")
     global LAUNCHES
@@ -110,22 +88,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# K3 as a torch op, for torch.export: the plain version on the CPU, the
-# launcher on CUDA, and the output's shape and dtype while tracing.
-attention_op = torch.library.custom_op(
-    "istpu::fused_attention", _launch, mutates_args=(), device_types="cuda",
-    schema="(Tensor q, Tensor k, Tensor v) -> Tensor")
-attention_op.register_kernel("cpu", attention_reference)
-attention_op.register_fake(lambda q, k, v: q.new_empty(q.shape))
+attention_op, _route = _build.kernel_entry(
+    "fused_attention", __name__, attention_reference,
+    schema="(Tensor q, Tensor k, Tensor v) -> Tensor",
+    fake=lambda q, k, v: q.new_empty(q.shape), launcher=_launch)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(QKᵀ/√D)·V for (B, S, H, D); returns (B, S, H, D) in q's dtype."""
-    if _build.tracing():
-        _build.refuse_grad("fused_attention", q, k, v)
-        return attention_op(q, k, v)
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention runs on cpu or cuda, not {q.device}")
-    return _launch(q, k, v)
+    return _route(q, k, v)

@@ -19,19 +19,17 @@ is never written; its plain version is `double_conv_reference` of
 `torch.cat([skip, up], -1)`.
 
 Layout is the JAX package's: x (N, H, W, Cin) NHWC, w (3, 3, Cin, C) HWIO,
-scale and bias (C,) f32. The wrappers take the plain version only for
-tensors on the CPU. On a CUDA tensor they launch the kernel (bf16,
-contiguous NHWC, which is an NCHW tensor in channels_last memory
-permuted to NHWC) or raise. The kernel has no backward: under grad mode
-a CUDA argument that requires grad is refused. While torch.export traces,
-they emit `double_conv_op` (`istpu::fused_double_conv`) and
-`double_conv_cat_op` (`istpu::fused_double_conv_cat`) instead, whose CUDA
-implementations are the same launcher.
+scale and bias (C,) f32. The two entries route as every kernel entry does
+(`_build.kernel_entry`): the plain versions on the CPU, the kernel on a
+CUDA tensor (bf16, contiguous NHWC, which is an NCHW tensor in
+channels_last memory permuted to NHWC; an argument that requires grad is
+refused under grad mode), and `double_conv_op`
+(`istpu::fused_double_conv`) and `double_conv_cat_op`
+(`istpu::fused_double_conv_cat`) while torch.export traces.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -80,11 +78,6 @@ def double_conv_cat_reference(skip, up, w1, scale1, bias1, w2, scale2,
     `double_conv_reference`."""
     return double_conv_reference(torch.cat([skip, up], dim=-1), w1, scale1, bias1, w2,
                                  scale2, bias2)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,19 +130,9 @@ def _check_cuda_args(xs, w1, scale1, bias1, w2, scale2, bias2) -> None:
     args = {**dict(zip(("x",) if len(xs) == 1 else ("skip", "up"), xs)),
             "w1": w1, "scale1": scale1, "bias1": bias1, "w2": w2, "scale2": scale2,
             "bias2": bias2}
-    for name, t in args.items():
-        if name in shapes and tuple(t.shape) != shapes[name]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shapes[name]}")
-        want = torch.float32 if name.startswith(("scale", "bias")) else torch.bfloat16
-        if t.dtype != want:
-            raise TypeError(f"the CUDA kernel takes {name} as {want}, got {t.dtype}")
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(
-                f"{name} must be contiguous and 16-byte aligned (x an NHWC tensor, which "
-                f"is an NCHW tensor in channels_last memory permuted to NHWC; w HWIO); "
-                f"got strides {t.stride()}")
+    _build.check_operands(args, shapes, ("scale1", "bias1", "scale2", "bias2"),
+                          " (x an NHWC tensor, which is an NCHW tensor in channels_last "
+                          "memory permuted to NHWC; w HWIO)")
     if c % 8:
         raise ValueError(f"the CUDA kernel takes C a multiple of 8, got {c}")
     if len(xs) == 2 and any(t.shape[-1] % 8 for t in xs):
@@ -166,7 +149,7 @@ def _conv(lib, x0: torch.Tensor, x1: Optional[torch.Tensor], w: torch.Tensor, sc
     c1 = 0 if x1 is None else x1.shape[-1]
     c = w.shape[-1]
     y = torch.empty((n, h, wd, c), dtype=x0.dtype, device=x0.device)
-    plan = conv_plan(n, h, wd, c0, c, _sm_count(dev), c1)
+    plan = conv_plan(n, h, wd, c0, c, _build.sm_count(dev), c1)
     partial = (torch.empty((plan.splits, n * h * wd, c), dtype=torch.float32,
                            device=x0.device) if plan.splits > 1 else None)
     rc = lib.istpu_conv3x3_bf16(
@@ -179,8 +162,6 @@ def _conv(lib, x0: torch.Tensor, x1: Optional[torch.Tensor], w: torch.Tensor, sc
 
 def _launch(xs, w1, scale1, bias1, w2, scale2, bias2) -> torch.Tensor:
     x = xs[0]
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_double_conv runs on cpu or cuda, not {x.device}")
     _check_cuda_args(xs, w1, scale1, bias1, w2, scale2, bias2)
     if x.numel() == 0:
         return torch.empty(x.shape[:3] + (w1.shape[-1],), dtype=x.dtype, device=x.device)
@@ -188,8 +169,7 @@ def _launch(xs, w1, scale1, bias1, w2, scale2, bias2) -> torch.Tensor:
         pad = 8 - x.shape[-1] % 8
         xs, w1 = (F.pad(x, (0, pad)),), F.pad(w1, (0, 0, 0, pad))
     lib = _build.load()
-    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    dev, stream = _build.device_and_stream(x)
     mid = _conv(lib, xs[0], xs[1] if len(xs) == 2 else None, w1, scale1, bias1, dev, stream)
     out = _conv(lib, mid, None, w2, scale2, bias2, dev, stream)
     global LAUNCHES
@@ -207,42 +187,26 @@ def _launch_op(xs, *args) -> torch.Tensor:
     return _launch(tuple(t.contiguous() for t in xs), *(t.contiguous() for t in args))
 
 
-# K1 and its concat entry as torch ops, for torch.export: the plain
-# versions on the CPU, the launcher on CUDA, and the output's shape and
-# dtype while tracing.
-double_conv_op = torch.library.custom_op(
-    "istpu::fused_double_conv", lambda x, *w: _launch_op((x,), *w), mutates_args=(),
-    device_types="cuda", schema=f"(Tensor x, {_DC_ARGS}) -> Tensor")
-double_conv_op.register_kernel("cpu", double_conv_reference)
-double_conv_op.register_fake(lambda x, w1, *_: x.new_empty(x.shape[:3] + (w1.shape[-1],)))
-double_conv_cat_op = torch.library.custom_op(
-    "istpu::fused_double_conv_cat", lambda skip, up, *w: _launch_op((skip, up), *w),
-    mutates_args=(), device_types="cuda",
-    schema=f"(Tensor skip, Tensor up, {_DC_ARGS}) -> Tensor")
-double_conv_cat_op.register_kernel("cpu", double_conv_cat_reference)
-double_conv_cat_op.register_fake(
-    lambda skip, up, w1, *_: skip.new_empty(skip.shape[:3] + (w1.shape[-1],)))
+double_conv_op, _route = _build.kernel_entry(
+    "fused_double_conv", __name__, double_conv_reference,
+    schema=f"(Tensor x, {_DC_ARGS}) -> Tensor",
+    fake=lambda x, w1, *_: x.new_empty(x.shape[:3] + (w1.shape[-1],)),
+    launcher=lambda x, *w: _launch_op((x,), *w), launch_args=lambda x, *w: ((x,), *w))
+double_conv_cat_op, _route_cat = _build.kernel_entry(
+    "fused_double_conv_cat", __name__, double_conv_cat_reference,
+    schema=f"(Tensor skip, Tensor up, {_DC_ARGS}) -> Tensor",
+    fake=lambda skip, up, w1, *_: skip.new_empty(skip.shape[:3] + (w1.shape[-1],)),
+    launcher=lambda skip, up, *w: _launch_op((skip, up), *w),
+    launch_args=lambda skip, up, *w: ((skip, up), *w))
 
 
 def fused_double_conv(x, w1, scale1, bias1, w2, scale2, bias2) -> torch.Tensor:
     """x (N, H, W, Cin), w (3, 3, Cin, C) HWIO, scale/bias (C,) f32 →
     (N, H, W, C) in x's dtype."""
-    args = (w1, scale1, bias1, w2, scale2, bias2)
-    if _build.tracing():
-        _build.refuse_grad("fused_double_conv", x, *args)
-        return double_conv_op(x, *args)
-    if x.device.type == "cpu":
-        return double_conv_reference(x, *args)
-    return _launch((x,), *args)
+    return _route(x, w1, scale1, bias1, w2, scale2, bias2)
 
 
 def fused_double_conv_cat(skip, up, w1, scale1, bias1, w2, scale2, bias2) -> torch.Tensor:
     """The double conv of concat [skip, up] along channels, without the
     concat: skip (N, H, W, Cs), up (N, H, W, Cu), w1 (3, 3, Cs + Cu, C)."""
-    args = (w1, scale1, bias1, w2, scale2, bias2)
-    if _build.tracing():
-        _build.refuse_grad("fused_double_conv", skip, up, *args)
-        return double_conv_cat_op(skip, up, *args)
-    if skip.device.type == "cpu":
-        return double_conv_cat_reference(skip, up, *args)
-    return _launch((skip, up), *args)
+    return _route_cat(skip, up, w1, scale1, bias1, w2, scale2, bias2)

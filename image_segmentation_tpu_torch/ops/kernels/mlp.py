@@ -20,16 +20,17 @@ few tokens (ClipUNet's requests and batches, and always the TP entry),
 and v3 from MANY_TOKENS tokens on at a width in MANY_TOKEN_HIDDEN (SAM's
 encoder at 32,768 tokens a micro-batch of 8): a LayerNorm pass, then fc1
 and fc2 as persistent warp-specialised GEMMs over bands of 128 tokens
-(csrc/mlp.cu's header says why and what bounds each). The two give the
+(csrc/mlp.cu's header says why and what bounds each). Each has its plan
+(`MlpPlan`, `ManyTokenPlan`) and its C entry point. The two give the
 same bits; `MANY_TOKEN_LAUNCHES` counts the calls that ran v3, which
 `LAUNCHES` counts too.
 
-Weights use the nn.Linear layout: w1 is (F, H), w2 is (H, F).
-`fused_mlp` takes the plain version only for tensors on the CPU. On a
-CUDA tensor it launches the kernel or raises; the kernel has no backward,
-so under grad mode an argument that requires grad is refused. While
-torch.export traces, it emits `mlp_op` (`istpu::fused_mlp`) instead,
-whose CUDA implementation is the same launcher.
+Weights use the nn.Linear layout: w1 is (F, H), w2 is (H, F); the kernel
+takes the widths `kernel_takes` admits. `fused_mlp` routes as every
+kernel entry does (`_build.kernel_entry`): the plain version on the CPU,
+the kernel on a CUDA tensor (an argument that requires grad is refused
+under grad mode), and `mlp_op` (`istpu::fused_mlp`) while torch.export
+traces.
 
 `fused_mlp_partial(x, ln_w, ln_b, w1, b1, w2)` is K4's tensor-parallel
 entry: fc2(quickGELU(fc1(LN(x)))) as f32 (tokens, H), with neither the fc2
@@ -40,12 +41,11 @@ a bf16 output with the residual in it would lose the bits that matter.
 On a card it is the same source's fc1 stage and fc2 stage, whose f32
 partials (one per split of F, reduced in split order) are the output, with
 no bias + residual epilogue. Its plain version is `mlp_partial_reference`,
-its count `PARTIAL_LAUNCHES`.
+its count `PARTIAL_LAUNCHES`; it has no op.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional
 
 import torch
@@ -104,47 +104,36 @@ def mlp_partial_reference(x, ln_w, ln_b, w1, b1, w2, eps: float = 1e-5):
     return _gelu_stage(x, ln_w, ln_b, w1, b1, eps).float() @ w2.float().t()
 
 
+def kernel_takes(hdim: int, fdim: int) -> bool:
+    """Whether the CUDA kernel takes an MLP of width H `hdim` and hidden
+    width F `fdim` (fc1's outputs; a rank's share of them in the TP entry):
+    the rule a model reads before it calls `fused_mlp` on a card."""
+    return hdim in HIDDEN_SIZES and fdim > 0 and fdim % K_CHUNK == 0
+
+
 def _check_cuda_args(op: str, x, ln_w, ln_b, w1, b1, w2, b2=None) -> None:
     hdim = x.shape[-1]
     fdim = w1.shape[0]
-    if hdim not in HIDDEN_SIZES or fdim <= 0 or fdim % K_CHUNK:
+    if not kernel_takes(hdim, fdim):
         raise ValueError(
             f"the CUDA kernel takes H in {HIDDEN_SIZES} and F a multiple of "
             f"{K_CHUNK}, got H={hdim} F={fdim}")
     shapes = {"ln_w": (hdim,), "ln_b": (hdim,), "w1": (fdim, hdim),
               "b1": (fdim,), "w2": (hdim, fdim), "b2": (hdim,)}
-    dtypes = {"x": torch.bfloat16, "w1": torch.bfloat16, "w2": torch.bfloat16,
-              "ln_w": torch.float32, "ln_b": torch.float32,
-              "b1": torch.float32, "b2": torch.float32}
     args = {"x": x, "ln_w": ln_w, "ln_b": ln_b, "w1": w1, "b1": b1, "w2": w2}
     if b2 is not None:
         args["b2"] = b2
-    for name, t in args.items():
-        if name in shapes and tuple(t.shape) != shapes[name]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shapes[name]}")
-        if t.dtype != dtypes[name]:
-            raise TypeError(f"the CUDA kernel takes {name} as {dtypes[name]}, got {t.dtype}")
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    _build.check_operands(args, shapes, ("ln_w", "ln_b", "b1", "b2"))
     _build.refuse_grad(op, *args.values())
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 @dataclasses.dataclass(frozen=True)
 class MlpPlan:
-    """How csrc/mlp.cu cuts one call. v2, fc1: token tiles x `runs` blocks,
-    each over `tiles_per_run` F tiles of OUT_TILE. fc2: token tiles x
-    H / OUT_TILE x `splits` blocks, each over `chunks_per_split` chunks of
-    F of K_CHUNK. Scratch: the bf16 intermediate G, and f32 partials of
-    fc2 when F is split. With `many_tokens` v3 runs instead (the LayerNorm
-    pass into the `ln_shape` scratch, then persistent fc1 and fc2 over
-    bands of 128 tokens, no partials) and the v2 fields go unused."""
+    """How csrc/mlp.cu's v2 cuts one call. fc1: token tiles x `runs`
+    blocks, each over `tiles_per_run` F tiles of OUT_TILE. fc2: token
+    tiles x H / OUT_TILE x `splits` blocks, each over `chunks_per_split`
+    chunks of F of K_CHUNK. Scratch: the bf16 intermediate G, and f32
+    partials of fc2 when F is split."""
 
     token_tiles: int
     runs: int
@@ -153,15 +142,24 @@ class MlpPlan:
     chunks_per_split: int
     g_shape: tuple
     partial_shape: Optional[tuple]
-    many_tokens: bool = False
-    ln_shape: Optional[tuple] = None
 
 
-def mlp_plan(tokens: int, hdim: int, fdim: int, sms: int, tp: bool = False) -> MlpPlan:
-    """The cut for `tokens` rows on a card with `sms` SMs.
+@dataclasses.dataclass(frozen=True)
+class ManyTokenPlan:
+    """v3, the many-token design: the LayerNorm pass into the `ln_shape`
+    scratch, then persistent fc1 (into G, `g_shape`) and fc2 over bands of
+    128 tokens, one block an SM, which csrc/mlp.cu cuts itself."""
 
-    v3 runs at MANY_TOKENS tokens or more at a width in MANY_TOKEN_HIDDEN,
-    except for the tensor-parallel entry (`tp`), which always runs v2.
+    g_shape: tuple
+    ln_shape: tuple
+
+
+def mlp_plan(tokens: int, hdim: int, fdim: int, sms: int, tp: bool = False):
+    """The cut for `tokens` rows on a card with `sms` SMs: a ManyTokenPlan
+    (v3) at MANY_TOKENS tokens or more at a width in MANY_TOKEN_HIDDEN,
+    except for the tensor-parallel entry (`tp`), which always runs v2;
+    otherwise an MlpPlan (v2).
+
     v2's fc1 blocks hold their LayerNorm tile resident (one block an SM):
     the run length is the one with the fewest waves x tiles per block, the
     longer on a tie (fewer LayerNorm recomputations). fc2 splits F only
@@ -169,6 +167,8 @@ def mlp_plan(tokens: int, hdim: int, fdim: int, sms: int, tp: bool = False) -> M
     blocks for every three SMs: more splits cost more in f32 partials and
     their reduction than they gain in parallel loads (a sweep of the
     split count on an H100 at 197 and 394 tokens)."""
+    if not tp and tokens >= MANY_TOKENS and hdim in MANY_TOKEN_HIDDEN:
+        return ManyTokenPlan((tokens, fdim), (tokens, hdim))
     tt = -(-tokens // TOKEN_TILE)
     f_tiles = -(-fdim // OUT_TILE)
     best = None
@@ -183,18 +183,15 @@ def mlp_plan(tokens: int, hdim: int, fdim: int, sms: int, tp: bool = False) -> M
     want = max(1, min(k_chunks, -(-2 * sms // (3 * out_tiles))))
     chunks = -(-k_chunks // want)
     splits = -(-k_chunks // chunks)
-    if not tp and tokens >= MANY_TOKENS and hdim in MANY_TOKEN_HIDDEN:
-        return MlpPlan(tt, runs, per, splits, chunks, (tokens, fdim), None, True,
-                       (tokens, hdim))
     return MlpPlan(tt, runs, per, splits, chunks, (tokens, fdim),
                    (splits, tokens, hdim) if splits > 1 else None)
 
 
 def _launch(x, ln_w, ln_b, w1, b1, w2, b2, eps: float,
             activation: str = "quick_gelu") -> torch.Tensor:
-    """The kernel on CUDA tensors: checks, the plan, one launch, the count.
-    With `b2` None it is the TP entry: the f32 partial, no bias, no residual
-    (quick GELU only)."""
+    """The kernel on CUDA tensors: checks, the plan, the C entry point of
+    the plan's design, the counts. With `b2` None it is the TP entry: the
+    f32 partial, no bias, no residual (quick GELU only)."""
     entry = "fused_mlp" if b2 is not None else "fused_mlp_partial"
     if activation not in ACTIVATIONS or (b2 is None and activation != "quick_gelu"):
         raise ValueError(f"{entry} takes activation in {sorted(ACTIVATIONS)} (the TP entry "
@@ -207,72 +204,55 @@ def _launch(x, ln_w, ln_b, w1, b1, w2, b2, eps: float,
     if m == 0:
         return out
     lib = _build.load()
-    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    plan = mlp_plan(m, hdim, fdim, _sm_count(dev), tp=b2 is None)
+    dev, stream = _build.device_and_stream(x)
+    sms = _build.sm_count(dev)
+    plan = mlp_plan(m, hdim, fdim, sms, tp=b2 is None)
     g = torch.empty(plan.g_shape, dtype=torch.bfloat16, device=x.device)
-    tail = (dev, torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = [t.data_ptr() for t in (x, ln_w, ln_b, w1, b1, w2)]
     global LAUNCHES, PARTIAL_LAUNCHES, MANY_TOKEN_LAUNCHES
-    if plan.many_tokens:
+    if isinstance(plan, ManyTokenPlan):
         xn = torch.empty(plan.ln_shape, dtype=torch.bfloat16, device=x.device)
-        rc = lib.istpu_mlp_many_bf16(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
-                                     w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                                     b2.data_ptr(), xn.data_ptr(), g.data_ptr(),
-                                     out.data_ptr(), m, hdim, fdim, _sm_count(dev),
-                                     float(eps), ACTIVATIONS[activation], *tail)
-        _build.check(rc, "fused_mlp launch")
-        LAUNCHES += 1
-        MANY_TOKEN_LAUNCHES += 1
-        return out
-    partial = (None if plan.partial_shape is None else
-               torch.empty(plan.partial_shape, dtype=torch.float32, device=x.device))
-    common = (g.data_ptr(), None if partial is None else partial.data_ptr(), out.data_ptr(),
+        rc = lib.istpu_mlp_many_bf16(*ptrs, b2.data_ptr(), xn.data_ptr(), g.data_ptr(),
+                                     out.data_ptr(), m, hdim, fdim, sms, float(eps),
+                                     ACTIVATIONS[activation], dev, stream)
+    else:
+        partial = (None if plan.partial_shape is None else
+                   torch.empty(plan.partial_shape, dtype=torch.float32, device=x.device))
+        v2 = (g.data_ptr(), None if partial is None else partial.data_ptr(), out.data_ptr(),
               m, hdim, fdim, plan.runs, plan.tiles_per_run, plan.splits,
               plan.chunks_per_split, float(eps))
-    if b2 is None:
-        rc = lib.istpu_mlp_partial_bf16(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
-                                        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), *common,
-                                        *tail)
-        _build.check(rc, "fused_mlp_partial launch")
-        PARTIAL_LAUNCHES += 1
-        return out
-    rc = lib.istpu_mlp_bf16(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
-                            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), *common,
-                            ACTIVATIONS[activation], *tail)
-    _build.check(rc, "fused_mlp launch")
+        if b2 is None:
+            rc = lib.istpu_mlp_partial_bf16(*ptrs, *v2, dev, stream)
+            _build.check(rc, f"{entry} launch")
+            PARTIAL_LAUNCHES += 1
+            return out
+        rc = lib.istpu_mlp_bf16(*ptrs, b2.data_ptr(), *v2, ACTIVATIONS[activation], dev, stream)
+    _build.check(rc, f"{entry} launch")
     LAUNCHES += 1
+    if isinstance(plan, ManyTokenPlan):
+        MANY_TOKEN_LAUNCHES += 1
     return out
 
 
-# K4 as a torch op, for torch.export: the plain version on the CPU, the
-# launcher on CUDA, and the output's shape and dtype while tracing.
-mlp_op = torch.library.custom_op(
-    "istpu::fused_mlp", _launch, mutates_args=(), device_types="cuda",
+mlp_op, _route = _build.kernel_entry(
+    "fused_mlp", __name__, mlp_reference,
     schema="(Tensor x, Tensor ln_w, Tensor ln_b, Tensor w1, Tensor b1, Tensor w2, "
-           "Tensor b2, float eps, str activation=\"quick_gelu\") -> Tensor")
-mlp_op.register_kernel("cpu", mlp_reference)
-mlp_op.register_fake(lambda x, *_: x.new_empty(x.shape))
+           "Tensor b2, float eps, str activation=\"quick_gelu\") -> Tensor",
+    fake=lambda x, *_: x.new_empty(x.shape), launcher=_launch)
+_, _route_partial = _build.kernel_entry(
+    "fused_mlp_partial", __name__, mlp_partial_reference,
+    launch_args=lambda x, ln_w, ln_b, w1, b1, w2, eps: (x, ln_w, ln_b, w1, b1, w2, None, eps))
 
 
 def fused_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
               activation: str = "quick_gelu"):
     """x: (..., H); returns x + MLP(LN(x)) in x's dtype, the MLP's GELU
     being `activation` (module docstring)."""
-    if _build.tracing():
-        _build.refuse_grad("fused_mlp", x, ln_w, ln_b, w1, b1, w2, b2)
-        return mlp_op(x, ln_w, ln_b, w1, b1, w2, b2, float(eps), activation)
-    if x.device.type == "cpu":
-        return mlp_reference(x, ln_w, ln_b, w1, b1, w2, b2, eps, activation)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp runs on cpu or cuda, not {x.device}")
-    return _launch(x, ln_w, ln_b, w1, b1, w2, b2, eps, activation)
+    return _route(x, ln_w, ln_b, w1, b1, w2, b2, float(eps), activation)
 
 
 def fused_mlp_partial(x, ln_w, ln_b, w1, b1, w2, eps: float = 1e-5):
     """x: (..., H); returns fc2(quickGELU(fc1(LN(x)))) as f32 (..., H), with no
     fc2 bias and no residual: one model rank's share of a row-parallel fc2
     (module docstring). F (w1's rows) a multiple of K_CHUNK on a card."""
-    if x.device.type == "cpu":
-        return mlp_partial_reference(x, ln_w, ln_b, w1, b1, w2, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp_partial runs on cpu or cuda, not {x.device}")
-    return _launch(x, ln_w, ln_b, w1, b1, w2, None, eps)
+    return _route_partial(x, ln_w, ln_b, w1, b1, w2, eps)

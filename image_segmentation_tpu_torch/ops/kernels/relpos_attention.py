@@ -29,12 +29,11 @@ row), small maps where both sides are at most 32 (the 14 × 14 windows).
 points: the terms from q and the tables in q's dtype, summed in f32 and
 rounded to q's dtype; logits = (q·k) in f32, × D^-½, + rel_h + rel_w in
 f32; softmax in f32; probabilities cast to v's dtype; P·V accumulated in
-f32; out in q's dtype. `relpos_attention` takes the plain version only
-for tensors on the CPU. On a CUDA tensor it launches the kernel (bf16,
-D = 64) or raises; the kernel has no backward, so under grad mode an
-argument that requires grad is refused. While torch.export traces, it
-emits `relpos_attention_op` (`istpu::relpos_attention`), whose CUDA
-implementation is the same launcher.
+f32; out in q's dtype. `relpos_attention` routes as every kernel entry
+does (`_build.kernel_entry`): the plain version on the CPU, the kernel on
+a CUDA tensor (bf16, D = 64; an argument that requires grad is refused
+under grad mode), and `relpos_attention_op` (`istpu::relpos_attention`)
+while torch.export traces.
 """
 from __future__ import annotations
 
@@ -98,29 +97,13 @@ def relpos_attention_reference(q, k, v, rel_pos_h, rel_pos_w) -> torch.Tensor:
 
 
 def _check_cuda_args(q, k, v, rel_pos_h, rel_pos_w) -> None:
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(
-            f"relpos_attention wants equal (B, S, H, D) shapes, got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    d = q.shape[-1]
-    if d != HEAD_DIM:
-        raise ValueError(f"the kernel takes head dim {HEAD_DIM}, got {d}")
+    _build.check_heads("relpos_attention", HEAD_DIM, q, k, v, ("rel_pos_h", rel_pos_h),
+                       ("rel_pos_w", rel_pos_w))
     map_sides(q.shape[1], rel_pos_h, rel_pos_w)
-    for name, t in (("q", q), ("k", k), ("v", v), ("rel_pos_h", rel_pos_h),
-                    ("rel_pos_w", rel_pos_w)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the kernel takes bfloat16; {name} is {t.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(
-                f"{name} needs a contiguous last dim, 16-byte aligned rows "
-                f"and strides that are multiples of 8; got strides {t.stride()}")
     for name, t in (("rel_pos_h", rel_pos_h), ("rel_pos_w", rel_pos_w)):
-        if t.shape[-1] != d or not t.is_contiguous() or t.data_ptr() % 16:
+        if t.shape[-1] != HEAD_DIM or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             f"({t.shape[0]}, {d}) table")
+                             f"({t.shape[0]}, {HEAD_DIM}) table")
     _build.refuse_grad("relpos_attention", q, k, v, rel_pos_h, rel_pos_w)
 
 
@@ -166,13 +149,11 @@ def _launch(q, k, v, rel_pos_h, rel_pos_w) -> torch.Tensor:
         return out
     h, w = map_sides(s, rel_pos_h, rel_pos_w)
     plan = relpos_plan(b, s, nh, h, w)  # raises for a map the kernel does not take
-    lib = _build.load()
-    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    rc = lib.istpu_relpos_attention_bf16(
+    rc = _build.load().istpu_relpos_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_pos_h.data_ptr(), rel_pos_w.data_ptr(),
         out.data_ptr(), b, s, nh, d, h, w, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(plan.row_tiles), plan.warpgroups, plan.grid[0], plan.smem_bytes, dev,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        int(plan.row_tiles), plan.warpgroups, plan.grid[0], plan.smem_bytes,
+        *_build.device_and_stream(q),
     )
     _build.check(rc, "relpos_attention launch")
     global LAUNCHES
@@ -180,24 +161,14 @@ def _launch(q, k, v, rel_pos_h, rel_pos_w) -> torch.Tensor:
     return out
 
 
-# K5 as a torch op, for torch.export: the plain version on the CPU, the
-# launcher on CUDA, and the output's shape and dtype while tracing.
-relpos_attention_op = torch.library.custom_op(
-    "istpu::relpos_attention", _launch, mutates_args=(), device_types="cuda",
-    schema="(Tensor q, Tensor k, Tensor v, Tensor rel_pos_h, Tensor rel_pos_w) -> Tensor")
-relpos_attention_op.register_kernel("cpu", relpos_attention_reference)
-relpos_attention_op.register_fake(lambda q, *_: q.new_empty(q.shape))
+relpos_attention_op, _route = _build.kernel_entry(
+    "relpos_attention", __name__, relpos_attention_reference,
+    schema="(Tensor q, Tensor k, Tensor v, Tensor rel_pos_h, Tensor rel_pos_w) -> Tensor",
+    fake=lambda q, *_: q.new_empty(q.shape), launcher=_launch)
 
 
 def relpos_attention(q, k, v, rel_pos_h, rel_pos_w) -> torch.Tensor:
     """softmax(QKᵀ/√D + rel_h + rel_w)·V for (B, S, H, D) q, k, v over an
     h × w map whose tables are rel_pos_h (2h − 1, D) and rel_pos_w
     (2w − 1, D) in q's dtype; returns (B, S, H, D) in q's dtype."""
-    if _build.tracing():
-        _build.refuse_grad("relpos_attention", q, k, v, rel_pos_h, rel_pos_w)
-        return relpos_attention_op(q, k, v, rel_pos_h, rel_pos_w)
-    if q.device.type == "cpu":
-        return relpos_attention_reference(q, k, v, rel_pos_h, rel_pos_w)
-    if q.device.type != "cuda":
-        raise ValueError(f"relpos_attention runs on cpu or cuda, not {q.device}")
-    return _launch(q, k, v, rel_pos_h, rel_pos_w)
+    return _route(q, k, v, rel_pos_h, rel_pos_w)

@@ -40,9 +40,9 @@ Capture (`_capture`) runs `WARMUP_PASSES` eager forwards and backwards on
 a side stream, then records the two graphs. It leaves no trace on the
 state: the model's buffers (the BatchNorm running statistics) are put
 back as they were, the warm-up writes no `.grad`, the optimizer is not
-touched, and the kernels' launch counters (`ops/kernels/*.py` `LAUNCHES`)
-read as if the warm-up had not run; a replay adds to them the launches
-its graph holds. A model that cannot be captured (the capture raises)
+touched, and the kernels' launch counters (`ops.launch_counts`) read as
+if the warm-up had not run; a replay adds to them the launches its graph
+holds. A model that cannot be captured (the capture raises)
 runs eagerly at that shape, with a warning.
 
 A micro-batch replays only where the step can observe that a replay does
@@ -71,6 +71,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from image_segmentation_tpu_torch.ops import add_launches, launch_counts, launches_since
 from image_segmentation_tpu_torch.parallel.mesh import world_size
 from image_segmentation_tpu_torch.utils import profiling
 
@@ -170,20 +171,6 @@ def _input_key(inputs: Sequence[torch.Tensor]) -> tuple:
     return tuple((x.shape, x.dtype) for x in inputs)
 
 
-def _launch_counters() -> List[Tuple[object, str]]:
-    """(module, name) of every kernel launch counter of the port."""
-    from image_segmentation_tpu_torch.ops.kernels import (
-        attention,
-        double_conv,
-        mlp,
-        relpos_attention,
-    )
-
-    return [(attention, "LAUNCHES"), (mlp, "LAUNCHES"), (mlp, "PARTIAL_LAUNCHES"),
-            (mlp, "MANY_TOKEN_LAUNCHES"), (double_conv, "LAUNCHES"),
-            (relpos_attention, "LAUNCHES")]
-
-
 class _Replay(torch.autograd.Function):
     """Forward: the inputs copied into the pair's static inputs, the forward
     graph replayed, its static output (or outputs) returned. Backward: the
@@ -197,8 +184,7 @@ class _Replay(torch.autograd.Function):
         for s, x in zip(pair.inputs, xs):
             s.copy_(x)
         pair.fwd.replay()
-        for mod, name, n in pair.launched:
-            setattr(mod, name, getattr(mod, name) + n)
+        add_launches(pair.launched)
         ctx.pair = pair
         if pair.multi:
             return tuple(o.detach() for o in pair.out)
@@ -226,7 +212,7 @@ class GraphPair:
         self.multi = isinstance(out, tuple)
         self.grad_outs = (tuple(grad_outs) if isinstance(grad_outs, (tuple, list))
                           else (grad_outs,))
-        self.launched = launched  # (module, counter, launches) the forward graph holds
+        self.launched = launched  # the kernel launches the forward graph holds
         device = (out[0] if self.multi else out).device
         self.anchor = torch.empty(0, device=device, requires_grad=True)
 
@@ -321,9 +307,8 @@ def _capture(model: nn.Module, xs: Tuple[torch.Tensor, ...]) -> Optional[GraphPa
     device = xs[0].device
     params = [p for p in model.parameters() if p.requires_grad]
     buffers = list(model.buffers())
-    counters = _launch_counters()
     kept = [b.detach().clone() for b in buffers]
-    counts = [getattr(m, n) for m, n in counters]
+    counts = launch_counts()
     inputs = tuple(x.detach().clone() for x in xs)
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
@@ -341,14 +326,13 @@ def _capture(model: nn.Module, xs: Tuple[torch.Tensor, ...]) -> Optional[GraphPa
                 return None
         torch.cuda.current_stream(device).wait_stream(side)
         fwd, bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-        before = [getattr(m, n) for m, n in counters]
+        before = launch_counts()
         torch.cuda.empty_cache()  # as the capture does first, so `reserved` counts the pair
         reserved = torch.cuda.memory_reserved(device)
         with torch.cuda.graph(fwd, stream=side, capture_error_mode="thread_local"):
             out = model.forward(*inputs)
         outs = _outputs(out)
-        launched = [(m, n, getattr(m, n) - b) for (m, n), b in zip(counters, before)
-                    if getattr(m, n) != b]
+        launched = launches_since(before)
         grad_outs = [torch.empty_like(o) for o in outs]
         bufs = [torch.zeros_like(p) for p in used]
         with torch.cuda.graph(bwd, pool=fwd.pool(), stream=side,
@@ -364,8 +348,7 @@ def _capture(model: nn.Module, xs: Tuple[torch.Tensor, ...]) -> Optional[GraphPa
         with torch.no_grad():
             for b, k in zip(buffers, kept):
                 b.copy_(k)
-        for (m, n), c in zip(counters, counts):
-            setattr(m, n, c)
+        add_launches({key: -n for key, n in launches_since(counts).items()})
     if not _MEMORY.fits(device, nbytes):
         return None
     static = tuple(o.detach() for o in outs) if isinstance(out, tuple) else out.detach()

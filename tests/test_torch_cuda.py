@@ -100,6 +100,25 @@ def test_attention_launches_the_plan_it_is_given(cuda, monkeypatch):
             K3.fused_attention(q, k, v)
 
 
+def test_attention_calls_a_launcher_swapped_into_its_module(cuda, monkeypatch):
+    """The route looks `_launch` up at each call: a wrapper put in its place
+    (as perfbench/tracing.py's `wrap_kernel_launches` puts one) sees every
+    eager call, and the kernel still runs through it."""
+    q, k, v = (torch.randn(1, 65, 2, 64, device=cuda).bfloat16() for _ in range(3))
+    launch, seen = K3._launch, []
+
+    def wrapped(*args, **kw):
+        seen.append(tuple(args[0].shape))
+        return launch(*args, **kw)
+
+    monkeypatch.setattr(K3, "_launch", wrapped)
+    before = K3.LAUNCHES
+    got = K3.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert seen == [(1, 65, 2, 64)] and K3.LAUNCHES == before + 1
+    _close(got, K3.attention_reference(q, k, v))
+
+
 def test_attention_refuses_what_the_kernel_does_not_take(cuda):
     q = torch.randn(1, 8, 2, 64, device=cuda)
     with pytest.raises(TypeError, match="bfloat16"):
@@ -163,7 +182,7 @@ def test_mlp_kernel_erf_gelu(cuda, m):
                                             ("gelu", 1e-5), ("quick_gelu", 1e-6)])
 def test_mlp_many_token_kernel(cuda, m, activation, eps):
     x, lw, lb, w1, b1, w2, b2, _ = _mlp_args(m, 768, 3072, cuda, seed=m)
-    assert K4.mlp_plan(m, 768, 3072, 132).many_tokens
+    assert isinstance(K4.mlp_plan(m, 768, 3072, 132), K4.ManyTokenPlan)
     before = K4.LAUNCHES, K4.MANY_TOKEN_LAUNCHES
     got = K4.fused_mlp(x, lw, lb, w1, b1, w2, b2, eps, activation=activation)
     torch.cuda.synchronize()

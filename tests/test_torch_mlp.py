@@ -1,6 +1,7 @@
 """K4 in the PyTorch port: the plain version, the CPU routing of
 `fused_mlp`, and the ViT block's routing rule, held against the JAX
 package's Pallas kernel run in interpret mode."""
+import dataclasses
 import types
 
 import jax
@@ -86,6 +87,24 @@ def test_h64_routes_to_plain_mlp_in_both_packages(monkeypatch):
     assert wide.encoder.layers[0].fuse_mlp
 
 
+def test_h1024_routes_to_plain_mlp_where_k4_takes_no_such_width(monkeypatch):
+    """Hidden 1,024 (SAM ViT-L's width) is a multiple of 128 but not in K4's
+    HIDDEN_SIZES: the port's ViT block asks K4's own rule (`kernel_takes`)
+    and takes the plain MLP, where a card would otherwise raise in K4."""
+    from image_segmentation_tpu_torch.models import clip_vit as port_vit
+
+    def spy(*a, **k):
+        raise AssertionError("fused MLP called at H=1024")
+
+    monkeypatch.setattr(port_vit, "fused_mlp", spy)
+    cfg = port_vit.ClipViTConfig(image_size=32, patch_size=16, hidden_size=1024,
+                                 num_layers=1, num_heads=16, mlp_dim=4096)
+    vit = port_vit.ClipViT(cfg, use_kernels=True)
+    vit(torch.zeros(1, 32, 32, 3))
+    assert not vit.encoder.layers[0].fuse_mlp
+    assert not K4.kernel_takes(1024, 4096) and K4.kernel_takes(768, 3072)
+
+
 def test_wrapper_rejects_other_devices():
     args = [t.to("meta") for t in _torch_args(_args(b=1, s=3))]
     with pytest.raises(ValueError, match="cpu or cuda"):
@@ -96,12 +115,14 @@ def test_wrapper_rejects_other_devices():
     (1, 768, 3072), (197, 768, 3072), (333, 768, 3072), (1576, 768, 3072),
     (6304, 768, 3072), (131, 128, 256), (63, 128, 192), (65, 640, 128), (788, 640, 3072)])
 def test_mlp_plan_covers_every_tile_and_split_once(tokens, hdim, fdim):
-    """The CUDA grids of K4: every (token tile, F tile) of fc1 in exactly
-    one block, every (token tile, H tile) of fc2 once per split, every
-    64-wide chunk of F in exactly one split, no empty run or split, and
-    the scratch shapes the kernels index."""
+    """The CUDA grids of K4's v2: every (token tile, F tile) of fc1 in
+    exactly one block, every (token tile, H tile) of fc2 once per split,
+    every 64-wide chunk of F in exactly one split, no empty run or split,
+    and the scratch shapes the kernels index. The v2 plan at every token
+    count is the TP entry's (`tp`), which never runs v3."""
     sms = 132
-    plan = K4.mlp_plan(tokens, hdim, fdim, sms)
+    plan = K4.mlp_plan(tokens, hdim, fdim, sms, tp=True)
+    assert isinstance(plan, K4.MlpPlan)
     tt = -(-tokens // K4.TOKEN_TILE)
     assert plan.token_tiles == tt
     f_tiles = -(-fdim // K4.OUT_TILE)
@@ -139,15 +160,16 @@ def test_mlp_plan_fc1_fits_one_wave_where_it_can():
 def test_mlp_plan_routes_many_tokens_to_v3(tokens, hdim, fdim, tp, many):
     """v3 takes MANY_TOKENS tokens or more at a width of MANY_TOKEN_HIDDEN;
     one request and a ClipUNet batch of 8, the ablations' narrow ViT and
-    the TP entry keep v2 (the same cut as before v3 existed); a v3 plan
-    has no partials and a LayerNorm scratch of x's shape."""
+    the TP entry keep v2 (the same cut as before v3 existed). A v3 plan
+    holds v3's scratch alone: G and a LayerNorm scratch of x's shape."""
     plan = K4.mlp_plan(tokens, hdim, fdim, 132, tp=tp)
-    assert plan.many_tokens is many
+    assert isinstance(plan, K4.ManyTokenPlan) is many
     assert (tokens >= K4.MANY_TOKENS and hdim in K4.MANY_TOKEN_HIDDEN and not tp) is many
     if many:
-        assert plan.partial_shape is None and plan.ln_shape == (tokens, hdim)
+        assert plan == K4.ManyTokenPlan(g_shape=(tokens, fdim), ln_shape=(tokens, hdim))
+        assert [f.name for f in dataclasses.fields(plan)] == ["g_shape", "ln_shape"]
     else:
-        assert plan.ln_shape is None
+        assert isinstance(plan, K4.MlpPlan)
         assert plan == K4.mlp_plan(tokens, hdim, fdim, 132, tp=True)  # the v2 cut
 
 
@@ -166,7 +188,7 @@ def _route(monkeypatch, tokens, activation, partial=False):
     never touched); returns the entry point called and the counts moved."""
     lib = _FakeLib()
     monkeypatch.setattr(K4._build, "load", lambda: lib)
-    monkeypatch.setattr(K4, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(K4._build, "sm_count", lambda dev: 132)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: types.SimpleNamespace(cuda_stream=0))

@@ -181,7 +181,7 @@ def _linear_pair(model):
         bufs[1].add_(grad_out.sum(0))
 
     return G.GraphPair(G._input_key((x,)), (x,), _PythonGraph(fwd), _PythonGraph(bwd), out,
-                       grad_out, [w, b], bufs, [])
+                       grad_out, [w, b], bufs, {})
 
 
 def test_replay_wiring_accumulates_and_hands_gradients_as_the_eager_step():
@@ -213,21 +213,29 @@ def test_replay_wiring_accumulates_and_hands_gradients_as_the_eager_step():
 
 
 def test_a_replay_credits_k4s_many_token_launches():
-    """A capture records every launch counter that moved (`_launch_counters`,
-    K4's many-token count among them) and each replay adds them again: a
-    SAM ViT-B forward at micro-batch 8 holds 12 K4 launches, all v3."""
+    """A capture records every launch counter that moved (the ops layer's
+    snapshot, `_build.launch_counts`, K4's many-token count among them) and
+    each replay adds them again: a SAM ViT-B forward at micro-batch 8 holds
+    12 K4 launches, all v3."""
+    from image_segmentation_tpu_torch.ops.kernels import _build
     from image_segmentation_tpu_torch.ops.kernels import mlp as K4
 
-    assert {(K4, "LAUNCHES"), (K4, "MANY_TOKEN_LAUNCHES")} <= set(G._launch_counters())
+    counts = _build.launch_counts()
+    assert {("mlp", "LAUNCHES"), ("mlp", "MANY_TOKEN_LAUNCHES")} <= set(counts)
     torch.manual_seed(0)
     model = torch.nn.Linear(3, 4)
     pair = _linear_pair(model)
-    pair.launched = [(K4, "LAUNCHES", 12), (K4, "MANY_TOKEN_LAUNCHES", 12)]
-    before = K4.LAUNCHES, K4.MANY_TOKEN_LAUNCHES
+    K4.LAUNCHES += 12
+    K4.MANY_TOKEN_LAUNCHES += 12
+    pair.launched = _build.launches_since(counts)  # what a capture of that forward records
+    K4.LAUNCHES -= 12
+    K4.MANY_TOKEN_LAUNCHES -= 12
+    assert pair.launched == {("mlp", "LAUNCHES"): 12, ("mlp", "MANY_TOKEN_LAUNCHES"): 12}
     pair.begin_step()
     for _ in range(8):
         pair.forward(model, (torch.randn(2, 3),)).sum().backward()
-    assert (K4.LAUNCHES - before[0], K4.MANY_TOKEN_LAUNCHES - before[1]) == (96, 96)
+    assert _build.launches_since(counts) == {("mlp", "LAUNCHES"): 96,
+                                             ("mlp", "MANY_TOKEN_LAUNCHES"): 96}
 
 
 def test_a_gradient_kept_across_steps_is_not_zeroed_under_it():
