@@ -690,12 +690,14 @@ def mlp_crossover_sweep(M, g, card: str) -> list:
 
 def phase_sam_kernels(M, card: str) -> tuple:
     """K5 and K4's exact GELU against their plain versions at SAM ViT-B's
-    shapes, each timed beside its bound, K4 (which the plan sends to v3 at
-    32,768 tokens) beside v2 at the same shape, then K4's crossover sweep
-    (`mlp_crossover_sweep`); then one SamViTB forward at micro-batch 8
-    (1024 px, seeded random weights, bf16, kernels on) must launch each 12
-    times, K4 all 12 on v3. Returns (K5's row, K4's exact-GELU numbers,
-    the forward's (K5, K4) launches)."""
+    shapes, each timed beside its bound, K5's window entry over the
+    unpadded 64 x 64 map of 8 images beside the windowed bound, K4 (which
+    the plan sends to v3 at 32,768 tokens) beside v2 at the same shape,
+    then K4's crossover sweep (`mlp_crossover_sweep`); then one SamViTB
+    forward at micro-batch 8 (1024 px, seeded random weights, bf16,
+    kernels on) must launch each 12 times, K4 all 12 on v3 and K5's 8
+    windowed blocks on the window map. Returns (K5's row, K4's exact-GELU
+    numbers, the forward's (K5, K4) launches)."""
     from image_segmentation_tpu_torch.models import sam
     from image_segmentation_tpu_torch.ops.kernels import relpos_attention as R
 
@@ -720,8 +722,29 @@ def phase_sam_kernels(M, card: str) -> tuple:
               f"{bound_ms:.5f} ms ({bound_by}); device / bound "
               f"{row['device_ms'] / bound_ms:.2f} (20 calls, warm L2; {card})")
     windows, glob = rows[(200, 196, 12, 64)], rows[(8, 4096, 12, 64)]
+
+    q, k, v = rnd(8, 64, 64, 3, 12, 64).bfloat16().unbind(3)
+    bias = (0.1 * rnd(3, 12, 64)).bfloat16()
+    args = (q, k, v, bias[1], bias[2], (0.1 * rnd(27, 64)).bfloat16(),
+            (0.1 * rnd(27, 64)).bfloat16(), 14)
+    before = R.WINDOW_MAP_LAUNCHES
+    got = R.window_relpos_attention(*args)
+    torch.cuda.synchronize()
+    if R.WINDOW_MAP_LAUNCHES != before + 1:
+        raise AssertionError("window_relpos_attention did not run the window map")
+    errs.append(_compare("window_relpos_attention (8, 64, 64, 12, 64) in 14 x 14 windows", got,
+                         R.window_relpos_attention_reference(*args)))
+    map_ms = _device_ms(lambda: R.window_relpos_attention(*args))
+    print(f"[kernels] window_relpos_attention (8, 64 x 64, 12, 64), windows of 14: device "
+          f"{map_ms:.4f} ms ({R.window_query_tiles(64, 64, 14)} blocks an image and head); the "
+          f"partitioned call on the padded map {windows['device_ms']:.4f} ms; windowed bound "
+          f"{windows['bound_ms']:.5f} ms; device / bound {map_ms / windows['bound_ms']:.2f} "
+          f"(20 calls, warm L2; {card})")
+    del q, k, v, args, got
+    torch.cuda.empty_cache()
     k5 = dict(windows, at="(200, 196, 12, 64) bf16, 14 x 14 windows", max_abs_err=max(errs),
-              device_ms_global=glob["device_ms"], bound_ms_global=glob["bound_ms"])
+              device_ms_window_map=map_ms, device_ms_global=glob["device_ms"],
+              bound_ms_global=glob["bound_ms"])
 
     x = (0.5 * rnd(1, SAM_MLP_TOKENS, 768)).bfloat16()
     args = (x, 1.0 + 0.1 * rnd(768), 0.1 * rnd(768), (0.03 * rnd(3072, 768)).bfloat16(),
@@ -753,19 +776,21 @@ def phase_sam_kernels(M, card: str) -> tuple:
         torch.Generator().manual_seed(0)).to("cuda").eval()
     images = torch.rand(8, 1024, 1024, 3, generator=g, device="cuda")
     clicks = torch.tensor([[[512.0, 512.0, 1.0]]], device="cuda").expand(8, 1, 3)
-    before = (R.LAUNCHES, M.LAUNCHES, M.MANY_TOKEN_LAUNCHES)
+    before = (R.LAUNCHES, M.LAUNCHES, M.MANY_TOKEN_LAUNCHES, R.WINDOW_MAP_LAUNCHES)
     with torch.no_grad():
         masks, iou = model(images, clicks)
     torch.cuda.synchronize()
     launches = (R.LAUNCHES - before[0], M.LAUNCHES - before[1])
-    many = M.MANY_TOKEN_LAUNCHES - before[2]
-    print(f"[kernels] SamViTB forward at micro-batch 8: K5 {launches[0]} launches, K4 "
-          f"{launches[1]}, {many} of them v3 (12 blocks: 8 windowed, 4 global); masks "
-          f"{tuple(masks.shape)} finite "
+    many, window_map = M.MANY_TOKEN_LAUNCHES - before[2], R.WINDOW_MAP_LAUNCHES - before[3]
+    print(f"[kernels] SamViTB forward at micro-batch 8: K5 {launches[0]} launches, "
+          f"{window_map} of them on the window map, K4 {launches[1]}, {many} of them v3 (12 "
+          f"blocks: 8 windowed, 4 global); masks {tuple(masks.shape)} finite "
           f"{bool(torch.isfinite(masks).all() and torch.isfinite(iou).all())}")
-    if launches != (12, 12) or many != 12 or not torch.isfinite(masks).all():
-        raise AssertionError(f"SamViTB forward: launches {launches} ({many} v3), want (12, "
-                             f"12) all v3, or non-finite masks")
+    if (launches != (12, 12) or many != 12 or window_map != 8
+            or not torch.isfinite(masks).all()):
+        raise AssertionError(f"SamViTB forward: launches {launches} ({many} v3, {window_map} "
+                             f"on the window map), want (12, 12), all K4 v3, 8 K5 on the "
+                             f"window map, or non-finite masks")
     del model, images, masks
     torch.cuda.empty_cache()
     return k5, k4, launches

@@ -141,6 +141,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
 // Shared -> global tensor store (out-of-bounds elements are not written),
 // tracked by the issuing thread's bulk async-groups.
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
@@ -213,6 +223,22 @@ inline cudaError_t head_tile_map(CUtensorMap* map, const void* base, int B, int 
                                  static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[4] = {64, 1, 64, 1};
   return make_tensor_map(map, base, 4, dims, strides, box);
+}
+
+// A 5-D map over an h x w map of (B, h w, H, 64) bf16 tokens with element
+// strides (sb, ss, sh, 1), a map row being w tokens; boxes of `cols`
+// tokens of one map row x one head x 64 (K5's window rows). Rows and
+// columns past the map read as zeros.
+inline cudaError_t map_row_map(CUtensorMap* map, const void* base, int B, int h, int w, int H,
+                               long long sb, long long ss, long long sh, int cols) {
+  const cuuint64_t dims[5] = {64, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(w),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[4] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(ss) * w * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[5] = {64, 1, static_cast<cuuint32_t>(cols), 1, 1};
+  return make_tensor_map(map, base, 5, dims, strides, box);
 }
 
 // ---- wgmma ---------------------------------------------------------------

@@ -45,6 +45,28 @@
 // padded rows (past 2h - 1) are zeros. Queries and keys past S read as
 // zeros (TMA's out-of-bounds fill); keys past S are masked to -inf and
 // queries past S are not written.
+//
+// The window map (SAM's windowed blocks, `window_relpos_attention`): the
+// small-map mode over the ws x ws windows of an unpadded h x w map, read
+// and written in place, so the caller's pad, partition, unpartition and
+// crop copies do not exist. TMA reads the map through 5-D tensor maps
+// (d, head, column, row, batch) one window row a box, and a box must land
+// 1024-byte aligned (128-byte swizzle), so a tile holds whole window rows,
+// each at a pitch of 8, 16 or 32 slots (`slot_pitch`): at ws = 14, 4 rows
+// of 16 slots, 14 keys and 2 masked, and the window's 196 keys in 4 tiles,
+// as the partitioned call's 196 keys in 64-key tiles. A block takes two
+// tiles of one window's real query rows (inside the map), as wide as its
+// real part, so an (image, head) of the 64 x 64 map in windows of 14 gets
+// 41 blocks against the padded map's 50 (edge windows 14 x 8 and 8 x 14
+// and the 8 x 8 corner take one). Keys past the map (the pad, which SAM
+// zero-pads after norm1, so that its k and v are the qkv bias) land as
+// TMA's zeros; in a window with a pad the producer warp then writes
+// bias_k[head] and bias_v[head] over them, fences the tile for wgmma's
+// proxy and announces it, so each pad key has the bias as k and v and its
+// own (kh, kw) terms. Each real query's output row is written once, at its
+// map position, into a contiguous (B, h w, H, 64) tensor. The keys meet
+// the online softmax in other tiles than the partitioned call's, so the
+// two agree to rounding, not bit for bit.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -65,16 +87,85 @@ constexpr int kSmallConsumers = 2;               // and small maps
 constexpr int block_threads(int consumers) { return 128 * consumers + 32; }
 
 // Q of each warpgroup, the K and V stages, two tiles a warpgroup of tables
-// and then of terms, the small maps' key table, the mbarriers.
+// and then of terms, the small maps' key table, the mbarriers (full, empty,
+// Q's, and the window map's landed).
 constexpr size_t smem_bytes(int consumers) {
   return 1024 + kBox * (3 * consumers + 2 * kStages) + kMaxSmallKeys * sizeof(int) +
-         (2 * kStages + 1) * sizeof(uint64_t);
+         (3 * kStages + 1) * sizeof(uint64_t);
 }
+
+// A small map's key-table entry: kh | kw << 16, or kMasked for a slot that
+// holds no key of the map (past S, or past the window's side).
+constexpr int kMasked = static_cast<int>(0x80000000u);
 
 // Element (r, c) of a warpgroup's 64 x 128 bf16 terms, each row rotated by
 // 8 (r % 8) columns, so a warp's stores of 8 rows hit distinct banks.
 __device__ __forceinline__ int term_at(int r, int c) {
   return r * 128 + ((c + 8 * (r & 7)) & 127);
+}
+
+// What the window map reads besides its tensor maps: the k and v rows of a
+// pad token (contiguous (H, 64)) and the map's sides. The partitioned
+// modes pass no rows and their own map as h x w.
+struct WindowMap {
+  const bf16* bias_k;
+  const bf16* bias_v;
+  int h, w;
+};
+
+// Slots a window row of `cols` keys or queries takes in a 64-row tile: a
+// power of two from 8, so that each row starts 1024-byte aligned, where a
+// 128-byte-swizzled TMA box must land; and the window rows a tile holds.
+__host__ __device__ inline int slot_pitch(int cols) {
+  return cols <= 8 ? 8 : cols <= 16 ? 16 : 32;
+}
+__host__ __device__ inline int rows_a_tile(int cols) { return kTile / slot_pitch(cols); }
+
+// Blocks of a window whose real part (inside the map) is rh x rw: each
+// takes kSmallConsumers tiles of rows_a_tile(rw) of its real rows.
+__host__ __device__ inline int window_blocks(int rh, int rw) {
+  const int rows = kSmallConsumers * rows_a_tile(rw);
+  return (rh + rows - 1) / rows;
+}
+
+// Windows down and across an h x w map, and the real rows and columns of
+// the last ones.
+struct MapSplit {
+  int nwy, nwx, rh_last, rw_last;
+};
+__host__ __device__ inline MapSplit map_split(int h, int w, int ws) {
+  const int nwy = (h + ws - 1) / ws, nwx = (w + ws - 1) / ws;
+  return {nwy, nwx, h - (nwy - 1) * ws, w - (nwx - 1) * ws};
+}
+
+// Blocks of one row of windows whose real rows are rh.
+__host__ __device__ inline int window_row_blocks(const MapSplit& m, int rh, int ws) {
+  return (m.nwx - 1) * window_blocks(rh, ws) + window_blocks(rh, m.rw_last);
+}
+
+// Blocks of one (image, head) of an h x w map in ws x ws windows.
+__host__ __device__ inline int window_map_blocks(int h, int w, int ws) {
+  const MapSplit m = map_split(h, w, ws);
+  return (m.nwy - 1) * window_row_blocks(m, ws, ws) + window_row_blocks(m, m.rh_last, ws);
+}
+
+// What block `idx` of an (image, head) takes: window (wy, wx), whose real
+// part is rh x rw, from its window row row0 on.
+struct WindowTile {
+  int wy, wx, rh, rw, row0;
+};
+__device__ __forceinline__ WindowTile window_tile(int idx, int h, int w, int ws) {
+  const MapSplit m = map_split(h, w, ws);
+  const int full = window_row_blocks(m, ws, ws);
+  WindowTile t;
+  t.wy = min(idx / full, m.nwy - 1);
+  t.rh = t.wy < m.nwy - 1 ? ws : m.rh_last;
+  idx -= t.wy * full;
+  const int per = window_blocks(t.rh, ws);
+  t.wx = min(idx / per, m.nwx - 1);
+  t.rw = t.wx < m.nwx - 1 ? ws : m.rw_last;
+  t.row0 = (idx - t.wx * per) * kSmallConsumers * rows_a_tile(t.rw);
+  return t;
 }
 
 __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits) {
@@ -93,13 +184,17 @@ __device__ __forceinline__ void load_table_tile(unsigned char* dst, const bf16* 
   }
 }
 
-template <bool kRowTiles, int kConsumers>
+// S = mh mw tokens a map (a window of side mh = mw, in the window map,
+// whose tensor maps are map_row_map's: tq and tk, tv in boxes of ws
+// columns, tq_last of the last window column's real width).
+template <bool kRowTiles, int kConsumers, bool kWindowMap>
 __global__ void __launch_bounds__(block_threads(kConsumers), kConsumers == 2 ? 2 : 1)
 relpos_attention_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tq_last,
                         const __grid_constant__ CUtensorMap tk,
-                        const __grid_constant__ CUtensorMap tv, const bf16* __restrict__ rel_h,
-                        const bf16* __restrict__ rel_w, bf16* __restrict__ o, int S, int H,
-                        int mh, int mw, float scale) {
+                        const __grid_constant__ CUtensorMap tv, const WindowMap wm,
+                        const bf16* __restrict__ rel_h, const bf16* __restrict__ rel_w,
+                        bf16* __restrict__ o, int S, int H, int mh, int mw, float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* Qs = align_1024(smem_raw);
   unsigned char* Ks = Qs + kConsumers * kBox;
@@ -109,15 +204,29 @@ relpos_attention_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* full = reinterpret_cast<uint64_t*>(key_hw + kMaxSmallKeys);
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
+  uint64_t* landed = qbar + 1;  // the window map's K and V, before the pad keys' patch
 
-  const int b = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * kTile * kConsumers;
+  const int b = blockIdx.z, head = blockIdx.y, bx = blockIdx.x;
   const int tid = threadIdx.x;
-  const int n_tiles = (S + kTile - 1) / kTile;
+  // The window map: this block's window and rows; keys in tiles of rk
+  // window rows pk slots apart, queries in tiles of rq rows pq apart.
+  const WindowTile wt = kWindowMap ? window_tile(bx, wm.h, wm.w, mw) : WindowTile{};
+  const int rk = rows_a_tile(mw), pk = slot_pitch(mw);
+  const int rq = rows_a_tile(wt.rw), pq = slot_pitch(wt.rw);
+  const bool has_pad = kWindowMap && (wt.rh < mh || wt.rw < mw);
+  const int q0 = kWindowMap ? 0 : bx * kTile * kConsumers;  // the partitioned modes' queries
+  const int n_tiles = kWindowMap ? (mh + rk - 1) / rk : (S + kTile - 1) / kTile;
 
+  if (kWindowMap) {  // key slots no box writes (past the window's side) stay zeros
+    for (int i = tid; i < 2 * kStages * kBox / 16; i += blockDim.x)
+      reinterpret_cast<uint4*>(Ks)[i] = make_uint4(0u, 0u, 0u, 0u);
+    fence_proxy_async();
+  }
   if (tid == 0) {
     for (int st = 0; st < kStages; ++st) {
-      mbar_init(&full[st], 1);
+      mbar_init(&full[st], has_pad ? 32 : 1);  // the patching warp's lanes, or TMA's one
       mbar_init(&empty[st], 128 * kConsumers);
+      mbar_init(&landed[st], 1);
     }
     mbar_init(qbar, 1);
     fence_barrier_init();
@@ -125,7 +234,64 @@ relpos_attention_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   if (tid >= 128 * kConsumers) {  // the producer: Q once, then K and V through the ring
-    if (tid == 128 * kConsumers) {
+    const int lane = tid - 128 * kConsumers;
+    if (kWindowMap) {
+      // Coordinates run innermost first: (d, head, map column, map row,
+      // batch). Q: rq window rows a warpgroup, each as wide as the window's
+      // real part; K and V: rk window rows a tile, each the window's side
+      // (the pad reads zeros), and where the window has a pad, the warp
+      // writes the bias rows over the pad keys once a tile has landed,
+      // fences them for wgmma's proxy and then announces the tile.
+      const int x0 = wt.wx * mw, y0 = wt.wy * mh;
+      uint64_t* land = has_pad ? landed : full;
+      const auto load_tile = [&](int t) {
+        const int st = t % kStages;
+        mbar_arrive_expect_tx(&land[st], 2 * rk * mw * 128);
+        for (int i = 0; i < rk; ++i) {
+          tma_load_5d(Ks + st * kBox + i * pk * 128, &tk, &land[st], 0, head, x0, y0 + t * rk + i,
+                      b);
+          tma_load_5d(Vs + st * kBox + i * pk * 128, &tv, &land[st], 0, head, x0, y0 + t * rk + i,
+                      b);
+        }
+      };
+      if (lane == 0) {
+        mbar_arrive_expect_tx(qbar, kConsumers * rq * wt.rw * 128);
+        for (int i = 0; i < kConsumers * rq; ++i)
+          tma_load_5d(Qs + i * pq * 128, wt.rw == mw ? &tq : &tq_last, qbar, 0, head, x0,
+                      y0 + wt.row0 + i, b);
+      }
+      if (!has_pad) {
+        if (lane == 0)
+          for (int t = 0; t < n_tiles; ++t) {
+            if (t >= kStages) mbar_wait(&empty[t % kStages], ((t / kStages) - 1) & 1);
+            load_tile(t);
+          }
+      } else {
+        const int c = lane & 7;
+        const uint4 pad_k = *reinterpret_cast<const uint4*>(wm.bias_k + head * kHeadDim + c * 8);
+        const uint4 pad_v = *reinterpret_cast<const uint4*>(wm.bias_v + head * kHeadDim + c * 8);
+        if (lane == 0)
+          for (int t = 0; t < min(kStages, n_tiles); ++t) load_tile(t);
+        for (int t = 0; t < n_tiles; ++t) {
+          const int st = t % kStages;
+          mbar_wait(&landed[st], (t / kStages) & 1);
+          for (int slot = lane >> 3; slot < kTile; slot += 4) {
+            const int kh = t * rk + slot / pk, kw = slot % pk;
+            if (kh < mh && kw < mw && (kh >= wt.rh || kw >= wt.rw)) {
+              const uint32_t off = slot * 128 + ((c ^ (slot & 7)) << 4);
+              *reinterpret_cast<uint4*>(Ks + st * kBox + off) = pad_k;
+              *reinterpret_cast<uint4*>(Vs + st * kBox + off) = pad_v;
+            }
+          }
+          fence_proxy_async();
+          mbar_arrive(&full[st]);
+          if (t >= 1 && t - 1 + kStages < n_tiles) {  // refill the stage tile t - 1 held
+            mbar_wait(&empty[(t - 1) % kStages], ((t - 1) / kStages) & 1);
+            if (lane == 0) load_tile(t - 1 + kStages);
+          }
+        }
+      }
+    } else if (lane == 0) {
       // Coordinates run innermost first: (d, head, token, batch).
       mbar_arrive_expect_tx(qbar, kBox * kConsumers);
       for (int c = 0; c < kConsumers; ++c)
@@ -160,8 +326,12 @@ relpos_attention_kernel(const __grid_constant__ CUtensorMap tq,
                     wtid, 128);
   }
   if (!kRowTiles) {
-    for (int n = tid; n < n_tiles * kTile; n += 128 * kConsumers)
-      key_hw[n] = n < S ? (n / mw) | ((n % mw) << 16) : 0;
+    for (int n = tid; n < n_tiles * kTile; n += 128 * kConsumers) {
+      const int kh = kWindowMap ? (n / kTile) * rk + (n % kTile) / pk : n / mw;
+      const int kw = kWindowMap ? n % pk : n % mw;
+      const bool key = kWindowMap ? kh < mh && kw < mw : n < S;
+      key_hw[n] = key ? kh | (kw << 16) : kMasked;
+    }
   }
   fence_proxy_async();
   named_barrier_sync(1, 128 * kConsumers);
@@ -224,14 +394,14 @@ relpos_attention_kernel(const __grid_constant__ CUtensorMap tq,
             pack_bf16(rel_h_prod[4 * j + 2 * hf], rel_h_prod[4 * j + 2 * hf + 1]);
     named_barrier_sync(2 + wg, 128);
   }
-  // Small maps: each of this thread's two queries' (i, j); queries past S
-  // take a row the tables hold.
+  // Small maps: each of this thread's two queries' (i, j) in its map or
+  // window; query slots past it take a row and column the tables hold.
   int qi[2], qj[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const int m = m0 + r0 + 8 * hf;
-    qi[hf] = min(m / mw, mh - 1);
-    qj[hf] = m % mw;
+    const int m = m0 + r0 + 8 * hf, r = r0 + 8 * hf;
+    qi[hf] = min(kWindowMap ? wt.row0 + wg * rq + r / pq : m / mw, mh - 1);
+    qj[hf] = min(kWindowMap ? r % pq : m % mw, mw - 1);
   }
 
   const float neg_inf = __int_as_float(0xff800000);
@@ -274,7 +444,7 @@ relpos_attention_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int e1 = 0; e1 < 2; ++e1) {
           const int n = kt * kTile + 8 * j + 2 * t4 + e1;
-          const int hw = key_hw[n], kh = hw & 0xffff, kw = hw >> 16;
+          const int hw = key_hw[n], kh = hw & 0xffff, kw = (hw >> 16) & 0x7fff;
 #pragma unroll
           for (int hf = 0; hf < 2; ++hf) {
             const int r = r0 + 8 * hf;
@@ -282,7 +452,7 @@ relpos_attention_kernel(const __grid_constant__ CUtensorMap tq,
                 __bfloat162float(terms[term_at(r, qi[hf] + mh - 1 - kh)]) +
                 __bfloat162float(terms[term_at(r, kTile + qj[hf] + mw - 1 - kw)]);
             float& l = s[4 * j + 2 * hf + e1];
-            l = n < S ? l * scale + term : neg_inf;
+            l = hw != kMasked ? l * scale + term : neg_inf;
           }
         }
     }
@@ -333,20 +503,26 @@ relpos_attention_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_arrive(&empty[st]);  // this stage's K and V are read
   }
 
-  // Output: a fresh contiguous (B, S, H, D) tensor, acc over the row sum.
+  // Output: a fresh contiguous (B, h w, H, D) tensor over the map (the
+  // partitioned modes' own), acc over the row sum; a query's token is
+  // its row-major place in the map (in the partitioned modes, m itself),
+  // and only real queries are written.
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     row_sum[hf] += __shfl_xor_sync(0xffffffffu, row_sum[hf], 1);
     row_sum[hf] += __shfl_xor_sync(0xffffffffu, row_sum[hf], 2);
   }
   const long long row_stride = static_cast<long long>(H) * kHeadDim;
-  bf16* ob = o + (static_cast<long long>(b) * S * H + head) * kHeadDim;
+  bf16* ob = o + (static_cast<long long>(b) * wm.h * wm.w * H + head) * kHeadDim;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const int row = m0 + r0 + 8 * hf;
-    if (row >= S) continue;
+    const int m = m0 + r0 + 8 * hf, r = r0 + 8 * hf;
+    const int i = wt.row0 + wg * rq + r / pq, j = r % pq;
+    if (kWindowMap ? i >= wt.rh || j >= wt.rw : m >= S) continue;
     const float inv = 1.f / row_sum[hf];
-    bf16* orow = ob + row * row_stride;
+    const long long tok =
+        kWindowMap ? static_cast<long long>(wt.wy * mh + i) * wm.w + wt.wx * mw + j : m;
+    bf16* orow = ob + tok * row_stride;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
@@ -354,17 +530,19 @@ relpos_attention_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <bool kRowTiles, int kConsumers>
-cudaError_t launch_relpos(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+template <bool kRowTiles, int kConsumers, bool kWindowMap>
+cudaError_t launch_relpos(const CUtensorMap& tq, const CUtensorMap& tq_last,
+                          const CUtensorMap& tk, const CUtensorMap& tv, const WindowMap& wm,
                           const bf16* rh, const bf16* rw, bf16* o, int B, int S, int H, int mh,
                           int mw, int q_tiles, int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(relpos_attention_kernel<kRowTiles, kConsumers>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto* kernel = relpos_attention_kernel<kRowTiles, kConsumers, kWindowMap>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(q_tiles, H, B);
-  relpos_attention_kernel<kRowTiles, kConsumers><<<grid, block_threads(kConsumers), smem,
-                                                   stream>>>(
-      tq, tk, tv, rh, rw, o, S, H, mh, mw, 1.0f / sqrtf(static_cast<float>(kHeadDim)));
+  kernel<<<grid, block_threads(kConsumers), smem, stream>>>(
+      tq, tq_last, tk, tv, wm, rh, rw, o, S, H, mh, mw,
+      1.0f / sqrtf(static_cast<float>(kHeadDim)));
   return cudaGetLastError();
 }
 
@@ -407,11 +585,46 @@ int istpu_relpos_attention_bf16(const void* q, const void* k, const void* v, con
   const auto* rw = static_cast<const bf16*>(rel_w);
   auto* op = static_cast<bf16*>(o);
   auto s = static_cast<cudaStream_t>(stream);
+  const WindowMap own = {nullptr, nullptr, mh, mw};  // the output is the call's own map
   if (row_tiles)
-    return launch_relpos<true, kRowConsumers>(tq, tk, tv, rh, rw, op, B, S, H, mh, mw, q_tiles,
-                                              smem, s);
-  return launch_relpos<false, kSmallConsumers>(tq, tk, tv, rh, rw, op, B, S, H, mh, mw, q_tiles,
-                                               smem, s);
+    return launch_relpos<true, kRowConsumers, false>(tq, tq, tk, tv, own, rh, rw, op, B, S, H,
+                                                     mh, mw, q_tiles, smem, s);
+  return launch_relpos<false, kSmallConsumers, false>(tq, tq, tk, tv, own, rh, rw, op, B, S, H,
+                                                      mh, mw, q_tiles, smem, s);
+}
+
+// The window map: q, k, v bf16 (B, h w, H, D) over an unpadded h x w map
+// with the given element strides (D contiguous, the others multiples of
+// 8, 16-byte aligned); bias_k, bias_v: contiguous bf16 (H, D), the k and v
+// a pad token takes; rel_h, rel_w: contiguous bf16 (2 ws - 1, D); o:
+// contiguous bf16 (B, h w, H, D); D = 64, 1 <= ws <= 32. q_tiles must be
+// the blocks an (image, head) needs (ops/kernels/relpos_attention.py
+// window_plan; window_map_blocks here). Returns a cudaError_t.
+int istpu_relpos_window_bf16(const void* q, const void* k, const void* v, const void* bias_k,
+                             const void* bias_v, const void* rel_h, const void* rel_w, void* o,
+                             int B, int h, int w, int H, int D, int ws, long long qsb,
+                             long long qss, long long qsh, long long ksb, long long kss,
+                             long long ksh, long long vsb, long long vss, long long vsh,
+                             int q_tiles, int smem, int device, void* stream) {
+  using namespace istpu;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (D != kHeadDim || B <= 0 || H <= 0 || h <= 0 || w <= 0 || ws <= 0 || ws > kMaxSide ||
+      q_tiles != window_map_blocks(h, w, ws) ||
+      static_cast<size_t>(smem) < smem_bytes(kSmallConsumers))
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tq_last, tk, tv;
+  const int rw_last = map_split(h, w, ws).rw_last;
+  if ((err = map_row_map(&tq, q, B, h, w, H, qsb, qss, qsh, ws)) != cudaSuccess) return err;
+  if ((err = map_row_map(&tq_last, q, B, h, w, H, qsb, qss, qsh, rw_last)) != cudaSuccess)
+    return err;
+  if ((err = map_row_map(&tk, k, B, h, w, H, ksb, kss, ksh, ws)) != cudaSuccess) return err;
+  if ((err = map_row_map(&tv, v, B, h, w, H, vsb, vss, vsh, ws)) != cudaSuccess) return err;
+  const WindowMap wm = {static_cast<const bf16*>(bias_k), static_cast<const bf16*>(bias_v), h, w};
+  return launch_relpos<false, kSmallConsumers, true>(
+      tq, tq_last, tk, tv, wm, static_cast<const bf16*>(rel_h), static_cast<const bf16*>(rel_w),
+      static_cast<bf16*>(o), B, ws * ws, H, ws, ws, q_tiles, smem,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

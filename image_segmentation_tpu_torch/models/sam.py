@@ -15,7 +15,12 @@ would load by name:
     blocks (2, 5, 8, 11), which attend over all G² tokens; then the neck,
     conv 1×1 → LayerNorm2d → conv 3×3 → LayerNorm2d, to the (N, 256, G, G)
     embedding. The padded tokens are zeros after the first LayerNorm and
-    keys like any other (SAM masks nothing).
+    keys like any other (SAM masks nothing). The plain path pads: after
+    norm1 it zero-pads, partitions, attends each window and unpartitions
+    and crops back; the kernel path does not: it projects qkv over the
+    unpadded map and K5's window entry (`window_relpos_attention`) finds
+    each window there, the pad keys' k and v being the qkv bias, which
+    is what the projection gives a zero token.
   * `prompt_encoder`: random Fourier features of a (2, 128) Gaussian
     matrix for the click, SAM's padding point (no box), and the no-mask
     dense embedding; the image's positional encoding of the grid.
@@ -30,8 +35,10 @@ forward(images (N, S, S, 3) float in [0, 1], clicks (N, 1, 3) float32 as
 
 `dtype` is the compute dtype (parameters stay float32; LayerNorm
 statistics, the Fourier features and the outputs are f32). With
-`use_kernels` the encoder's attention runs K5 (`relpos_attention`,
-given q and the block's two relative-position tables) and its MLP half
+`use_kernels` the encoder's attention runs K5 (`relpos_attention` at the
+global blocks, given q and the block's two relative-position tables;
+`window_relpos_attention` at the windowed ones, given the map's q, k, v
+and the qkv bias's k and v rows besides) and its MLP half
 K4 with the exact GELU (`fused_mlp(..., activation="gelu")`); without,
 their plain versions. On CPU tensors the wrappers run the plain versions themselves.
 The decoder's attentions (7 tokens, head dim 16 at full width) run on
@@ -44,9 +51,10 @@ Spans (`utils.profiling.span`): `sam.image_encoder`, `sam.prompt_encoder`
 and `sam.mask_decoder` around the three parts of a forward. Counts
 (`utils.profiling.count`): `sam.global_attention` and
 `sam.window_attention`, one per block call, and `sam.window_pad_tokens`,
-the padded tokens a windowed block attends over (804 an image at 1024 px:
-70² − 64²). A replayed CUDA graph runs no Python, so replays record
-neither; eager forwards and captures do.
+the padded tokens a windowed block attends over as keys (804 an image at
+1024 px: 70² − 64²; on the kernel path the keys filled from the bias). A
+replayed CUDA graph runs no Python, so replays record neither; eager
+forwards and captures do.
 """
 from __future__ import annotations
 
@@ -65,6 +73,9 @@ from image_segmentation_tpu_torch.ops.kernels.mlp import fused_mlp, mlp_referenc
 from image_segmentation_tpu_torch.ops.kernels.relpos_attention import (
     relpos_attention,
     relpos_attention_reference,
+    window_partition,
+    window_relpos_attention,
+    window_unpartition,
 )
 from image_segmentation_tpu_torch.utils import profiling
 
@@ -136,29 +147,6 @@ def normalize_pixels(images: torch.Tensor) -> torch.Tensor:
     return images.float() * scale - shift
 
 
-def window_partition(x: torch.Tensor, ws: int) -> Tuple[torch.Tensor, Tuple[int, int]]:
-    """(B, H, W, C) → (B·nh·nw, ws, ws, C) windows of the map zero-padded to
-    multiples of ws, and the padded (Hp, Wp)."""
-    b, h, w, c = x.shape
-    pad_h, pad_w = (ws - h % ws) % ws, (ws - w % ws) % ws
-    if pad_h or pad_w:
-        x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
-    hp, wp = h + pad_h, w + pad_w
-    x = x.view(b, hp // ws, ws, wp // ws, ws, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, ws, ws, c), (hp, wp)
-
-
-def window_unpartition(windows: torch.Tensor, ws: int, pad_hw: Tuple[int, int],
-                       hw: Tuple[int, int]) -> torch.Tensor:
-    """The inverse of `window_partition`, cropped back to (H, W)."""
-    hp, wp = pad_hw
-    h, w = hw
-    b = windows.shape[0] // (hp * wp // ws // ws)
-    x = windows.view(b, hp // ws, wp // ws, ws, ws, -1)
-    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, -1)
-    return x[:, :h, :w, :].contiguous() if (hp > h or wp > w) else x
-
-
 class EncoderAttention(nn.Module):
     """qkv → heads → softmax(q·kᵀ/√d + rel_h + rel_w)·v → proj, over an
     (B, h, w, C) map; the relative tables are (2·size − 1, head dim)."""
@@ -179,6 +167,18 @@ class EncoderAttention(nn.Module):
         q, k, v = qkv.unbind(2)
         attend = relpos_attention if self.use_kernels else relpos_attention_reference
         out = attend(q, k, v, self.rel_pos_h.to(x.dtype), self.rel_pos_w.to(x.dtype))
+        return linear(out.reshape(b, h, w, c), self.proj)
+
+    def windowed(self, x: torch.Tensor, ws: int) -> torch.Tensor:
+        """`forward` in each ws × ws window of the (B, h, w, C) map zero-padded
+        to multiples of ws, cropped back, by K5's window entry on the
+        unpadded map: a pad token's k and v are the qkv bias's rows."""
+        b, h, w, c = x.shape
+        nh = self.num_heads
+        q, k, v = linear(x, self.qkv).view(b, h, w, 3, nh, c // nh).unbind(3)
+        bias = self.qkv.bias.to(x.dtype).view(3, nh, c // nh)
+        out = window_relpos_attention(q, k, v, bias[1], bias[2], self.rel_pos_h.to(x.dtype),
+                                      self.rel_pos_w.to(x.dtype), ws)
         return linear(out.reshape(b, h, w, c), self.proj)
 
 
@@ -207,15 +207,18 @@ class EncoderBlock(nn.Module):
         n, h, w, _ = x.shape
         y = layer_norm(x, self.norm1)
         ws = self.window_size
-        if ws:
-            y, pad_hw = window_partition(y, ws)
-            profiling.count("sam.window_attention")
-            profiling.count("sam.window_pad_tokens", n * (pad_hw[0] * pad_hw[1] - h * w))
-        else:
+        if not ws:
             profiling.count("sam.global_attention")
-        y = self.attn(y)
-        if ws:
-            y = window_unpartition(y, ws, pad_hw, (h, w))
+            y = self.attn(y)
+        else:
+            profiling.count("sam.window_attention")
+            profiling.count("sam.window_pad_tokens", n * (-(-h // ws) * -(-w // ws) * ws * ws
+                                                          - h * w))
+            if self.attn.use_kernels:
+                y = self.attn.windowed(y, ws)
+            else:
+                y, pad_hw = window_partition(y, ws)
+                y = window_unpartition(self.attn(y), ws, pad_hw, (h, w))
         x = x + y
         ln, lin1, lin2 = self.norm2, self.mlp.lin1, self.mlp.lin2
         return self.run_mlp(x, ln.weight, ln.bias, lin1.weight.to(x.dtype), lin1.bias,

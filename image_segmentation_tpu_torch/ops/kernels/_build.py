@@ -129,6 +129,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.istpu_conv3x3_bf16.restype = i32
     lib.istpu_relpos_attention_bf16.argtypes = [vp] * 6 + [i32] * 6 + [i64] * 9 + [i32] * 5 + [vp]
     lib.istpu_relpos_attention_bf16.restype = i32
+    lib.istpu_relpos_window_bf16.argtypes = [vp] * 8 + [i32] * 6 + [i64] * 9 + [i32] * 3 + [vp]
+    lib.istpu_relpos_window_bf16.restype = i32
     lib.istpu_error_string.argtypes = [i32]
     lib.istpu_error_string.restype = ctypes.c_char_p
 

@@ -24,6 +24,23 @@ own queries and the tables, in one of two modes (`relpos_plan`): row
 tiles where the map is 64 wide (the global blocks: a key tile is one key
 row), small maps where both sides are at most 32 (the 14 × 14 windows).
 
+`window_relpos_attention` is the small-map mode addressed in place: q, k
+and v are the unpadded h × w map itself (SAM's windowed blocks: the qkv
+projection's (B, 64, 64, 3, H, 64) output, unbound), and the kernel finds
+each ws × ws window there, one window row a TMA box (`window_plan`): a
+block takes two tiles of one window's real query rows, so an (image,
+head) of the 64 × 64 map in windows of 14 needs 41 blocks where the
+70 × 70 padded map's 25 windows took 50; the keys are the window's ws²
+positions, those inside the map read where they lie, those in the pad
+(past the map's last row or column) taking `bias_k` and `bias_v`, the k
+and v rows the qkv projection gives a zero token, which is what SAM's
+zero pad after norm1 feeds it; the output is written once for each real
+query, at its map position. It computes the partitioned call on the
+padded map (its keys meet the online softmax in other tiles, so the two
+agree to rounding) without the pad, partition, unpartition and crop
+copies around it. Its plain version, `window_relpos_attention_reference`,
+is those copies around `relpos_attention_reference`.
+
 `relpos_attention_reference` is the same function in plain PyTorch
 (the terms and the (S, S) logits materialised), with the kernel's cast
 points: the terms from q and the tables in q's dtype, summed in f32 and
@@ -33,20 +50,24 @@ f32; out in q's dtype. `relpos_attention` routes as every kernel entry
 does (`_build.kernel_entry`): the plain version on the CPU, the kernel on
 a CUDA tensor (bf16, D = 64; an argument that requires grad is refused
 under grad mode), and `relpos_attention_op` (`istpu::relpos_attention`)
-while torch.export traces.
+while torch.export traces; `window_relpos_attention` likewise, with
+`window_relpos_attention_op` (`istpu::window_relpos_attention`).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from image_segmentation_tpu_torch.ops.kernels import _build
 
-# Launches of the kernel since the last reset (the plain version on the
-# CPU does not count).
+# Launches of the kernel since the last reset (the plain versions on the
+# CPU do not count): every call, and those of the window map alone.
 LAUNCHES = 0
+WINDOW_MAP_LAUNCHES = 0
 
 HEAD_DIM = 64
 WARPGROUP_Q = 64  # queries a consumer warpgroup (csrc/relpos_attention.cu kTile)
@@ -96,14 +117,65 @@ def relpos_attention_reference(q, k, v, rel_pos_h, rel_pos_w) -> torch.Tensor:
     return out.to(q.dtype)
 
 
+def window_partition(x: torch.Tensor, ws: int) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """(B, H, W, C) → (B·nh·nw, ws, ws, C) windows of the map zero-padded to
+    multiples of ws, and the padded (Hp, Wp)."""
+    b, h, w, c = x.shape
+    pad_h, pad_w = (ws - h % ws) % ws, (ws - w % ws) % ws
+    if pad_h or pad_w:
+        x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
+    hp, wp = h + pad_h, w + pad_w
+    x = x.view(b, hp // ws, ws, wp // ws, ws, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, ws, ws, c), (hp, wp)
+
+
+def window_unpartition(windows: torch.Tensor, ws: int, pad_hw: Tuple[int, int],
+                       hw: Tuple[int, int]) -> torch.Tensor:
+    """The inverse of `window_partition`, cropped back to (H, W)."""
+    hp, wp = pad_hw
+    h, w = hw
+    b = windows.shape[0] // (hp * wp // ws // ws)
+    x = windows.view(b, hp // ws, wp // ws, ws, ws, -1)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, -1)
+    return x[:, :h, :w, :].contiguous() if (hp > h or wp > w) else x
+
+
+def window_relpos_attention_reference(q, k, v, bias_k, bias_v, rel_pos_h, rel_pos_w,
+                                      window: int) -> torch.Tensor:
+    """`relpos_attention_reference` in each window × window window of the
+    (B, h, w, H, D) map q, k, v padded to multiples of `window`: q with
+    zeros, k and v with the (H, D) rows bias_k and bias_v; (B, h, w, H, D)
+    out, the padded queries' rows cropped."""
+    b, h, w, nh, d = q.shape
+    hp, wp = -(-h // window) * window, -(-w // window) * window
+
+    def windows(t, fill):
+        full = (t.new_zeros(()) if fill is None else fill.to(t.dtype)).expand(
+            b, hp, wp, nh, d).clone()
+        full[:, :h, :w] = t
+        return window_partition(full.reshape(b, hp, wp, nh * d), window)[0].reshape(
+            -1, window * window, nh, d)
+
+    out = relpos_attention_reference(windows(q, None), windows(k, bias_k), windows(v, bias_v),
+                                     rel_pos_h, rel_pos_w)
+    out = window_unpartition(out.reshape(-1, window, window, nh * d), window, (hp, wp), (h, w))
+    return out.reshape(b, h, w, nh, d)
+
+
+def _check_rows(**rows) -> None:
+    """Raise unless each (name → tensor) is a contiguous, 16-byte aligned
+    table of rows of HEAD_DIM, which the kernel reads row by row."""
+    for name, t in rows.items():
+        if t.shape[-1] != HEAD_DIM or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"({t.shape[0]}, {HEAD_DIM}) table")
+
+
 def _check_cuda_args(q, k, v, rel_pos_h, rel_pos_w) -> None:
     _build.check_heads("relpos_attention", HEAD_DIM, q, k, v, ("rel_pos_h", rel_pos_h),
                        ("rel_pos_w", rel_pos_w))
     map_sides(q.shape[1], rel_pos_h, rel_pos_w)
-    for name, t in (("rel_pos_h", rel_pos_h), ("rel_pos_w", rel_pos_w)):
-        if t.shape[-1] != HEAD_DIM or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             f"({t.shape[0]}, {HEAD_DIM}) table")
+    _check_rows(rel_pos_h=rel_pos_h, rel_pos_w=rel_pos_w)
     _build.refuse_grad("relpos_attention", q, k, v, rel_pos_h, rel_pos_w)
 
 
@@ -136,12 +208,63 @@ def relpos_plan(b: int, s: int, nh: int, h: int, w: int) -> RelposPlan:
     # 1024 bytes of alignment slack; Q, the K and V stages, two tiles a
     # warpgroup of tables and terms; the small maps' key table; mbarriers
     smem = (1024 + tile_bytes * (3 * groups + 2 * STAGES) + 4 * MAX_SIDE * MAX_SIDE
-            + 8 * (2 * STAGES + 1))
+            + 8 * (3 * STAGES + 1))
     return RelposPlan(row_tiles, groups, (-(-s // (groups * WARPGROUP_Q)), nh, b), smem)
 
 
-def _launch(q, k, v, rel_pos_h, rel_pos_w) -> torch.Tensor:
-    """The kernel on CUDA tensors: checks, the plan, one launch, the count."""
+def slot_pitch(cols: int) -> int:
+    """Slots a window row of `cols` keys or queries takes in a 64-row tile
+    (csrc/relpos_attention.cu slot_pitch): 8, 16 or 32."""
+    return 8 if cols <= 8 else 16 if cols <= 16 else 32
+
+
+def window_query_tiles(h: int, w: int, ws: int) -> int:
+    """Blocks of one (image, head) of an h × w map in ws × ws windows: each
+    window's real rows (those inside the map), SMALL_WARPGROUPS tiles of
+    KEY_TILE // slot_pitch(real width) rows a block
+    (csrc/relpos_attention.cu window_map_blocks)."""
+    sides = lambda n: [min(ws, n - i) for i in range(0, n, ws)]  # noqa: E731
+    rows = lambda rw: SMALL_WARPGROUPS * (KEY_TILE // slot_pitch(rw))  # noqa: E731
+    return sum(-(-rh // rows(rw)) for rh in sides(h) for rw in sides(w))
+
+
+def window_plan(b: int, h: int, w: int, nh: int, ws: int) -> RelposPlan:
+    """The cut of a window-map call over (B, h, w, H, 64): the small-map
+    mode's warpgroups and shared memory for one ws × ws window, and
+    `window_query_tiles` blocks an (image, head)."""
+    if not 1 <= ws <= MAX_SIDE:
+        raise ValueError(f"the kernel takes windows of at most {MAX_SIDE} x {MAX_SIDE}; got {ws}")
+    plan = relpos_plan(b, ws * ws, nh, ws, ws)
+    return dataclasses.replace(plan, grid=(window_query_tiles(h, w, ws), nh, b))
+
+
+def _check_window_args(q, k, v, bias_k, bias_v, rel_pos_h, rel_pos_w) -> None:
+    """As `_check_cuda_args`, for (B, h, w, H, 64) maps whose (h, w) merge
+    into one token stride (a view, or a refusal: never a copy), (H, 64)
+    bias rows and a window's two (2·ws − 1, 64) tables."""
+    if q.dim() != 5:
+        raise ValueError(f"window_relpos_attention wants (B, h, w, H, D) maps, "
+                         f"got {tuple(q.shape)}")
+    b, h, w, nh, d = q.shape
+    heads = [t.view(b, h * w, nh, d) for t in (q, k, v)]
+    _build.check_heads("window_relpos_attention", HEAD_DIM, *heads, ("bias_k", bias_k),
+                       ("bias_v", bias_v), ("rel_pos_h", rel_pos_h), ("rel_pos_w", rel_pos_w))
+    if bias_k.shape != (nh, d) or bias_v.shape != (nh, d):
+        raise ValueError(f"bias_k and bias_v must be ({nh}, {d}), got {tuple(bias_k.shape)} "
+                         f"and {tuple(bias_v.shape)}")
+    if rel_pos_w.shape[0] != rel_pos_h.shape[0] or rel_pos_h.shape[0] % 2 == 0:
+        raise ValueError(f"tables {tuple(rel_pos_h.shape)} and {tuple(rel_pos_w.shape)} are "
+                         f"not those of a square window")
+    _check_rows(bias_k=bias_k, bias_v=bias_v, rel_pos_h=rel_pos_h, rel_pos_w=rel_pos_w)
+    _build.refuse_grad("window_relpos_attention", q, k, v, bias_k, bias_v, rel_pos_h, rel_pos_w)
+
+
+def _launch(q, k, v, rel_pos_h, rel_pos_w, bias_k=None, bias_v=None) -> torch.Tensor:
+    """The kernel on CUDA tensors: checks, the plan, one launch, the count.
+    With `bias_k` and `bias_v` q, k and v are a (B, h, w, H, 64) map
+    attended in the tables' windows (`window_relpos_attention`)."""
+    if bias_k is not None:
+        return _launch_window(q, k, v, rel_pos_h, rel_pos_w, bias_k, bias_v)
     _check_cuda_args(q, k, v, rel_pos_h, rel_pos_w)
     b, s, nh, d = q.shape
     out = torch.empty((b, s, nh, d), dtype=q.dtype, device=q.device)
@@ -161,10 +284,38 @@ def _launch(q, k, v, rel_pos_h, rel_pos_w) -> torch.Tensor:
     return out
 
 
+def _launch_window(q, k, v, rel_pos_h, rel_pos_w, bias_k, bias_v) -> torch.Tensor:
+    _check_window_args(q, k, v, bias_k, bias_v, rel_pos_h, rel_pos_w)
+    b, h, w, nh, d = q.shape
+    out = torch.empty((b, h, w, nh, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    ws = (rel_pos_h.shape[0] + 1) // 2
+    plan = window_plan(b, h, w, nh, ws)
+    # (batch, token, head) strides; a map row is w tokens (the view checked above)
+    strides = [s for t in (q, k, v) for s in (t.stride(0), t.stride(2), t.stride(3))]
+    rc = _build.load().istpu_relpos_window_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_k.data_ptr(), bias_v.data_ptr(),
+        rel_pos_h.data_ptr(), rel_pos_w.data_ptr(), out.data_ptr(), b, h, w, nh, d, ws,
+        *strides, plan.grid[0], plan.smem_bytes, *_build.device_and_stream(q))
+    _build.check(rc, "window_relpos_attention launch")
+    global LAUNCHES, WINDOW_MAP_LAUNCHES
+    LAUNCHES += 1
+    WINDOW_MAP_LAUNCHES += 1
+    return out
+
+
 relpos_attention_op, _route = _build.kernel_entry(
     "relpos_attention", __name__, relpos_attention_reference,
     schema="(Tensor q, Tensor k, Tensor v, Tensor rel_pos_h, Tensor rel_pos_w) -> Tensor",
     fake=lambda q, *_: q.new_empty(q.shape), launcher=_launch)
+window_relpos_attention_op, _route_window = _build.kernel_entry(
+    "window_relpos_attention", __name__, window_relpos_attention_reference,
+    schema="(Tensor q, Tensor k, Tensor v, Tensor bias_k, Tensor bias_v, Tensor rel_pos_h, "
+           "Tensor rel_pos_w, int window) -> Tensor",
+    fake=lambda q, *_: q.new_empty(q.shape),
+    launcher=lambda q, k, v, bk, bv, rh, rw, window: _launch(q, k, v, rh, rw, bk, bv),
+    launch_args=lambda q, k, v, bk, bv, rh, rw, window: (q, k, v, rh, rw, bk, bv))
 
 
 def relpos_attention(q, k, v, rel_pos_h, rel_pos_w) -> torch.Tensor:
@@ -172,3 +323,17 @@ def relpos_attention(q, k, v, rel_pos_h, rel_pos_w) -> torch.Tensor:
     h × w map whose tables are rel_pos_h (2h − 1, D) and rel_pos_w
     (2w − 1, D) in q's dtype; returns (B, S, H, D) in q's dtype."""
     return _route(q, k, v, rel_pos_h, rel_pos_w)
+
+
+def window_relpos_attention(q, k, v, bias_k, bias_v, rel_pos_h, rel_pos_w,
+                            window: int) -> torch.Tensor:
+    """softmax(QKᵀ/√D + rel_h + rel_w)·V inside each window × window window
+    of the (B, h, w, H, D) map q, k, v (strided views of one qkv projection
+    are read in place), the map padded to multiples of `window` with keys
+    and values bias_k and bias_v (H, D), as a zero token gets them; the
+    tables are the window's, (2·window − 1, D), in q's dtype. Returns the
+    map's (B, h, w, H, D) in q's dtype (module docstring)."""
+    if rel_pos_h.shape[0] != 2 * window - 1 or rel_pos_w.shape[0] != 2 * window - 1:
+        raise ValueError(f"tables {tuple(rel_pos_h.shape)} and {tuple(rel_pos_w.shape)} are not "
+                         f"those of a {window} x {window} window")
+    return _route_window(q, k, v, bias_k, bias_v, rel_pos_h, rel_pos_w, window)

@@ -258,6 +258,101 @@ def test_relpos_attention_refuses_what_the_kernel_does_not_take(cuda):
         K5.relpos_attention(q.detach().clone().requires_grad_(True), k, v, rh, rw)
 
 
+def _window_args(b, h, w, device, seed=0):
+    """q, k, v of an unpadded h x w map, (B, h, w, 12, 64) views of one qkv
+    projection as SAM's windowed blocks hand them to K5, the bias rows
+    of its k and v thirds, and a window of 14's random bf16 tables."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, h, w, 3, 12, 64, generator=g).to(device).bfloat16()
+    bias = torch.randn(3, 12, 64, generator=g).to(device).bfloat16()
+    tables = [(0.1 * torch.randn(27, 64, generator=g)).to(device).bfloat16() for _ in range(2)]
+    return (*qkv.unbind(3), bias[1], bias[2], *tables, 14)
+
+
+def _partitioned_route(q, k, v, bias_k, bias_v, rh, rw, ws):
+    """The route before the window entry: q zero-padded and k, v padded
+    with the bias rows to multiples of ws, partitioned, K5's partitioned
+    call, unpartitioned and cropped."""
+    b, h, w, nh, d = q.shape
+    hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+
+    def windows(t, fill):
+        full = fill.expand(b, hp, wp, nh, d).clone()
+        full[:, :h, :w] = t
+        return K5.window_partition(full.reshape(b, hp, wp, nh * d), ws)[0].view(
+            -1, ws * ws, nh, d)
+
+    out = K5.relpos_attention(windows(q, torch.zeros_like(bias_k)), windows(k, bias_k),
+                              windows(v, bias_v), rh, rw)
+    return K5.window_unpartition(out.view(-1, ws, ws, nh * d), ws, (hp, wp), (h, w)).view(
+        b, h, w, nh, d)
+
+
+# SAM's micro-batch of 8 over the 64 x 64 map, and a small map that the
+# windows cover unevenly (20 x 18: edge windows 6 high and 4 wide).
+@pytest.mark.parametrize("b,h,w", [(8, 64, 64), (2, 20, 18)])
+def test_window_relpos_attention_kernel(cuda, b, h, w):
+    """The window map against its plain version and against the
+    partitioned call on the padded map, within two bf16 steps: the same
+    arithmetic a query and key, but the keys in other tiles of the online
+    softmax (whole window rows a tile); the same bits over two calls."""
+    args = _window_args(b, h, w, cuda)
+    assert not args[0].is_contiguous()
+    before = K5.LAUNCHES, K5.WINDOW_MAP_LAUNCHES
+    got = K5.window_relpos_attention(*args)
+    torch.cuda.synchronize()
+    assert (K5.LAUNCHES - before[0], K5.WINDOW_MAP_LAUNCHES - before[1]) == (1, 1)
+    assert got.shape == (b, h, w, 12, 64) and got.dtype == torch.bfloat16
+    assert got.is_contiguous()
+    _close(got, K5.window_relpos_attention_reference(*args))
+    _close(got, _partitioned_route(*args))
+    assert torch.equal(got, K5.window_relpos_attention(*args))
+
+
+def test_window_relpos_attention_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v, bk, bv, rh, rw, ws = _window_args(1, 20, 18, cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        K5.window_relpos_attention(q.float(), k.float(), v.float(), bk, bv, rh, rw, ws)
+    with pytest.raises(ValueError, match="bias_k"):
+        K5.window_relpos_attention(q, k, v, bk[:, :32], bv, rh, rw, ws)
+    with pytest.raises(RuntimeError, match="no backward"):
+        K5.window_relpos_attention(q, k, v, bk.clone().requires_grad_(True), bv, rh, rw, ws)
+    before = K5.WINDOW_MAP_LAUNCHES
+    table = torch.zeros(65, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="windows"):
+        K5.window_relpos_attention(q, k, v, bk, bv, table, table, 33)
+    assert K5.WINDOW_MAP_LAUNCHES == before
+
+
+def test_sam_windowed_blocks_run_the_window_map(cuda):
+    """A SamViTB forward (1024 px, bf16, kernels on, a random qkv bias) runs
+    K5 12 times, the 8 windowed blocks on the window map; a windowed block
+    on the kernel path (no pad, no partition) agrees with the plain path
+    (zero pad after norm1, partition, plain attention, crop)."""
+    from image_segmentation_tpu_torch.models import sam
+
+    model = sam.SamViTB(dtype=torch.bfloat16, use_kernels=True).init_weights(
+        torch.Generator().manual_seed(0)).to(cuda).eval()
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for block in model.image_encoder.blocks:
+            block.attn.qkv.bias.copy_(0.1 * torch.randn(block.attn.qkv.bias.shape, generator=g))
+    images = torch.rand(1, 1024, 1024, 3, generator=g).to(cuda)
+    clicks = torch.tensor([[[512.0, 512.0, 1.0]]], device=cuda)
+    before = K5.LAUNCHES, K5.WINDOW_MAP_LAUNCHES
+    with torch.no_grad():
+        masks, _ = model(images, clicks)
+    torch.cuda.synchronize()
+    assert (K5.LAUNCHES - before[0], K5.WINDOW_MAP_LAUNCHES - before[1]) == (12, 8)
+    assert torch.isfinite(masks).all()
+    block = model.image_encoder.blocks[0]
+    plain = sam.EncoderBlock(model.cfg, model.cfg.window_size, use_kernels=False).to(cuda)
+    plain.load_state_dict(block.state_dict())
+    x = (0.5 * torch.randn(2, 64, 64, 768, generator=g)).to(cuda).bfloat16()
+    with torch.no_grad():
+        _close(block(x), plain(x))
+
+
 # K4's tensor-parallel entry at ViT-B/16's F / 2 (one request, the largest
 # bucket), a ragged token count, and an F a multiple of 64 only.
 @pytest.mark.parametrize("m,h,f", [(197, 768, 1536), (1576, 768, 1536), (333, 768, 1536),

@@ -33,7 +33,8 @@ def _conv(g, cin):
 
 # Each public entry, its plain version, and its arguments at a small CPU
 # shape: K3; K4 with the exact GELU and its TP entry; K1 and its concat
-# entry; K5 over a 2 x 3 map.
+# entry; K5 over a 2 x 3 map, and its window entry over a 5 x 3 map in
+# windows of 3.
 ENTRIES = {
     "fused_attention": (K3.fused_attention, K3.attention_reference, lambda g: _heads(g)),
     "fused_mlp": (K4.fused_mlp, K4.mlp_reference,
@@ -47,6 +48,11 @@ ENTRIES = {
                               + _conv(g, 7)),
     "relpos_attention": (K5.relpos_attention, K5.relpos_attention_reference,
                          lambda g: _heads(g) + [_rnd(3, 16, g=g), _rnd(5, 16, g=g)]),
+    "window_relpos_attention": (K5.window_relpos_attention,
+                                K5.window_relpos_attention_reference,
+                                lambda g: [_rnd(2, 5, 3, 2, 16, g=g) for _ in range(3)]
+                                + [_rnd(2, 16, g=g), _rnd(2, 16, g=g), _rnd(5, 16, g=g),
+                                   _rnd(5, 16, g=g), 3]),
 }
 
 
@@ -71,7 +77,8 @@ def test_launch_counts_cover_every_counter_and_add_back_a_delta():
     counts = _build.launch_counts()
     assert set(counts) == {("attention", "LAUNCHES"), ("mlp", "LAUNCHES"),
                            ("mlp", "PARTIAL_LAUNCHES"), ("mlp", "MANY_TOKEN_LAUNCHES"),
-                           ("double_conv", "LAUNCHES"), ("relpos_attention", "LAUNCHES")}
+                           ("double_conv", "LAUNCHES"), ("relpos_attention", "LAUNCHES"),
+                           ("relpos_attention", "WINDOW_MAP_LAUNCHES")}
     delta = {("relpos_attention", "LAUNCHES"): 8, ("mlp", "PARTIAL_LAUNCHES"): 2}
     try:
         _build.add_launches(delta)

@@ -238,6 +238,31 @@ def test_a_replay_credits_k4s_many_token_launches():
                                              ("mlp", "MANY_TOKEN_LAUNCHES"): 96}
 
 
+def test_a_replay_credits_k5s_window_map_launches():
+    """K5's window-map count is credited as K4's many-token count is: a
+    SAM ViT-B forward holds 12 K5 launches, its 8 windowed blocks' on the
+    window map, so a step of 8 replays counts 96 and 64."""
+    from image_segmentation_tpu_torch.ops.kernels import _build
+    from image_segmentation_tpu_torch.ops.kernels import relpos_attention as K5
+
+    counts = _build.launch_counts()
+    assert {("relpos_attention", "LAUNCHES"),
+            ("relpos_attention", "WINDOW_MAP_LAUNCHES")} <= set(counts)
+    torch.manual_seed(0)
+    model = torch.nn.Linear(3, 4)
+    pair = _linear_pair(model)
+    K5.LAUNCHES += 12
+    K5.WINDOW_MAP_LAUNCHES += 8
+    pair.launched = _build.launches_since(counts)  # what a capture of that forward records
+    K5.LAUNCHES -= 12
+    K5.WINDOW_MAP_LAUNCHES -= 8
+    pair.begin_step()
+    for _ in range(8):
+        pair.forward(model, (torch.randn(2, 3),)).sum().backward()
+    assert _build.launches_since(counts) == {("relpos_attention", "LAUNCHES"): 96,
+                                             ("relpos_attention", "WINDOW_MAP_LAUNCHES"): 64}
+
+
 def test_a_gradient_kept_across_steps_is_not_zeroed_under_it():
     """A parameter the optimizer does not clear keeps its `.grad`: the next
     step's zeroing of the buffers hands it a copy first, and the new step's
@@ -504,6 +529,41 @@ def test_clip_models_are_graphed_and_count_their_kernel_launches(cuda, name):
         torch.testing.assert_close(lg, losses, rtol=REL, atol=0)
     _close_dicts({n: p.grad for n, p in g.model.named_parameters() if p.grad is not None},
                  {n: p.grad for n, p in e.model.named_parameters() if p.grad is not None})
+
+
+@pytest.mark.cuda
+def test_sam_is_graphed_and_replays_credit_the_window_map(cuda):
+    """SamViTB at its widths on a 16 x 16 grid (256 px; one windowed block in
+    windows of 14, one global) replays graphs: the micro-batch losses as
+    the eager twin's, and K5 counted as eager counts it, once a block and
+    micro-batch, the windowed block's calls on the window map."""
+    from image_segmentation_tpu_torch.losses import SamLoss
+    from image_segmentation_tpu_torch.models import sam
+    from image_segmentation_tpu_torch.ops.kernels import relpos_attention as K5
+    from image_segmentation_tpu_torch.train.state import freeze_, trainable_parameters
+
+    def state():
+        cfg = sam.SamConfig(image_size=256, depth=2, global_attn_indexes=(1,))
+        model = sam.SamViTB(cfg, dtype=torch.bfloat16, use_kernels=True).init_weights(
+            torch.Generator().manual_seed(0)).to(cuda)
+        freeze_(model, ("image_encoder",))
+        opt, _ = make_adamw(trainable_parameters(model, ("image_encoder",)), 8e-4, 0.1)
+        return TrainState(model, opt)
+
+    g, e = state(), _keep_eager(state())
+    x, y = _rows(4, side=256, device=cuda)
+    clicks = torch.tensor([[[128.0, 100.0, 1.0]]], device=cuda).expand(4, 1, 3).contiguous()
+    for s in range(2):
+        launched = []
+        for st, want in ((g, ((1 if s == 0 else 0), 2, 0)), (e, (0, 0, 2))):
+            before = K5.LAUNCHES, K5.WINDOW_MAP_LAUNCHES
+            losses, counts = _stepper(st, SamLoss(), 2)((x, clicks), y)
+            assert counts == want
+            launched.append((K5.LAUNCHES - before[0], K5.WINDOW_MAP_LAUNCHES - before[1]))
+            if st is g:
+                lg = losses
+        assert launched == [(4, 2)] * 2
+        torch.testing.assert_close(lg, losses, rtol=REL, atol=0)
 
 
 from torch_spawn import spawn  # noqa: E402
