@@ -32,7 +32,10 @@ Phases (each prints its lines; any failure ends the run non-zero):
      tokens, eps 1e-6 (v3, the many-token design, beside v2), each timed
      beside its bound; K4's crossover sweep, v2 against v3 at 1,576 to
      32,768 tokens with both GELUs; one SamViTB forward at micro-batch 8
-     (1024 px) launches each 12 times, K4 all 12 on v3;
+     (1024 px) launches each 12 times, K4 all 12 on v3; then K5 without
+     tables at SAM 2.1 Hiera-B+'s shapes (`phase_hiera_kernels`) against
+     its plain versions, timed beside their bounds, and one Sam2HieraBPlus
+     forward at micro-batch 8 launches K5 19 times, 16 on the window map;
   4. serving, clip family: a full-width ClipUNet (ViT-B/16 widths, seeded
      random weights, bf16, kernels on) registered in the port's
      InferenceEngine serves host images of several sizes; the launch
@@ -634,6 +637,12 @@ def op_dispatch_us(A, M, D, card: str) -> None:
 # encoder hands them over; K4 with the exact GELU at the encoder's 8 x
 # 4,096 tokens, eps 1e-6.
 SAM_K5_CASES = ((200, 14, 14), (8, 64, 64))
+# SAM 2.1 Hiera-B+'s K5 calls without tables at micro-batch 8, as (B, h, w,
+# heads, window; 0 global): stage 1's 256 x 256 map in windows of 8, stage
+# 3's 64 x 64 in windows of 14 and whole, stage 4's 32 x 32 in windows of 7,
+# and a map that windows of 7 cover unevenly
+HIERA_K5_CASES = ((8, 256, 256, 2, 8), (8, 64, 64, 8, 14), (8, 64, 64, 8, 0),
+                  (8, 32, 32, 16, 7), (2, 20, 18, 4, 7))
 SAM_MLP_TOKENS = 8 * 4096
 
 
@@ -643,6 +652,71 @@ def relpos_bound(bp: int, h: int, w: int, heads: int = 12, d: int = 64):
     s = h * w
     return _bound(2 * (4 * bp * s * heads * d + (2 * h - 1 + 2 * w - 1) * d),
                   4 * bp * heads * s * s * d + 2 * bp * heads * s * (h + w) * d)
+
+
+def no_table_bound(tokens: int, keys: int, heads: int, d: int = 56):
+    """K5 without tables (perfbench/configs/sam2_hiera_bplus.py k5_counts):
+    q, k, v read and out written in bf16; QKᵀ and P·V of each query over
+    its keys."""
+    return _bound(2 * 4 * tokens * heads * d, 4 * tokens * keys * heads * d)
+
+
+def phase_hiera_kernels(card: str) -> dict:
+    """K5 without tables at SAM 2.1 Hiera-B+'s shapes (HIERA_K5_CASES) against
+    its plain versions, each timed beside its bound; then one
+    Sam2HieraBPlus forward at micro-batch 8 (1024 px, seeded random
+    weights, bf16, kernels on) must launch K5 19 times, 16 on the window
+    map. Returns the rows by shape and the forward's (K5, window map)
+    launches."""
+    from image_segmentation_tpu_torch.models import sam2
+    from image_segmentation_tpu_torch.ops.kernels import relpos_attention as R
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    rows = {}
+    for b, h, w, heads, ws in HIERA_K5_CASES:
+        q, k, v = rnd(b, h, w, 3, heads, 56).bfloat16().unbind(3)
+        bias = (0.5 * rnd(3, heads, 56)).bfloat16()
+        if ws:
+            args = (q, k, v, bias[1], bias[2], ws)
+            fn, ref = R.window_attention_no_tables, R.window_attention_no_tables_reference
+            keys, what = ws * ws, f"windows of {ws}"
+        else:
+            args = tuple(t.flatten(1, 2) for t in (q, k, v)) + (h, w)
+            fn, ref = R.attention_no_tables, R.attention_no_tables_reference
+            keys, what = h * w, "global"
+        got = fn(*args)
+        torch.cuda.synchronize()
+        name = f"K5 no tables ({b}, {h} x {w}, {heads}, 56), {what}"
+        err = _compare(name, got, ref(*args))
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = no_table_bound(b * h * w, keys, heads)
+        ms = _device_ms(lambda: fn(*args))
+        rows[f"{b}x{h}x{w}x{heads} window {ws}"] = {"device_ms": ms, "bound_ms": bound_ms,
+                                      "bound_by": bound_by, "max_abs_err": err}
+        print(f"[kernels] {name}: device {ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}); "
+              f"bound / device {bound_ms / ms:.1%} (20 calls, warm L2; {card})")
+        del q, k, v, args, got
+    model = sam2.Sam2HieraBPlus(dtype=torch.bfloat16, use_kernels=True).init_weights(
+        torch.Generator().manual_seed(0)).to("cuda").eval()
+    images = torch.rand(8, 1024, 1024, 3, generator=g, device="cuda")
+    clicks = torch.tensor([[[512.0, 512.0, 1.0]]], device="cuda").expand(8, 1, 3)
+    before = (R.LAUNCHES, R.WINDOW_MAP_LAUNCHES)
+    with torch.no_grad():
+        masks, iou = model(images, clicks)
+    torch.cuda.synchronize()
+    launches = (R.LAUNCHES - before[0], R.WINDOW_MAP_LAUNCHES - before[1])
+    fwd_ms = _device_ms(lambda: model(images, clicks), iters=3, warmup=1)
+    print(f"[kernels] Sam2HieraBPlus forward at micro-batch 8: K5 {launches[0]} launches, "
+          f"{launches[1]} of them on the window map (24 blocks: 16 windowed on K5, 3 global, "
+          f"2 small-window and 3 pooled on SDPA); device {fwd_ms:.2f} ms; masks "
+          f"{tuple(masks.shape)} finite {bool(torch.isfinite(masks).all())} ({card})")
+    if launches != (19, 16) or not torch.isfinite(masks).all():
+        raise AssertionError(f"Sam2HieraBPlus forward: K5 launches {launches}, want (19, 16), "
+                             f"or non-finite masks")
+    del model, images, masks
+    torch.cuda.empty_cache()
+    return {"rows": rows, "forward_launches": launches, "forward_device_ms": fwd_ms}
 
 
 # K4 v3 against v2 at H 768, F 3,072, both GELUs: the sweep behind the
@@ -696,8 +770,9 @@ def phase_sam_kernels(M, card: str) -> tuple:
     then K4's crossover sweep (`mlp_crossover_sweep`); then one SamViTB
     forward at micro-batch 8 (1024 px, seeded random weights, bf16,
     kernels on) must launch each 12 times, K4 all 12 on v3 and K5's 8
-    windowed blocks on the window map. Returns (K5's row, K4's exact-GELU
-    numbers, the forward's (K5, K4) launches)."""
+    windowed blocks on the window map; then SAM 2's (`phase_hiera_kernels`,
+    its numbers under K5's row as "hiera"). Returns (K5's row, K4's
+    exact-GELU numbers, the SamViTB forward's (K5, K4) launches)."""
     from image_segmentation_tpu_torch.models import sam
     from image_segmentation_tpu_torch.ops.kernels import relpos_attention as R
 
@@ -793,6 +868,7 @@ def phase_sam_kernels(M, card: str) -> tuple:
                              f"window map, or non-finite masks")
     del model, images, masks
     torch.cuda.empty_cache()
+    k5["hiera"] = phase_hiera_kernels(card)
     return k5, k4, launches
 
 

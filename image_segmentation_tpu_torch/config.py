@@ -39,6 +39,7 @@ from image_segmentation_tpu_torch.models.autoencoder import (
 from image_segmentation_tpu_torch.models.clip_unet import ClipUNet, ClipUNetNoSkips
 from image_segmentation_tpu_torch.models.prompt import PromptModel
 from image_segmentation_tpu_torch.models.sam import SamViTB
+from image_segmentation_tpu_torch.models.sam2 import Sam2HieraBPlus
 from image_segmentation_tpu_torch.models.unet import UNet
 from image_segmentation_tpu_torch.train.state import make_adamw, trainable_parameters
 
@@ -98,12 +99,16 @@ CONFIGS = {c.name: c for c in (UNET_NOAUG, UNET_AUG, RECON_AE, AUTOENCODER, CLIP
 
 # model name → (class, whether it reaches a hand-written kernel). `sam_vitb`
 # (Segment Anything's ViT-B, models/sam.py: K5 and K4 with the exact GELU in
-# its frozen image encoder) has no experiment config of the reference's: it
-# trains in the benchmark's `train_clicks` cells (perfbench/), not run.py.
+# its frozen image encoder) and `sam2_hiera_bplus` (SAM 2.1 Hiera-B+,
+# models/sam2.py: K5 without tables in its frozen Hiera trunk) have no
+# experiment config of the reference's: they train in the benchmark's
+# `train_clicks` cells (perfbench/), not run.py.
 MODELS = {"unet": (UNet, True), "autoencoder": (SegmentationAutoencoder, False),
           "recon": (ReconstructionAutoencoder, False), "clipunet": (ClipUNet, True),
           "clipunet_noskips": (ClipUNetNoSkips, True), "prompt": (PromptModel, True),
-          "sam_vitb": (SamViTB, True)}
+          "sam_vitb": (SamViTB, True), "sam2_hiera_bplus": (Sam2HieraBPlus, True)}
+# the models whose outputs are masks of a click, not class maps
+CLICK_MODELS = ("sam_vitb", "sam2_hiera_bplus")
 
 
 def build_model(cfg: ExperimentConfig, device, generator: torch.Generator,
@@ -112,10 +117,11 @@ def build_model(cfg: ExperimentConfig, device, generator: torch.Generator,
     generator), in eval mode on `device`. `overrides` (keyword arguments of
     the model: `base` for the UNet and the autoencoder; `vit`,
     `skip_indices`, ... for the ClipUNet; those and `unet_base` for the
-    prompt model; `sam`, a `models.sam.SamConfig`, for SAM) cut the model
-    to size for tests and the demo. The config's `freeze_encoder` goes to
-    the ClipUNets as `freeze_encoder` and to the prompt model as
-    `freeze_clip` (JAX config.py:127-146); SAM's image encoder is always
+    prompt model; `sam`, a `models.sam.SamConfig`, for SAM; `sam2`, a
+    `models.sam2.Sam2Config`, for SAM 2) cut the model to size for tests
+    and the demo. The config's `freeze_encoder` goes to the ClipUNets as
+    `freeze_encoder` and to the prompt model as `freeze_clip` (JAX
+    config.py:127-146); SAM's and SAM 2's image encoders are always
     frozen."""
     device = torch.device(device)
     on_cuda = device.type == "cuda"
@@ -123,7 +129,7 @@ def build_model(cfg: ExperimentConfig, device, generator: torch.Generator,
         raise ValueError(f"model {cfg.model!r} is not ported yet")
     cls, has_kernels = MODELS[cfg.model]
     kwargs = dict(dtype=torch.bfloat16 if on_cuda else torch.float32)
-    if cfg.model not in ("recon", "sam_vitb"):  # reconstruction: the image; SAM: masks
+    if cfg.model not in ("recon",) + CLICK_MODELS:  # reconstruction: the image; SAM: masks
         kwargs["num_classes"] = cfg.num_classes
     if has_kernels:
         kwargs["use_kernels"] = cfg.use_kernels and on_cuda

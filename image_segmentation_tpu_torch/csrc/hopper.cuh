@@ -211,13 +211,14 @@ inline cudaError_t make_tensor_map(CUtensorMap* map, const void* base, uint32_t 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A 4-D map over a (B, S, H, 64) bf16 tensor with element strides
+// A 4-D map over a (B, S, H, d) bf16 tensor with element strides
 // (sb, ss, sh, 1); boxes of 64 tokens x one head x 64 (the attention
-// kernels' q, k and v tiles, read out of a strided qkv projection).
+// kernels' q, k and v tiles, read out of a strided qkv projection). A head
+// dim d under 64 (a multiple of 8) reads columns d .. 63 as zeros.
 inline cudaError_t head_tile_map(CUtensorMap* map, const void* base, int B, int S, int H,
-                                 long long sb, long long ss, long long sh) {
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
+                                 long long sb, long long ss, long long sh, int d = 64) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(ss) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
@@ -225,13 +226,14 @@ inline cudaError_t head_tile_map(CUtensorMap* map, const void* base, int B, int 
   return make_tensor_map(map, base, 4, dims, strides, box);
 }
 
-// A 5-D map over an h x w map of (B, h w, H, 64) bf16 tokens with element
+// A 5-D map over an h x w map of (B, h w, H, d) bf16 tokens with element
 // strides (sb, ss, sh, 1), a map row being w tokens; boxes of `cols`
 // tokens of one map row x one head x 64 (K5's window rows). Rows and
-// columns past the map read as zeros.
+// columns past the map, and columns d .. 63 of a head, read as zeros.
 inline cudaError_t map_row_map(CUtensorMap* map, const void* base, int B, int h, int w, int H,
-                               long long sb, long long ss, long long sh, int cols) {
-  const cuuint64_t dims[5] = {64, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(w),
+                               long long sb, long long ss, long long sh, int cols, int d = 64) {
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(w),
                               static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[4] = {static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(ss) * 2,

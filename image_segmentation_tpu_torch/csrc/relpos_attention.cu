@@ -67,13 +67,25 @@
 // map position, into a contiguous (B, h w, H, 64) tensor. The keys meet
 // the online softmax in other tiles than the partitioned call's, so the
 // two agree to rounding, not bit for bit.
+//
+// Without tables (SAM 2's Hiera, whose attention adds no relative
+// positions, at head dim 56): out = softmax(q . k^T / sqrt(56)) . v in the
+// row-tile mode (the global 64 x 64 maps) and in the window map (windows of
+// 8, 14 and 7), the same pipeline with no table loads, no products of Q
+// with the tables and no terms, so neither their shared memory. The rows
+// of 56 land by TMA in the 64-wide tiles, whose columns 56 .. 63 read as
+// zeros (the tensor maps' head dim is 56), so Q . K^T sums nothing more and
+// P . V's last 8 columns are zeros that the output, 56 columns a row, does
+// not write; the pad keys' bias rows are 56 wide, their last 8 columns
+// zeros too.
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace istpu {
 namespace {
 
-constexpr int kHeadDim = 64;
+constexpr int kHeadDim = 64;                     // a tile's columns; the head dim with tables
+constexpr int kPlainHeadDim = 56;                // the head dim without tables
 constexpr int kTile = 64;                        // queries a warpgroup, keys a tile
 constexpr int kStages = 3;                       // K and V tiles in flight
 constexpr uint32_t kBox = kTile * kHeadDim * 2;  // one 64 x 64 bf16 tile
@@ -87,11 +99,11 @@ constexpr int kSmallConsumers = 2;               // and small maps
 constexpr int block_threads(int consumers) { return 128 * consumers + 32; }
 
 // Q of each warpgroup, the K and V stages, two tiles a warpgroup of tables
-// and then of terms, the small maps' key table, the mbarriers (full, empty,
-// Q's, and the window map's landed).
-constexpr size_t smem_bytes(int consumers) {
-  return 1024 + kBox * (3 * consumers + 2 * kStages) + kMaxSmallKeys * sizeof(int) +
-         (3 * kStages + 1) * sizeof(uint64_t);
+// and then of terms (with tables), the small maps' key table, the mbarriers
+// (full, empty, Q's, and the window map's landed).
+constexpr size_t smem_bytes(int consumers, bool tables) {
+  return 1024 + kBox * ((tables ? 3 : 1) * consumers + 2 * kStages) +
+         kMaxSmallKeys * sizeof(int) + (3 * kStages + 1) * sizeof(uint64_t);
 }
 
 // A small map's key-table entry: kh | kw << 16, or kMasked for a slot that
@@ -186,21 +198,24 @@ __device__ __forceinline__ void load_table_tile(unsigned char* dst, const bf16* 
 
 // S = mh mw tokens a map (a window of side mh = mw, in the window map,
 // whose tensor maps are map_row_map's: tq and tk, tv in boxes of ws
-// columns, tq_last of the last window column's real width).
-template <bool kRowTiles, int kConsumers, bool kWindowMap>
+// columns, tq_last of the last window column's real width); D the head dim
+// of q, k, v, the bias rows and the output (kHeadDim with tables,
+// kPlainHeadDim without).
+template <bool kRowTiles, int kConsumers, bool kWindowMap, bool kTables>
 __global__ void __launch_bounds__(block_threads(kConsumers), kConsumers == 2 ? 2 : 1)
 relpos_attention_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tq_last,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv, const WindowMap wm,
                         const bf16* __restrict__ rel_h, const bf16* __restrict__ rel_w,
-                        bf16* __restrict__ o, int S, int H, int mh, int mw, float scale) {
+                        bf16* __restrict__ o, int S, int H, int mh, int mw, int D,
+                        float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* Qs = align_1024(smem_raw);
   unsigned char* Ks = Qs + kConsumers * kBox;
   unsigned char* Vs = Ks + kStages * kBox;
   unsigned char* tabs = Vs + kStages * kBox;  // the tables, then the terms
-  int* key_hw = reinterpret_cast<int*>(tabs + 2 * kConsumers * kBox);
+  int* key_hw = reinterpret_cast<int*>(tabs + (kTables ? 2 * kConsumers * kBox : 0));
   uint64_t* full = reinterpret_cast<uint64_t*>(key_hw + kMaxSmallKeys);
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
@@ -267,9 +282,12 @@ relpos_attention_kernel(const __grid_constant__ CUtensorMap tq,
             load_tile(t);
           }
       } else {
-        const int c = lane & 7;
-        const uint4 pad_k = *reinterpret_cast<const uint4*>(wm.bias_k + head * kHeadDim + c * 8);
-        const uint4 pad_v = *reinterpret_cast<const uint4*>(wm.bias_v + head * kHeadDim + c * 8);
+        const int c = lane & 7;  // columns 8 c .. 8 c + 7; zeros past D
+        uint4 pad_k = make_uint4(0u, 0u, 0u, 0u), pad_v = pad_k;
+        if (c * 8 < D) {
+          pad_k = *reinterpret_cast<const uint4*>(wm.bias_k + head * D + c * 8);
+          pad_v = *reinterpret_cast<const uint4*>(wm.bias_v + head * D + c * 8);
+        }
         if (lane == 0)
           for (int t = 0; t < min(kStages, n_tiles); ++t) load_tile(t);
         for (int t = 0; t < n_tiles; ++t) {
@@ -317,11 +335,11 @@ relpos_attention_kernel(const __grid_constant__ CUtensorMap tq,
   // The tables into tiles: row tiles, Rh rows i .. i + 63 (a tile a
   // warpgroup) and Rw rows 0 .. 127 (the next two tiles); small maps, Rh
   // and Rw rows 0 .. 63 (tiles 0 and 1), and each key's (kh, kw).
-  if (kRowTiles) {
+  if (kTables && kRowTiles) {
     load_table_tile(tabs + wg * kBox, rel_h, 2 * mh - 1, m0 / kRowSide, wtid, 128);
     if (wg < 2)
       load_table_tile(tabs + (kConsumers + wg) * kBox, rel_w, 2 * mw - 1, wg * kTile, wtid, 128);
-  } else if (wg < 2) {
+  } else if (kTables && wg < 2) {
     load_table_tile(tabs + wg * kBox, wg == 0 ? rel_h : rel_w, 2 * (wg == 0 ? mh : mw) - 1, 0,
                     wtid, 128);
   }
@@ -336,63 +354,65 @@ relpos_attention_kernel(const __grid_constant__ CUtensorMap tq,
   fence_proxy_async();
   named_barrier_sync(1, 128 * kConsumers);
 
-  // prod[4 j + e] is (row r0 + 8 (e / 2), column 8 j + 2 t4 + e % 2) of
-  // Q . [two table tiles: Rw's (row tiles), or Rh's and Rw's]^T, 128 columns;
-  // rel_h_prod the same of Q . (its Rh tile)^T (row tiles).
-  float prod[64], rel_h_prod[32];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) prod[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) rel_h_prod[i] = 0.f;
   mbar_wait(qbar, 0);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-    wgmma_m64n128k16_ss(prod, kmajor_desc(Qw + 32 * kk),
-                        kmajor_desc(tabs + (kRowTiles ? kConsumers : 0) * kBox + 32 * kk));
-    if (kRowTiles)
-      wgmma_m64n64k16_ss(rel_h_prod, kmajor_desc(Qw + 32 * kk),
-                         kmajor_desc(tabs + wg * kBox + 32 * kk));
-  }
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(prod);
-  if (kRowTiles) fence_regs(rel_h_prod);
-  named_barrier_sync(1, 128 * kConsumers);  // every warpgroup is done with the tables
-
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = r0 + 8 * hf, c = 8 * j + 2 * t4;
-      *reinterpret_cast<uint32_t*>(terms + term_at(r, c)) =
-          pack_bf16(prod[4 * j + 2 * hf], prod[4 * j + 2 * hf + 1]);
-    }
-  named_barrier_sync(2 + wg, 128);
-
-  // Row tiles: rel_w of (row r0 + 8 hf, key column 8 j + 2 t4 + e) is
-  // terms[row][row - column + 63]; two bf16 a register, [2 j + hf].
   uint32_t rel_w_pairs[16];
-  if (kRowTiles) {
-    const uint16_t* bits = reinterpret_cast<const uint16_t*>(terms);
+  if (kTables) {
+    // prod[4 j + e] is (row r0 + 8 (e / 2), column 8 j + 2 t4 + e % 2) of
+    // Q . [two table tiles: Rw's (row tiles), or Rh's and Rw's]^T, 128
+    // columns; rel_h_prod the same of Q . (its Rh tile)^T (row tiles).
+    float prod[64], rel_h_prod[32];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int i = 0; i < 64; ++i) prod[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) rel_h_prod[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+      wgmma_m64n128k16_ss(prod, kmajor_desc(Qw + 32 * kk),
+                          kmajor_desc(tabs + (kRowTiles ? kConsumers : 0) * kBox + 32 * kk));
+      if (kRowTiles)
+        wgmma_m64n64k16_ss(rel_h_prod, kmajor_desc(Qw + 32 * kk),
+                           kmajor_desc(tabs + wg * kBox + 32 * kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(prod);
+    if (kRowTiles) fence_regs(rel_h_prod);
+    named_barrier_sync(1, 128 * kConsumers);  // every warpgroup is done with the tables
+
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int r = r0 + 8 * hf, c = 8 * j + 2 * t4;
-        rel_w_pairs[2 * j + hf] = static_cast<uint32_t>(bits[term_at(r, r - c + kRowSide - 1)]) |
-                                  (static_cast<uint32_t>(bits[term_at(r, r - c + kRowSide - 2)])
-                                   << 16);
+        *reinterpret_cast<uint32_t*>(terms + term_at(r, c)) =
+            pack_bf16(prod[4 * j + 2 * hf], prod[4 * j + 2 * hf + 1]);
       }
     named_barrier_sync(2 + wg, 128);
-    // rel_h of key row kh is column h - 1 - kh of rel_h_prod.
+
+    // Row tiles: rel_w of (row r0 + 8 hf, key column 8 j + 2 t4 + e) is
+    // terms[row][row - column + 63]; two bf16 a register, [2 j + hf].
+    if (kRowTiles) {
+      const uint16_t* bits = reinterpret_cast<const uint16_t*>(terms);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        *reinterpret_cast<uint32_t*>(terms + term_at(r0 + 8 * hf, 8 * j + 2 * t4)) =
-            pack_bf16(rel_h_prod[4 * j + 2 * hf], rel_h_prod[4 * j + 2 * hf + 1]);
-    named_barrier_sync(2 + wg, 128);
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = r0 + 8 * hf, c = 8 * j + 2 * t4;
+          rel_w_pairs[2 * j + hf] =
+              static_cast<uint32_t>(bits[term_at(r, r - c + kRowSide - 1)]) |
+              (static_cast<uint32_t>(bits[term_at(r, r - c + kRowSide - 2)]) << 16);
+        }
+      named_barrier_sync(2 + wg, 128);
+      // rel_h of key row kh is column h - 1 - kh of rel_h_prod.
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          *reinterpret_cast<uint32_t*>(terms + term_at(r0 + 8 * hf, 8 * j + 2 * t4)) =
+              pack_bf16(rel_h_prod[4 * j + 2 * hf], rel_h_prod[4 * j + 2 * hf + 1]);
+      named_barrier_sync(2 + wg, 128);
+    }
   }
   // Small maps: each of this thread's two queries' (i, j) in its map or
   // window; query slots past it take a row and column the tables hold.
@@ -425,7 +445,10 @@ relpos_attention_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(s);
 
     // Logits: s[4 j + e] is row r0 + 8 (e / 2), key 64 kt + 8 j + 2 t4 + e % 2.
-    if (kRowTiles) {
+    if (kRowTiles && !kTables) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= scale;
+    } else if (kRowTiles) {
       float rh[2];
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf)
@@ -449,8 +472,9 @@ relpos_attention_kernel(const __grid_constant__ CUtensorMap tq,
           for (int hf = 0; hf < 2; ++hf) {
             const int r = r0 + 8 * hf;
             const float term =
-                __bfloat162float(terms[term_at(r, qi[hf] + mh - 1 - kh)]) +
-                __bfloat162float(terms[term_at(r, kTile + qj[hf] + mw - 1 - kw)]);
+                kTables ? __bfloat162float(terms[term_at(r, qi[hf] + mh - 1 - kh)]) +
+                              __bfloat162float(terms[term_at(r, kTile + qj[hf] + mw - 1 - kw)])
+                        : 0.f;
             float& l = s[4 * j + 2 * hf + e1];
             l = hw != kMasked ? l * scale + term : neg_inf;
           }
@@ -512,8 +536,8 @@ relpos_attention_kernel(const __grid_constant__ CUtensorMap tq,
     row_sum[hf] += __shfl_xor_sync(0xffffffffu, row_sum[hf], 1);
     row_sum[hf] += __shfl_xor_sync(0xffffffffu, row_sum[hf], 2);
   }
-  const long long row_stride = static_cast<long long>(H) * kHeadDim;
-  bf16* ob = o + (static_cast<long long>(b) * wm.h * wm.w * H + head) * kHeadDim;
+  const long long row_stride = static_cast<long long>(H) * D;
+  bf16* ob = o + (static_cast<long long>(b) * wm.h * wm.w * H + head) * D;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int m = m0 + r0 + 8 * hf, r = r0 + 8 * hf;
@@ -525,24 +549,24 @@ relpos_attention_kernel(const __grid_constant__ CUtensorMap tq,
     bf16* orow = ob + tok * row_stride;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
-          pack_bf16(acc[4 * j + 2 * hf] * inv, acc[4 * j + 2 * hf + 1] * inv);
+      if (8 * j < D)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
+            pack_bf16(acc[4 * j + 2 * hf] * inv, acc[4 * j + 2 * hf + 1] * inv);
   }
 }
 
-template <bool kRowTiles, int kConsumers, bool kWindowMap>
+template <bool kRowTiles, int kConsumers, bool kWindowMap, bool kTables>
 cudaError_t launch_relpos(const CUtensorMap& tq, const CUtensorMap& tq_last,
                           const CUtensorMap& tk, const CUtensorMap& tv, const WindowMap& wm,
                           const bf16* rh, const bf16* rw, bf16* o, int B, int S, int H, int mh,
-                          int mw, int q_tiles, int smem, cudaStream_t stream) {
-  auto* kernel = relpos_attention_kernel<kRowTiles, kConsumers, kWindowMap>;
+                          int mw, int D, int q_tiles, int smem, cudaStream_t stream) {
+  auto* kernel = relpos_attention_kernel<kRowTiles, kConsumers, kWindowMap, kTables>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(q_tiles, H, B);
   kernel<<<grid, block_threads(kConsumers), smem, stream>>>(
-      tq, tq_last, tk, tv, wm, rh, rw, o, S, H, mh, mw,
-      1.0f / sqrtf(static_cast<float>(kHeadDim)));
+      tq, tq_last, tk, tv, wm, rh, rw, o, S, H, mh, mw, D, 1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
@@ -553,13 +577,13 @@ extern "C" {
 
 // q, k, v: bf16 (B, S, H, D) with the given element strides (D contiguous,
 // the others multiples of 8); rel_h, rel_w: contiguous bf16 (2 mh - 1, D)
-// and (2 mw - 1, D), 16-byte aligned; o: contiguous bf16 (B, S, H, D);
-// S = mh mw, D = 64. The cut is the caller's plan (ops/kernels/
-// relpos_attention.py relpos_plan): row_tiles (mw = 64, mh <= 64) or small
-// maps (mh, mw <= 32), `consumers` warpgroups of 64 queries a block
-// (kRowConsumers or kSmallConsumers), q_tiles blocks and smem bytes of
-// shared memory a block; a plan that does not cover the call is refused.
-// Returns a cudaError_t.
+// and (2 mw - 1, D), 16-byte aligned, D = 64, or both null: no tables,
+// D = 56, row tiles only; o: contiguous bf16 (B, S, H, D); S = mh mw. The
+// cut is the caller's plan (ops/kernels/relpos_attention.py relpos_plan):
+// row_tiles (mw = 64, mh <= 64) or small maps (mh, mw <= 32), `consumers`
+// warpgroups of 64 queries a block (kRowConsumers or kSmallConsumers),
+// q_tiles blocks and smem bytes of shared memory a block; a plan that does
+// not cover the call is refused. Returns a cudaError_t.
 int istpu_relpos_attention_bf16(const void* q, const void* k, const void* v, const void* rel_h,
                                 const void* rel_w, void* o, int B, int S, int H, int D, int mh,
                                 int mw, long long qsb, long long qss, long long qsh,
@@ -569,37 +593,43 @@ int istpu_relpos_attention_bf16(const void* q, const void* k, const void* v, con
   using namespace istpu;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  const bool tables = rel_h != nullptr;
   const bool shape_ok =
       row_tiles ? (mw == kRowSide && mh >= 1 && mh <= kRowSide)
-                : (mh >= 1 && mw >= 1 && mh <= kMaxSide && mw <= kMaxSide);
-  if (D != kHeadDim || B <= 0 || H <= 0 || S != mh * mw || !shape_ok ||
+                : (tables && mh >= 1 && mw >= 1 && mh <= kMaxSide && mw <= kMaxSide);
+  if (tables != (rel_w != nullptr) || D != (tables ? kHeadDim : kPlainHeadDim) || B <= 0 ||
+      H <= 0 || S != mh * mw || !shape_ok ||
       consumers != (row_tiles ? kRowConsumers : kSmallConsumers) ||
       q_tiles * kTile * consumers < S ||
-      static_cast<size_t>(smem) < smem_bytes(consumers))
+      static_cast<size_t>(smem) < smem_bytes(consumers, tables))
     return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  if ((err = head_tile_map(&tq, q, B, S, H, qsb, qss, qsh)) != cudaSuccess) return err;
-  if ((err = head_tile_map(&tk, k, B, S, H, ksb, kss, ksh)) != cudaSuccess) return err;
-  if ((err = head_tile_map(&tv, v, B, S, H, vsb, vss, vsh)) != cudaSuccess) return err;
+  if ((err = head_tile_map(&tq, q, B, S, H, qsb, qss, qsh, D)) != cudaSuccess) return err;
+  if ((err = head_tile_map(&tk, k, B, S, H, ksb, kss, ksh, D)) != cudaSuccess) return err;
+  if ((err = head_tile_map(&tv, v, B, S, H, vsb, vss, vsh, D)) != cudaSuccess) return err;
   const auto* rh = static_cast<const bf16*>(rel_h);
   const auto* rw = static_cast<const bf16*>(rel_w);
   auto* op = static_cast<bf16*>(o);
   auto s = static_cast<cudaStream_t>(stream);
   const WindowMap own = {nullptr, nullptr, mh, mw};  // the output is the call's own map
+  if (!tables)
+    return launch_relpos<true, kRowConsumers, false, false>(tq, tq, tk, tv, own, rh, rw, op, B,
+                                                            S, H, mh, mw, D, q_tiles, smem, s);
   if (row_tiles)
-    return launch_relpos<true, kRowConsumers, false>(tq, tq, tk, tv, own, rh, rw, op, B, S, H,
-                                                     mh, mw, q_tiles, smem, s);
-  return launch_relpos<false, kSmallConsumers, false>(tq, tq, tk, tv, own, rh, rw, op, B, S, H,
-                                                      mh, mw, q_tiles, smem, s);
+    return launch_relpos<true, kRowConsumers, false, true>(tq, tq, tk, tv, own, rh, rw, op, B, S,
+                                                           H, mh, mw, D, q_tiles, smem, s);
+  return launch_relpos<false, kSmallConsumers, false, true>(tq, tq, tk, tv, own, rh, rw, op, B,
+                                                            S, H, mh, mw, D, q_tiles, smem, s);
 }
 
 // The window map: q, k, v bf16 (B, h w, H, D) over an unpadded h x w map
 // with the given element strides (D contiguous, the others multiples of
 // 8, 16-byte aligned); bias_k, bias_v: contiguous bf16 (H, D), the k and v
-// a pad token takes; rel_h, rel_w: contiguous bf16 (2 ws - 1, D); o:
-// contiguous bf16 (B, h w, H, D); D = 64, 1 <= ws <= 32. q_tiles must be
-// the blocks an (image, head) needs (ops/kernels/relpos_attention.py
-// window_plan; window_map_blocks here). Returns a cudaError_t.
+// a pad token takes; rel_h, rel_w: contiguous bf16 (2 ws - 1, D), D = 64,
+// or both null: no tables, D = 56; o: contiguous bf16 (B, h w, H, D);
+// 1 <= ws <= 32. q_tiles must be the blocks an (image, head) needs
+// (ops/kernels/relpos_attention.py window_plan; window_map_blocks here).
+// Returns a cudaError_t.
 int istpu_relpos_window_bf16(const void* q, const void* k, const void* v, const void* bias_k,
                              const void* bias_v, const void* rel_h, const void* rel_w, void* o,
                              int B, int h, int w, int H, int D, int ws, long long qsb,
@@ -609,22 +639,29 @@ int istpu_relpos_window_bf16(const void* q, const void* k, const void* v, const 
   using namespace istpu;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (D != kHeadDim || B <= 0 || H <= 0 || h <= 0 || w <= 0 || ws <= 0 || ws > kMaxSide ||
+  const bool tables = rel_h != nullptr;
+  if (tables != (rel_w != nullptr) || D != (tables ? kHeadDim : kPlainHeadDim) || B <= 0 ||
+      H <= 0 || h <= 0 || w <= 0 || ws <= 0 || ws > kMaxSide ||
       q_tiles != window_map_blocks(h, w, ws) ||
-      static_cast<size_t>(smem) < smem_bytes(kSmallConsumers))
+      static_cast<size_t>(smem) < smem_bytes(kSmallConsumers, tables))
     return cudaErrorInvalidValue;
   CUtensorMap tq, tq_last, tk, tv;
   const int rw_last = map_split(h, w, ws).rw_last;
-  if ((err = map_row_map(&tq, q, B, h, w, H, qsb, qss, qsh, ws)) != cudaSuccess) return err;
-  if ((err = map_row_map(&tq_last, q, B, h, w, H, qsb, qss, qsh, rw_last)) != cudaSuccess)
+  if ((err = map_row_map(&tq, q, B, h, w, H, qsb, qss, qsh, ws, D)) != cudaSuccess) return err;
+  if ((err = map_row_map(&tq_last, q, B, h, w, H, qsb, qss, qsh, rw_last, D)) != cudaSuccess)
     return err;
-  if ((err = map_row_map(&tk, k, B, h, w, H, ksb, kss, ksh, ws)) != cudaSuccess) return err;
-  if ((err = map_row_map(&tv, v, B, h, w, H, vsb, vss, vsh, ws)) != cudaSuccess) return err;
+  if ((err = map_row_map(&tk, k, B, h, w, H, ksb, kss, ksh, ws, D)) != cudaSuccess) return err;
+  if ((err = map_row_map(&tv, v, B, h, w, H, vsb, vss, vsh, ws, D)) != cudaSuccess) return err;
   const WindowMap wm = {static_cast<const bf16*>(bias_k), static_cast<const bf16*>(bias_v), h, w};
-  return launch_relpos<false, kSmallConsumers, true>(
-      tq, tq_last, tk, tv, wm, static_cast<const bf16*>(rel_h), static_cast<const bf16*>(rel_w),
-      static_cast<bf16*>(o), B, ws * ws, H, ws, ws, q_tiles, smem,
-      static_cast<cudaStream_t>(stream));
+  const auto* rh = static_cast<const bf16*>(rel_h);
+  const auto* rw = static_cast<const bf16*>(rel_w);
+  auto* op = static_cast<bf16*>(o);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (!tables)
+    return launch_relpos<false, kSmallConsumers, true, false>(
+        tq, tq_last, tk, tv, wm, rh, rw, op, B, ws * ws, H, ws, ws, D, q_tiles, smem, s);
+  return launch_relpos<false, kSmallConsumers, true, true>(
+      tq, tq_last, tk, tv, wm, rh, rw, op, B, ws * ws, H, ws, ws, D, q_tiles, smem, s);
 }
 
 }  // extern "C"

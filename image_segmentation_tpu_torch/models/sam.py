@@ -406,40 +406,75 @@ class MLP(nn.Module):
 
 class MaskDecoder(nn.Module):
     """(embedding (N, D, G, G), image pe (1, D, G, G), sparse (N, T, D), dense
-    (N, D, G, G)) → (all masks (N, 4, 4G, 4G), all IoU predictions (N, 4))."""
+    (N, D, G, G)) → (all masks (N, 4, 4G, 4G), all IoU predictions (N, 4)).
 
-    def __init__(self, cfg: SamConfig):
+    SAM 2's three changes (`sam2/modeling/sam/mask_decoder.py`), off by
+    default, which is SAM's decoder: `pred_obj_scores`, an object-score
+    token before the IoU token and its head (an MLP of 3 layers, which the
+    image path builds and never reads); `iou_sigmoid`, a sigmoid on the
+    IoU head; `high_res`, the high-resolution path: given the (N, D, 4G,
+    4G) and (N, D, 2G, 2G) levels, the upscaling is
+    GELU(LN(dc1(src) + conv_s1(level 2G))), then GELU(dc2(·) +
+    conv_s0(level 4G)), with conv_s0 and conv_s1 1 × 1 convs to D/8 and
+    D/4."""
+
+    def __init__(self, cfg: SamConfig, pred_obj_scores: bool = False, iou_sigmoid: bool = False,
+                 high_res: bool = False):
         super().__init__()
         d = cfg.prompt_embed_dim
         self.num_mask_tokens = cfg.num_multimask_outputs + 1
         self.transformer = TwoWayTransformer(cfg)
         self.iou_token = nn.Embedding(1, d)
         self.mask_tokens = nn.Embedding(self.num_mask_tokens, d)
+        self.pred_obj_scores, self.iou_sigmoid, self.high_res = (pred_obj_scores, iou_sigmoid,
+                                                                 high_res)
+        if pred_obj_scores:
+            self.obj_score_token = nn.Embedding(1, d)
         self.output_upscaling = nn.Sequential(
             nn.ConvTranspose2d(d, d // 4, 2, stride=2), LayerNorm2d(d // 4), nn.GELU(),
             nn.ConvTranspose2d(d // 4, d // 8, 2, stride=2), nn.GELU())
+        if high_res:
+            self.conv_s0 = nn.Conv2d(d, d // 8, 1)
+            self.conv_s1 = nn.Conv2d(d, d // 4, 1)
         self.output_hypernetworks_mlps = nn.ModuleList(
             MLP((d, d, d, d // 8)) for _ in range(self.num_mask_tokens))
         self.iou_prediction_head = MLP(
             (d,) + (cfg.iou_head_hidden_dim,) * (cfg.iou_head_depth - 1)
             + (self.num_mask_tokens,))
+        if pred_obj_scores:
+            self.pred_obj_score_head = MLP((d, d, d, 1))
 
-    def forward(self, embedding, image_pe, sparse, dense):
+    def forward(self, embedding, image_pe, sparse, dense, high_res_features=None):
         n, d, g, _ = embedding.shape
         dtype = embedding.dtype
+        if (high_res_features is not None) != self.high_res:
+            raise ValueError("the high-resolution levels are given exactly when the decoder "
+                             "is built with high_res")
         out_tokens = torch.cat([self.iou_token.weight, self.mask_tokens.weight], dim=0)
+        first = 0  # the IoU token's place
+        if self.pred_obj_scores:
+            out_tokens = torch.cat([self.obj_score_token.weight, out_tokens], dim=0)
+            first = 1
         tokens = torch.cat([out_tokens.to(dtype).expand(n, -1, -1), sparse.to(dtype)], dim=1)
         src = embedding + dense.to(dtype)
         hs, src = self.transformer(src, image_pe.to(dtype), tokens)
         src = src.transpose(1, 2).reshape(n, d, g, g)
         up1, ln, _, up2, _ = self.output_upscaling
         y = F.conv_transpose2d(src, up1.weight.to(dtype), up1.bias.to(dtype), stride=2)
-        y = F.gelu(ln(y))
-        y = F.gelu(F.conv_transpose2d(y, up2.weight.to(dtype), up2.bias.to(dtype), stride=2))
-        hyper = torch.stack([mlp(hs[:, 1 + i]) for i, mlp in
+        if self.high_res:
+            s0, s1 = self.conv_s0, self.conv_s1
+            level0, level1 = high_res_features
+            y = F.gelu(ln(y + F.conv2d(level1, s1.weight.to(dtype), s1.bias.to(dtype))))
+            y = F.gelu(F.conv_transpose2d(y, up2.weight.to(dtype), up2.bias.to(dtype), stride=2)
+                       + F.conv2d(level0, s0.weight.to(dtype), s0.bias.to(dtype)))
+        else:
+            y = F.gelu(ln(y))
+            y = F.gelu(F.conv_transpose2d(y, up2.weight.to(dtype), up2.bias.to(dtype), stride=2))
+        hyper = torch.stack([mlp(hs[:, first + 1 + i]) for i, mlp in
                              enumerate(self.output_hypernetworks_mlps)], dim=1)
         masks = (hyper @ y.flatten(2)).view(n, -1, y.shape[2], y.shape[3])
-        return masks, self.iou_prediction_head(hs[:, 0])
+        iou = self.iou_prediction_head(hs[:, first])
+        return masks, torch.sigmoid(iou) if self.iou_sigmoid else iou
 
 
 class SamViTB(nn.Module):

@@ -195,7 +195,7 @@ def check_heads(op: str, head_dim: int, q, k, v, *others) -> None:
         raise ValueError(f"{op} wants equal (B, S, H, D) shapes, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if q.shape[-1] != head_dim:
-        raise ValueError(f"the CUDA kernel takes head dim {head_dim}, got {q.shape[-1]}")
+        raise ValueError(f"{op}: the CUDA kernel takes head dim {head_dim}, got {q.shape[-1]}")
     heads = (("q", q), ("k", k), ("v", v))
     for name, t in heads + others:
         if t.device != q.device:

@@ -41,6 +41,15 @@ agree to rounding) without the pad, partition, unpartition and crop
 copies around it. Its plain version, `window_relpos_attention_reference`,
 is those copies around `relpos_attention_reference`.
 
+Without tables (SAM 2's Hiera, models/hiera.py): `attention_no_tables`
+and `window_attention_no_tables` are the same two calls with no relative
+terms, softmax(q·kᵀ·D^-½)·v, at head dim 56 (NO_TABLE_HEAD_DIM) on a
+card: the partitioned call in the row-tile mode alone (Hiera's global
+64 × 64 maps) and the window map (its windows of 8, 14 and 7 on the
+unpadded 256², 64² and 32² maps). The kernel reads the rows of 56 into
+its 64-wide tiles, the last 8 columns zeros, and writes 56 a row; it
+loads no table and makes no term.
+
 `relpos_attention_reference` is the same function in plain PyTorch
 (the terms and the (S, S) logits materialised), with the kernel's cast
 points: the terms from q and the tables in q's dtype, summed in f32 and
@@ -51,7 +60,11 @@ does (`_build.kernel_entry`): the plain version on the CPU, the kernel on
 a CUDA tensor (bf16, D = 64; an argument that requires grad is refused
 under grad mode), and `relpos_attention_op` (`istpu::relpos_attention`)
 while torch.export traces; `window_relpos_attention` likewise, with
-`window_relpos_attention_op` (`istpu::window_relpos_attention`).
+`window_relpos_attention_op` (`istpu::window_relpos_attention`), and the
+two no-table entries with `attention_no_tables_op` and
+`window_attention_no_tables_op`, whose plain versions are the same
+function without the terms. Every entry counts in LAUNCHES, the window
+entries in WINDOW_MAP_LAUNCHES too.
 """
 from __future__ import annotations
 
@@ -69,7 +82,8 @@ from image_segmentation_tpu_torch.ops.kernels import _build
 LAUNCHES = 0
 WINDOW_MAP_LAUNCHES = 0
 
-HEAD_DIM = 64
+HEAD_DIM = 64  # with tables; the tiles' columns
+NO_TABLE_HEAD_DIM = 56  # without (csrc/relpos_attention.cu kPlainHeadDim)
 WARPGROUP_Q = 64  # queries a consumer warpgroup (csrc/relpos_attention.cu kTile)
 KEY_TILE = 64  # keys a tile (kTile)
 STAGES = 3  # K and V tiles in flight (kStages)
@@ -99,6 +113,18 @@ def map_sides(s: int, rel_pos_h: torch.Tensor, rel_pos_w: torch.Tensor) -> tuple
     return h, w
 
 
+def _attend(q, k, v, bias=None) -> torch.Tensor:
+    """softmax(q·kᵀ in f32 × D^-½ (+ bias))·v with the kernel's cast points,
+    the (S, S) logits materialised; (B, S, H, D) in and out."""
+    d = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(d))
+    if bias is not None:
+        logits = logits + bias
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+    return out.to(q.dtype)
+
+
 def relpos_attention_reference(q, k, v, rel_pos_h, rel_pos_w) -> torch.Tensor:
     """Plain PyTorch softmax(QKᵀ/√D + rel_h + rel_w)·V for (B, S, H, D)
     q, k, v and the (2h − 1, D), (2w − 1, D) tables; the terms and the
@@ -110,11 +136,15 @@ def relpos_attention_reference(q, k, v, rel_pos_h, rel_pos_w) -> torch.Tensor:
     r_w = rel_pos_w.to(q.dtype).float()[rel_index(w, q.device)]  # (w, kw, D)
     rel_h = torch.einsum("bijnc,ikc->bnijk", q5, r_h).to(q.dtype).float()
     rel_w = torch.einsum("bijnc,jkc->bnijk", q5, r_w).to(q.dtype).float()
-    bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(b, nh, s, s)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(d))
-    probs = torch.softmax(logits + bias, dim=-1).to(v.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
-    return out.to(q.dtype)
+    return _attend(q, k, v, (rel_h[..., :, None] + rel_w[..., None, :]).reshape(b, nh, s, s))
+
+
+def attention_no_tables_reference(q, k, v, h: int, w: int) -> torch.Tensor:
+    """Plain PyTorch softmax(QKᵀ/√D)·V for (B, S, H, D) q, k, v over an
+    h × w map of S tokens (h·w = S), with the kernel's cast points."""
+    if h * w != q.shape[1]:
+        raise ValueError(f"an {h} x {w} map is not {q.shape[1]} tokens")
+    return _attend(q, k, v)
 
 
 def window_partition(x: torch.Tensor, ws: int) -> Tuple[torch.Tensor, Tuple[int, int]]:
@@ -140,10 +170,9 @@ def window_unpartition(windows: torch.Tensor, ws: int, pad_hw: Tuple[int, int],
     return x[:, :h, :w, :].contiguous() if (hp > h or wp > w) else x
 
 
-def window_relpos_attention_reference(q, k, v, bias_k, bias_v, rel_pos_h, rel_pos_w,
-                                      window: int) -> torch.Tensor:
-    """`relpos_attention_reference` in each window × window window of the
-    (B, h, w, H, D) map q, k, v padded to multiples of `window`: q with
+def _in_windows(q, k, v, bias_k, bias_v, window: int, attend) -> torch.Tensor:
+    """`attend` on (B', window², H, D) q, k, v in each window × window window
+    of the (B, h, w, H, D) map padded to multiples of `window`: q with
     zeros, k and v with the (H, D) rows bias_k and bias_v; (B, h, w, H, D)
     out, the padded queries' rows cropped."""
     b, h, w, nh, d = q.shape
@@ -156,26 +185,50 @@ def window_relpos_attention_reference(q, k, v, bias_k, bias_v, rel_pos_h, rel_po
         return window_partition(full.reshape(b, hp, wp, nh * d), window)[0].reshape(
             -1, window * window, nh, d)
 
-    out = relpos_attention_reference(windows(q, None), windows(k, bias_k), windows(v, bias_v),
-                                     rel_pos_h, rel_pos_w)
+    out = attend(windows(q, None), windows(k, bias_k), windows(v, bias_v))
     out = window_unpartition(out.reshape(-1, window, window, nh * d), window, (hp, wp), (h, w))
     return out.reshape(b, h, w, nh, d)
 
 
-def _check_rows(**rows) -> None:
+def window_relpos_attention_reference(q, k, v, bias_k, bias_v, rel_pos_h, rel_pos_w,
+                                      window: int) -> torch.Tensor:
+    """`relpos_attention_reference` in each window × window window of the
+    (B, h, w, H, D) map q, k, v padded to multiples of `window` (`_in_windows`)."""
+    return _in_windows(q, k, v, bias_k, bias_v, window,
+                       lambda *qkv: relpos_attention_reference(*qkv, rel_pos_h, rel_pos_w))
+
+
+def window_attention_no_tables_reference(q, k, v, bias_k, bias_v, window: int) -> torch.Tensor:
+    """`attention_no_tables_reference` in each window × window window of the
+    (B, h, w, H, D) map q, k, v padded to multiples of `window` (`_in_windows`)."""
+    return _in_windows(q, k, v, bias_k, bias_v, window,
+                       lambda *qkv: attention_no_tables_reference(*qkv, window, window))
+
+
+def _check_rows(head_dim: int, **rows) -> None:
     """Raise unless each (name → tensor) is a contiguous, 16-byte aligned
-    table of rows of HEAD_DIM, which the kernel reads row by row."""
+    table of rows of `head_dim`, which the kernel reads row by row."""
     for name, t in rows.items():
-        if t.shape[-1] != HEAD_DIM or not t.is_contiguous() or t.data_ptr() % 16:
+        if t.shape[-1] != head_dim or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             f"({t.shape[0]}, {HEAD_DIM}) table")
+                             f"({t.shape[0]}, {head_dim}) table")
 
 
-def _check_cuda_args(q, k, v, rel_pos_h, rel_pos_w) -> None:
+def _check_cuda_args(q, k, v, rel_pos_h, rel_pos_w, sides=None) -> None:
+    """With tables: D = HEAD_DIM and tables of the map; without (None):
+    D = NO_TABLE_HEAD_DIM and `sides` (h, w) a map of S tokens."""
+    if rel_pos_h is None or rel_pos_w is None:
+        if rel_pos_h is not rel_pos_w:
+            raise ValueError("relpos_attention takes both tables or neither")
+        _build.check_heads("attention_no_tables", NO_TABLE_HEAD_DIM, q, k, v)
+        if sides[0] * sides[1] != q.shape[1]:
+            raise ValueError(f"an {sides[0]} x {sides[1]} map is not {q.shape[1]} tokens")
+        _build.refuse_grad("attention_no_tables", q, k, v)
+        return
     _build.check_heads("relpos_attention", HEAD_DIM, q, k, v, ("rel_pos_h", rel_pos_h),
                        ("rel_pos_w", rel_pos_w))
     map_sides(q.shape[1], rel_pos_h, rel_pos_w)
-    _check_rows(rel_pos_h=rel_pos_h, rel_pos_w=rel_pos_w)
+    _check_rows(HEAD_DIM, rel_pos_h=rel_pos_h, rel_pos_w=rel_pos_w)
     _build.refuse_grad("relpos_attention", q, k, v, rel_pos_h, rel_pos_w)
 
 
@@ -194,22 +247,31 @@ class RelposPlan:
     smem_bytes: int
 
 
-def relpos_plan(b: int, s: int, nh: int, h: int, w: int) -> RelposPlan:
-    """The cut for (B, S, H, 64) over an h × w map; raises for a map that
-    is neither 64 wide with at most 64 rows nor at most 32 × 32."""
+def _smem_bytes(groups: int, tables: bool) -> int:
+    """1024 bytes of alignment slack; Q, the K and V stages, with tables two
+    tiles a warpgroup of tables and terms; the small maps' key table; the
+    mbarriers (csrc/relpos_attention.cu smem_bytes)."""
+    tile_bytes = KEY_TILE * HEAD_DIM * 2
+    return (1024 + tile_bytes * ((3 if tables else 1) * groups + 2 * STAGES)
+            + 4 * MAX_SIDE * MAX_SIDE + 8 * (3 * STAGES + 1))
+
+
+def relpos_plan(b: int, s: int, nh: int, h: int, w: int, tables: bool = True) -> RelposPlan:
+    """The cut for (B, S, H, D) over an h × w map; raises for a map that
+    is neither 64 wide with at most 64 rows nor, with tables, at most
+    32 × 32 (without tables the row-tile mode alone is built)."""
     if w == ROW_SIDE and 1 <= h <= ROW_SIDE:
         row_tiles, groups = True, ROW_WARPGROUPS
-    elif 1 <= h <= MAX_SIDE and 1 <= w <= MAX_SIDE:
+    elif tables and 1 <= h <= MAX_SIDE and 1 <= w <= MAX_SIDE:
         row_tiles, groups = False, SMALL_WARPGROUPS
-    else:
+    elif tables:
         raise ValueError(f"the kernel takes maps {ROW_SIDE} wide with at most {ROW_SIDE} rows, "
                          f"or at most {MAX_SIDE} x {MAX_SIDE}; got {h} x {w}")
-    tile_bytes = KEY_TILE * HEAD_DIM * 2
-    # 1024 bytes of alignment slack; Q, the K and V stages, two tiles a
-    # warpgroup of tables and terms; the small maps' key table; mbarriers
-    smem = (1024 + tile_bytes * (3 * groups + 2 * STAGES) + 4 * MAX_SIDE * MAX_SIDE
-            + 8 * (3 * STAGES + 1))
-    return RelposPlan(row_tiles, groups, (-(-s // (groups * WARPGROUP_Q)), nh, b), smem)
+    else:
+        raise ValueError(f"without tables the kernel takes maps {ROW_SIDE} wide with at most "
+                         f"{ROW_SIDE} rows (its row-tile mode); got {h} x {w}")
+    return RelposPlan(row_tiles, groups, (-(-s // (groups * WARPGROUP_Q)), nh, b),
+                      _smem_bytes(groups, tables))
 
 
 def slot_pitch(cols: int) -> int:
@@ -228,52 +290,65 @@ def window_query_tiles(h: int, w: int, ws: int) -> int:
     return sum(-(-rh // rows(rw)) for rh in sides(h) for rw in sides(w))
 
 
-def window_plan(b: int, h: int, w: int, nh: int, ws: int) -> RelposPlan:
-    """The cut of a window-map call over (B, h, w, H, 64): the small-map
+def window_plan(b: int, h: int, w: int, nh: int, ws: int, tables: bool = True) -> RelposPlan:
+    """The cut of a window-map call over (B, h, w, H, D): the small-map
     mode's warpgroups and shared memory for one ws × ws window, and
     `window_query_tiles` blocks an (image, head)."""
     if not 1 <= ws <= MAX_SIDE:
         raise ValueError(f"the kernel takes windows of at most {MAX_SIDE} x {MAX_SIDE}; got {ws}")
-    plan = relpos_plan(b, ws * ws, nh, ws, ws)
-    return dataclasses.replace(plan, grid=(window_query_tiles(h, w, ws), nh, b))
+    return RelposPlan(False, SMALL_WARPGROUPS, (window_query_tiles(h, w, ws), nh, b),
+                      _smem_bytes(SMALL_WARPGROUPS, tables))
 
 
 def _check_window_args(q, k, v, bias_k, bias_v, rel_pos_h, rel_pos_w) -> None:
-    """As `_check_cuda_args`, for (B, h, w, H, 64) maps whose (h, w) merge
-    into one token stride (a view, or a refusal: never a copy), (H, 64)
-    bias rows and a window's two (2·ws − 1, 64) tables."""
+    """As `_check_cuda_args`, for (B, h, w, H, D) maps whose (h, w) merge
+    into one token stride (a view, or a refusal: never a copy), (H, D)
+    bias rows and a window's two (2·ws − 1, D) tables, D = HEAD_DIM; or no
+    tables (None) and D = NO_TABLE_HEAD_DIM."""
+    tables = rel_pos_h is not None and rel_pos_w is not None
+    if not tables and rel_pos_h is not rel_pos_w:
+        raise ValueError("window_relpos_attention takes both tables or neither")
+    op = "window_relpos_attention" if tables else "window_attention_no_tables"
     if q.dim() != 5:
-        raise ValueError(f"window_relpos_attention wants (B, h, w, H, D) maps, "
-                         f"got {tuple(q.shape)}")
+        raise ValueError(f"{op} wants (B, h, w, H, D) maps, got {tuple(q.shape)}")
     b, h, w, nh, d = q.shape
     heads = [t.view(b, h * w, nh, d) for t in (q, k, v)]
-    _build.check_heads("window_relpos_attention", HEAD_DIM, *heads, ("bias_k", bias_k),
-                       ("bias_v", bias_v), ("rel_pos_h", rel_pos_h), ("rel_pos_w", rel_pos_w))
+    named = (("rel_pos_h", rel_pos_h), ("rel_pos_w", rel_pos_w)) if tables else ()
+    _build.check_heads(op, HEAD_DIM if tables else NO_TABLE_HEAD_DIM, *heads, ("bias_k", bias_k),
+                       ("bias_v", bias_v), *named)
     if bias_k.shape != (nh, d) or bias_v.shape != (nh, d):
         raise ValueError(f"bias_k and bias_v must be ({nh}, {d}), got {tuple(bias_k.shape)} "
                          f"and {tuple(bias_v.shape)}")
-    if rel_pos_w.shape[0] != rel_pos_h.shape[0] or rel_pos_h.shape[0] % 2 == 0:
+    if tables and (rel_pos_w.shape[0] != rel_pos_h.shape[0] or rel_pos_h.shape[0] % 2 == 0):
         raise ValueError(f"tables {tuple(rel_pos_h.shape)} and {tuple(rel_pos_w.shape)} are "
                          f"not those of a square window")
-    _check_rows(bias_k=bias_k, bias_v=bias_v, rel_pos_h=rel_pos_h, rel_pos_w=rel_pos_w)
-    _build.refuse_grad("window_relpos_attention", q, k, v, bias_k, bias_v, rel_pos_h, rel_pos_w)
+    _check_rows(d, bias_k=bias_k, bias_v=bias_v, **dict(named))
+    _build.refuse_grad(op, q, k, v, bias_k, bias_v, *(t for _, t in named))
 
 
-def _launch(q, k, v, rel_pos_h, rel_pos_w, bias_k=None, bias_v=None) -> torch.Tensor:
+def _ptr(t):
+    """A tensor's address, or None (a null pointer) for an absent table."""
+    return None if t is None else t.data_ptr()
+
+
+def _launch(q, k, v, rel_pos_h, rel_pos_w, bias_k=None, bias_v=None,
+            sides=None) -> torch.Tensor:
     """The kernel on CUDA tensors: checks, the plan, one launch, the count.
-    With `bias_k` and `bias_v` q, k and v are a (B, h, w, H, 64) map
-    attended in the tables' windows (`window_relpos_attention`)."""
+    With `bias_k` and `bias_v` q, k and v are a (B, h, w, H, D) map
+    attended in windows (`window_relpos_attention`). Without tables (both
+    None) `sides` is the (h, w) of the map, or of a window."""
     if bias_k is not None:
-        return _launch_window(q, k, v, rel_pos_h, rel_pos_w, bias_k, bias_v)
-    _check_cuda_args(q, k, v, rel_pos_h, rel_pos_w)
+        return _launch_window(q, k, v, rel_pos_h, rel_pos_w, bias_k, bias_v, sides)
+    _check_cuda_args(q, k, v, rel_pos_h, rel_pos_w, sides)
     b, s, nh, d = q.shape
     out = torch.empty((b, s, nh, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    h, w = map_sides(s, rel_pos_h, rel_pos_w)
-    plan = relpos_plan(b, s, nh, h, w)  # raises for a map the kernel does not take
+    tables = rel_pos_h is not None
+    h, w = map_sides(s, rel_pos_h, rel_pos_w) if tables else sides
+    plan = relpos_plan(b, s, nh, h, w, tables)  # raises for a map the kernel does not take
     rc = _build.load().istpu_relpos_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_pos_h.data_ptr(), rel_pos_w.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rel_pos_h), _ptr(rel_pos_w),
         out.data_ptr(), b, s, nh, d, h, w, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         int(plan.row_tiles), plan.warpgroups, plan.grid[0], plan.smem_bytes,
         *_build.device_and_stream(q),
@@ -284,19 +359,20 @@ def _launch(q, k, v, rel_pos_h, rel_pos_w, bias_k=None, bias_v=None) -> torch.Te
     return out
 
 
-def _launch_window(q, k, v, rel_pos_h, rel_pos_w, bias_k, bias_v) -> torch.Tensor:
+def _launch_window(q, k, v, rel_pos_h, rel_pos_w, bias_k, bias_v, sides) -> torch.Tensor:
     _check_window_args(q, k, v, bias_k, bias_v, rel_pos_h, rel_pos_w)
     b, h, w, nh, d = q.shape
     out = torch.empty((b, h, w, nh, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    ws = (rel_pos_h.shape[0] + 1) // 2
-    plan = window_plan(b, h, w, nh, ws)
+    tables = rel_pos_h is not None
+    ws = (rel_pos_h.shape[0] + 1) // 2 if tables else sides[0]
+    plan = window_plan(b, h, w, nh, ws, tables)
     # (batch, token, head) strides; a map row is w tokens (the view checked above)
     strides = [s for t in (q, k, v) for s in (t.stride(0), t.stride(2), t.stride(3))]
     rc = _build.load().istpu_relpos_window_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_k.data_ptr(), bias_v.data_ptr(),
-        rel_pos_h.data_ptr(), rel_pos_w.data_ptr(), out.data_ptr(), b, h, w, nh, d, ws,
+        _ptr(rel_pos_h), _ptr(rel_pos_w), out.data_ptr(), b, h, w, nh, d, ws,
         *strides, plan.grid[0], plan.smem_bytes, *_build.device_and_stream(q))
     _build.check(rc, "window_relpos_attention launch")
     global LAUNCHES, WINDOW_MAP_LAUNCHES
@@ -316,6 +392,19 @@ window_relpos_attention_op, _route_window = _build.kernel_entry(
     fake=lambda q, *_: q.new_empty(q.shape),
     launcher=lambda q, k, v, bk, bv, rh, rw, window: _launch(q, k, v, rh, rw, bk, bv),
     launch_args=lambda q, k, v, bk, bv, rh, rw, window: (q, k, v, rh, rw, bk, bv))
+attention_no_tables_op, _route_no_tables = _build.kernel_entry(
+    "attention_no_tables", __name__, attention_no_tables_reference,
+    schema="(Tensor q, Tensor k, Tensor v, int h, int w) -> Tensor",
+    fake=lambda q, *_: q.new_empty(q.shape),
+    launcher=lambda q, k, v, h, w: _launch(q, k, v, None, None, sides=(h, w)),
+    launch_args=lambda q, k, v, h, w: (q, k, v, None, None, None, None, (h, w)))
+window_attention_no_tables_op, _route_window_no_tables = _build.kernel_entry(
+    "window_attention_no_tables", __name__, window_attention_no_tables_reference,
+    schema="(Tensor q, Tensor k, Tensor v, Tensor bias_k, Tensor bias_v, int window) -> Tensor",
+    fake=lambda q, *_: q.new_empty(q.shape),
+    launcher=lambda q, k, v, bk, bv, window: _launch(q, k, v, None, None, bk, bv,
+                                                     (window, window)),
+    launch_args=lambda q, k, v, bk, bv, window: (q, k, v, None, None, bk, bv, (window, window)))
 
 
 def relpos_attention(q, k, v, rel_pos_h, rel_pos_w) -> torch.Tensor:
@@ -337,3 +426,18 @@ def window_relpos_attention(q, k, v, bias_k, bias_v, rel_pos_h, rel_pos_w,
         raise ValueError(f"tables {tuple(rel_pos_h.shape)} and {tuple(rel_pos_w.shape)} are not "
                          f"those of a {window} x {window} window")
     return _route_window(q, k, v, bias_k, bias_v, rel_pos_h, rel_pos_w, window)
+
+
+def attention_no_tables(q, k, v, h: int, w: int) -> torch.Tensor:
+    """softmax(QKᵀ/√D)·V for (B, S, H, D) q, k, v over an h × w map of S
+    tokens, K5 without tables: on a card D = 56 and a map 64 wide (the
+    row-tile mode); returns (B, S, H, D) in q's dtype."""
+    return _route_no_tables(q, k, v, h, w)
+
+
+def window_attention_no_tables(q, k, v, bias_k, bias_v, window: int) -> torch.Tensor:
+    """softmax(QKᵀ/√D)·V inside each window × window window of the
+    (B, h, w, H, D) map q, k, v, padded to multiples of `window` with keys
+    and values bias_k and bias_v (H, D), as `window_relpos_attention` with
+    no tables: on a card D = 56. Returns (B, h, w, H, D) in q's dtype."""
+    return _route_window_no_tables(q, k, v, bias_k, bias_v, window)

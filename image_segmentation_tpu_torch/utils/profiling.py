@@ -43,6 +43,12 @@ replayed) and `train.eager_micro_batches` (micro-batches run eagerly);
 models/sam.py counts its encoder's attention calls by kind and the padded
 tokens its windows add, and opens `sam.image_encoder`,
 `sam.prompt_encoder` and `sam.mask_decoder` spans in its forward.
+models/sam2.py opens the same three; inside `sam.image_encoder`,
+models/hiera.py opens `sam.hiera_stage1` to `sam.hiera_stage4` and
+`sam.neck`, and counts its blocks' attention by kind
+(`sam.window_attention` on K5's window map, `sam.global_attention`,
+`sam.plain_window_attention` for the small windows on SDPA,
+`sam.pooled_attention`) and `sam.window_pad_tokens`.
 
 Not ported: `enable_compilation_cache` (an XLA cache; nothing here
 compiles per program); `StepTimer` (:96; nothing read it, and a

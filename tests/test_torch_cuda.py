@@ -353,6 +353,117 @@ def test_sam_windowed_blocks_run_the_window_map(cuda):
         _close(block(x), plain(x))
 
 
+def _no_table_args(b, h, w, nh, device, seed=0):
+    """q, k, v of an unpadded h x w map, (B, h, w, nh, 56) views of one qkv
+    projection as Hiera's blocks hand them to K5, and the bias rows of its
+    k and v thirds."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, h, w, 3, nh, 56, generator=g).to(device).bfloat16()
+    bias = torch.randn(3, nh, 56, generator=g).to(device).bfloat16()
+    return (*qkv.unbind(3), bias[1], bias[2])
+
+
+# Hiera-B+'s K5 shapes at micro-batch 8 (stage 1's 256 x 256 map in windows
+# of 8 with 2 heads, stage 3's 64 x 64 in windows of 14 with 8, stage 4's
+# 32 x 32 in windows of 7 with 16), and a map whose windows of 7 cover it
+# unevenly (20 x 18).
+@pytest.mark.parametrize("b,h,w,nh,ws", [(8, 256, 256, 2, 8), (8, 64, 64, 8, 14),
+                                         (8, 32, 32, 16, 7), (2, 20, 18, 4, 7)])
+def test_window_attention_no_tables_kernel(cuda, b, h, w, nh, ws):
+    """K5's window map without tables at head dim 56 against its plain
+    version (pad with the bias rows, partition, softmax attention, crop),
+    within two bf16 steps; 56 columns written; the same bits over two calls."""
+    args = (*_no_table_args(b, h, w, nh, cuda), ws)
+    assert not args[0].is_contiguous()
+    before = K5.LAUNCHES, K5.WINDOW_MAP_LAUNCHES
+    got = K5.window_attention_no_tables(*args)
+    torch.cuda.synchronize()
+    assert (K5.LAUNCHES - before[0], K5.WINDOW_MAP_LAUNCHES - before[1]) == (1, 1)
+    assert got.shape == (b, h, w, nh, 56) and got.dtype == torch.bfloat16 and got.is_contiguous()
+    _close(got, K5.window_attention_no_tables_reference(*args))
+    assert torch.equal(got, K5.window_attention_no_tables(*args))
+
+
+def test_attention_no_tables_kernel_global_map(cuda):
+    """Hiera-B+'s global blocks: 8 heads over the 64 x 64 map, K5's row-tile
+    mode without tables, against its plain version and torch's SDPA."""
+    q, k, v, _, _ = _no_table_args(2, 64, 64, 8, cuda)
+    q, k, v = (t.flatten(1, 2) for t in (q, k, v))
+    before = K5.LAUNCHES, K5.WINDOW_MAP_LAUNCHES
+    got = K5.attention_no_tables(q, k, v, 64, 64)
+    torch.cuda.synchronize()
+    assert (K5.LAUNCHES - before[0], K5.WINDOW_MAP_LAUNCHES - before[1]) == (1, 0)
+    assert got.shape == (2, 4096, 8, 56)
+    _close(got, K5.attention_no_tables_reference(q, k, v, 64, 64))
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+    _close(got, sdpa)
+
+
+def test_no_table_entries_refuse_other_shapes(cuda):
+    """A head dim other than 56 without tables, 56 with tables, rows of
+    another width, a map the row-tile mode does not take, and grad: each
+    refused with a message, nothing launched."""
+    q, k, v, bk, bv = _no_table_args(1, 20, 18, 4, cuda)
+    before = K5.LAUNCHES
+    wide = [t.new_zeros(t.shape[:-1] + (64,)) for t in (q, k, v)]
+    with pytest.raises(ValueError, match="head dim 56"):
+        K5.window_attention_no_tables(*wide, bk.new_zeros(4, 64), bv.new_zeros(4, 64), 7)
+    with pytest.raises(ValueError, match="bias_k and bias_v"):
+        K5.window_attention_no_tables(q, k, v, bk[:, :48], bv, 7)
+    table = torch.zeros(13, 56, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 64"):
+        K5.window_relpos_attention(q, k, v, bk, bv, table, table, 7)
+    flat = [t.flatten(1, 2) for t in (q, k, v)]
+    with pytest.raises(ValueError, match="row-tile"):
+        K5.attention_no_tables(*flat, 20, 18)
+    with pytest.raises(ValueError, match="head dim 64"):
+        K5.relpos_attention(*[t[:, :16] for t in flat], table[:7], table[:7])
+    with pytest.raises(RuntimeError, match="no backward"):
+        K5.window_attention_no_tables(q, k, v, bk.clone().requires_grad_(True), bv, 7)
+    assert K5.LAUNCHES == before
+
+
+def test_sam2_runs_k5_in_19_blocks(cuda):
+    """A Sam2HieraBPlus forward (1024 px, bf16, kernels on, random qkv
+    biases) runs K5 19 times, 16 on the window map, and SDPA in the other
+    five blocks; the kernel path's windowed and global blocks agree with
+    the plain path's (pad, partition, K5's plain version, crop)."""
+    from image_segmentation_tpu_torch.models import sam2
+    from image_segmentation_tpu_torch.utils import profiling
+
+    model = sam2.Sam2HieraBPlus(dtype=torch.bfloat16, use_kernels=True).init_weights(
+        torch.Generator().manual_seed(0)).to(cuda).eval()
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for block in model.image_encoder.trunk.blocks:
+            block.attn.qkv.bias.copy_(0.1 * torch.randn(block.attn.qkv.bias.shape, generator=g))
+    images = torch.rand(1, 1024, 1024, 3, generator=g).to(cuda)
+    clicks = torch.tensor([[[512.0, 512.0, 1.0]]], device=cuda)
+    before = K5.LAUNCHES, K5.WINDOW_MAP_LAUNCHES
+    with profiling.record_spans() as log, torch.no_grad():
+        masks, iou = model(images, clicks)
+    torch.cuda.synchronize()
+    assert (K5.LAUNCHES - before[0], K5.WINDOW_MAP_LAUNCHES - before[1]) == (19, 16)
+    assert masks.shape == (1, 3, 256, 256) and torch.isfinite(masks).all()
+    assert ((iou > 0) & (iou < 1)).all()
+    assert {k: log.counts[k] for k in ("sam.window_attention", "sam.global_attention",
+                                       "sam.plain_window_attention", "sam.pooled_attention")} \
+        == {"sam.window_attention": 16, "sam.global_attention": 3,
+            "sam.plain_window_attention": 2, "sam.pooled_attention": 3}
+    blocks = model.image_encoder.trunk.blocks
+    for i, side in ((0, 256), (6, 64), (12, 64), (22, 32)):
+        block = blocks[i]
+        x = (0.5 * torch.randn(2, side, side, block.norm1.normalized_shape[0],
+                               generator=g)).to(cuda).bfloat16()
+        with torch.no_grad():
+            got = block(x)
+            block.use_kernels = False
+            want = block(x)
+            block.use_kernels = True
+        _close(got, want)
+
+
 # K4's tensor-parallel entry at ViT-B/16's F / 2 (one request, the largest
 # bucket), a ragged token count, and an F a multiple of 64 only.
 @pytest.mark.parametrize("m,h,f", [(197, 768, 1536), (1576, 768, 1536), (333, 768, 1536),

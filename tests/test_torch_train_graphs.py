@@ -566,6 +566,40 @@ def test_sam_is_graphed_and_replays_credit_the_window_map(cuda):
         torch.testing.assert_close(lg, losses, rtol=REL, atol=0)
 
 
+@pytest.mark.cuda
+def test_sam2_replays_credit_152_k5_launches_a_step(cuda):
+    """Sam2HieraBPlus at full size (1024 px, bf16, kernels on), 8 micro-batches
+    of one image a step, replays graphs: the micro-batch losses as the eager
+    twin's, and K5 credited as eager counts it, 19 calls a micro-batch (152
+    a step), 16 of them on the window map (128 a step)."""
+    from image_segmentation_tpu_torch.losses import SamLoss
+    from image_segmentation_tpu_torch.models import sam2
+    from image_segmentation_tpu_torch.ops.kernels import relpos_attention as K5
+    from image_segmentation_tpu_torch.train.state import freeze_, trainable_parameters
+
+    def state():
+        model = sam2.Sam2HieraBPlus(dtype=torch.bfloat16, use_kernels=True).init_weights(
+            torch.Generator().manual_seed(0)).to(cuda)
+        freeze_(model, ("image_encoder",))
+        opt, _ = make_adamw(trainable_parameters(model, ("image_encoder",)), 8e-4, 0.1)
+        return TrainState(model, opt)
+
+    g, e = state(), _keep_eager(state())
+    x, y = _rows(8, side=1024, device=cuda)
+    clicks = torch.tensor([[[300.0, 700.0, 1.0]]], device=cuda).expand(8, 1, 3).contiguous()
+    for s in range(2):
+        launched = []
+        for st, want in ((g, ((1 if s == 0 else 0), 8, 0)), (e, (0, 0, 8))):
+            before = K5.LAUNCHES, K5.WINDOW_MAP_LAUNCHES
+            losses, counts = _stepper(st, SamLoss(), 8)((x, clicks), y)
+            assert counts == want
+            launched.append((K5.LAUNCHES - before[0], K5.WINDOW_MAP_LAUNCHES - before[1]))
+            if st is g:
+                lg = losses
+        assert launched == [(152, 128)] * 2
+        torch.testing.assert_close(lg, losses, rtol=REL, atol=0)
+
+
 from torch_spawn import spawn  # noqa: E402
 
 if __name__ == "__main__":

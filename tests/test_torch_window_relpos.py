@@ -212,3 +212,91 @@ def test_windowed_block_hands_k5_the_bias_rows_in_the_compute_dtype(monkeypatch)
     assert seen["q"].untyped_storage().data_ptr() == seen["k"].untyped_storage().data_ptr()
     assert torch.equal(seen["bias_k"].flatten(), bias[c:2 * c])
     assert torch.equal(seen["bias_v"].flatten(), bias[2 * c:])
+
+
+# -- K5 without tables (SAM 2's Hiera) ----------------------------------------------
+
+def _softmax_attention(q, k, v):
+    """softmax(q·kᵀ/√d)·v over (B, S, H, D), written out."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+    return torch.einsum("bhqk,bkhd->bqhd", logits.softmax(-1), v)
+
+
+def _no_table_route(y, qkv, nh, ws):
+    """Hiera's own order: zero pad → qkv over the padded map → windows →
+    softmax attention → unpartition → crop."""
+    b, h, w, c = y.shape
+    win, pad_hw = K5.window_partition(y, ws)
+    q, k, v = F.linear(win, qkv.weight, qkv.bias).view(
+        win.shape[0], ws * ws, 3, nh, c // nh).unbind(2)
+    out = _softmax_attention(q, k, v)
+    return K5.window_unpartition(out.reshape(-1, ws, ws, c), ws, pad_hw, (h, w))
+
+
+# Hiera-B+'s windows of 8 (a map they tile), 14 and 7 (maps they pad), at
+# head dim 56
+@pytest.mark.parametrize("h,w,ws", [(16, 16, 8), (20, 18, 14), (10, 9, 7)])
+def test_no_table_window_entry_is_softmax_attention_in_padded_windows(h, w, ws):
+    y, qkv, _ = _map(2, h, w, nh=2, d=56)
+    b, c = 2, 112
+    with torch.no_grad():
+        q, k, v = F.linear(y, qkv.weight, qkv.bias).view(b, h, w, 3, 2, 56).unbind(3)
+        bias = qkv.bias.view(3, 2, 56)
+        got = K5.window_attention_no_tables(q, k, v, bias[1], bias[2], ws)
+        want = _no_table_route(y, qkv, 2, ws)
+        assert torch.equal(K5.window_attention_no_tables_op(q, k, v, bias[1], bias[2], ws), got)
+    assert got.shape == (b, h, w, 2, 56)
+    torch.testing.assert_close(got.reshape(b, h, w, c), want, rtol=1e-5, atol=1e-5)
+
+
+def test_no_table_global_entry_is_softmax_attention():
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((2, 12 * 10, 4, 56), generator=g) for _ in range(3))
+    got = K5.attention_no_tables(q, k, v, 12, 10)
+    torch.testing.assert_close(got, _softmax_attention(q, k, v), rtol=1e-5, atol=1e-5)
+    assert torch.equal(K5.attention_no_tables_op(q, k, v, 12, 10), got)
+    with pytest.raises(ValueError, match="tokens"):
+        K5.attention_no_tables(q, k, v, 12, 12)
+
+
+def test_no_table_checks_refuse_other_head_dims_and_tables():
+    """The checks a CUDA call makes, run on CPU tensors: no tables takes
+    head dim 56 and bias rows of 56; tables take 64; one table alone, a
+    map the row-tile mode does not take, and grad are refused."""
+    qkv = torch.zeros((1, 4, 4, 3, 2, 56), dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(3)
+    bias = torch.zeros((2, 56), dtype=torch.bfloat16)
+    K5._check_window_args(q, k, v, bias, bias, None, None)
+    K5._check_cuda_args(*(t.flatten(1, 2) for t in (q, k, v)), None, None, (4, 4))
+    wide = torch.zeros((1, 4, 4, 3, 2, 64), dtype=torch.bfloat16).unbind(3)
+    with pytest.raises(ValueError, match="window_attention_no_tables: .*head dim 56"):
+        K5._check_window_args(*wide, bias, bias, None, None)
+    with pytest.raises(ValueError, match="attention_no_tables: .*head dim 56"):
+        K5._check_cuda_args(*(t.flatten(1, 2) for t in wide), None, None, (4, 4))
+    table = torch.zeros((7, 56), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="relpos_attention: .*head dim 64"):
+        K5._check_window_args(q, k, v, bias, bias, table, table)
+    with pytest.raises(ValueError, match="both tables or neither"):
+        K5._check_window_args(q, k, v, bias, bias, table, None)
+    with pytest.raises(ValueError, match="\\(2, 56\\) table"):
+        K5._check_window_args(q, k, v, torch.zeros((2, 64), dtype=torch.bfloat16)[:, :56],
+                              bias, None, None)
+    with pytest.raises(ValueError, match="tokens"):
+        K5._check_cuda_args(*(t.flatten(1, 2) for t in (q, k, v)), None, None, (4, 5))
+    with pytest.raises(ValueError, match="row-tile"):
+        K5.relpos_plan(1, 16, 2, 4, 4, tables=False)
+    with pytest.raises(RuntimeError, match="no backward"):
+        K5._check_window_args(q, k, v, bias.clone().requires_grad_(True), bias, None, None)
+
+
+def test_no_table_plans_leave_out_the_tables_shared_memory():
+    """Without tables a block holds no table or term tiles (two 8 KB tiles
+    a warpgroup less); the window map's blocks are the same either way."""
+    tile = 64 * 64 * 2
+    for plan, tabled in ((K5.relpos_plan(8, 4096, 8, 64, 64, tables=False),
+                          K5.relpos_plan(8, 4096, 8, 64, 64)),
+                         (K5.window_plan(8, 64, 64, 8, 14, tables=False),
+                          K5.window_plan(8, 64, 64, 8, 14))):
+        assert plan.grid == tabled.grid and plan.row_tiles == tabled.row_tiles
+        assert tabled.smem_bytes - plan.smem_bytes == 2 * plan.warpgroups * tile
+    assert K5.window_plan(8, 256, 256, 2, 8, tables=False).grid == (32 * 32, 2, 8)
