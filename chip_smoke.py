@@ -34,8 +34,12 @@ Phases (each prints its lines; any failure ends the run non-zero):
      32,768 tokens with both GELUs; one SamViTB forward at micro-batch 8
      (1024 px) launches each 12 times, K4 all 12 on v3; then K5 without
      tables at SAM 2.1 Hiera-B+'s shapes (`phase_hiera_kernels`) against
-     its plain versions, timed beside their bounds, and one Sam2HieraBPlus
-     forward at micro-batch 8 launches K5 19 times, 16 on the window map;
+     its plain versions, timed beside their bounds, K4 v3 with the exact
+     GELU at Hiera's four MLPs (`phase_hiera_mlp`) against its plain
+     version, beside its bound and the LayerNorm -> cuBLAS fc1 -> GELU ->
+     cuBLAS fc2 -> add chain, and one Sam2HieraBPlus forward at
+     micro-batch 8 launches K5 19 times, 16 on the window map, and K4 24
+     times, all v3;
   4. serving, clip family: a full-width ClipUNet (ViT-B/16 widths, seeded
      random weights, bf16, kernels on) registered in the port's
      InferenceEngine serves host images of several sizes; the launch
@@ -644,6 +648,10 @@ SAM_K5_CASES = ((200, 14, 14), (8, 64, 64))
 HIERA_K5_CASES = ((8, 256, 256, 2, 8), (8, 64, 64, 8, 14), (8, 64, 64, 8, 0),
                   (8, 32, 32, 16, 7), (2, 20, 18, 4, 7))
 SAM_MLP_TOKENS = 8 * 4096
+# SAM 2.1 Hiera-B+'s MLPs at micro-batch 8 as (H, F, tokens, blocks): the
+# four stages' widths on the 256², 128², 64² and 32² maps of 8 images
+HIERA_MLP_CASES = ((112, 448, 8 * 256 * 256, 2), (224, 896, 8 * 128 * 128, 3),
+                   (448, 1792, 8 * 64 * 64, 16), (896, 3584, 8 * 32 * 32, 3))
 
 
 def relpos_bound(bp: int, h: int, w: int, heads: int = 12, d: int = 64):
@@ -661,14 +669,82 @@ def no_table_bound(tokens: int, keys: int, heads: int, d: int = 56):
     return _bound(2 * 4 * tokens * heads * d, 4 * tokens * keys * heads * d)
 
 
+def phase_hiera_mlp(card: str) -> dict:
+    """K4 (v3, the exact GELU, eps 1e-6) at SAM 2.1 Hiera-B+'s four MLPs
+    (HIERA_MLP_CASES) against its plain version; its device ms by kernel
+    beside the bound in bytes (x read and out written, the weights, in
+    bf16; LN parameters and biases in f32) and in operations (fc1 and fc2),
+    the plain version's device ms, and as `library_ms` the chain a Hiera
+    block ran before K4 took it: torch's bf16 LayerNorm -> cuBLAS fc1 ->
+    exact GELU -> cuBLAS fc2 -> residual add, weights and biases in bf16.
+    Each row's ms are also summed over a step (blocks x 8 micro-batches).
+    Returns the rows by (H, F, tokens)."""
+    import torch.nn.functional as F
+
+    from image_segmentation_tpu_torch.ops.kernels import mlp as M
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    rows, step = {}, {"k4": 0.0, "library": 0.0, "bound": 0.0}
+    for h, f, m, blocks in HIERA_MLP_CASES:
+        x = (0.5 * rnd(1, m, h)).bfloat16()
+        ln_w, ln_b = 1.0 + 0.1 * rnd(h), 0.1 * rnd(h)
+        w1, b1 = (0.03 * rnd(f, h)).bfloat16(), 0.1 * rnd(f)
+        w2, b2 = (0.03 * rnd(h, f)).bfloat16(), 0.1 * rnd(h)
+        args = (x, ln_w, ln_b, w1, b1, w2, b2, 1e-6)
+        before = M.MANY_TOKEN_LAUNCHES
+        got = M.fused_mlp(*args, activation="gelu")
+        torch.cuda.synchronize()
+        if M.MANY_TOKEN_LAUNCHES != before + 1:
+            raise AssertionError(f"K4 at H {h} did not run v3")
+        name = f"mlp exact GELU tokens={m} {h}->{f}->{h} eps 1e-6 (v3)"
+        err = _compare(name, got, M.mlp_reference(*args, activation="gelu"))
+        if not torch.equal(got, M.fused_mlp(*args, activation="gelu")):
+            raise AssertionError(f"{name}: two calls gave different bits")
+        del got
+        lw, lb, bb1, bb2 = (t.bfloat16() for t in (ln_w, ln_b, b1, b2))
+
+        def chain():
+            y = F.linear(F.layer_norm(x, (h,), lw, lb, 1e-6), w1, bb1)
+            return x + F.linear(F.gelu(y), w2, bb2)
+
+        kernel = lambda: M.fused_mlp(*args, activation="gelu")  # noqa: E731
+        split = _device_profile(kernel)
+        by_bytes = (2 * m * h * 2 + 2 * f * h * 2 + (3 * h + f) * 4) / HBM_BYTES_PER_S * 1e3
+        by_ops = 4 * m * h * f / BF16_FLOP_PER_S * 1e3
+        row = {"device_ms": sum(split.values()),
+               "by_kernel": {_short(k): v for k, v in split.items()},
+               "bound_bytes_ms": by_bytes, "bound_ops_ms": by_ops,
+               "plain_ms": _device_ms(lambda: M.mlp_reference(*args, activation="gelu"), iters=5),
+               "library_ms": _device_ms(chain), "max_abs_err": err}
+        rows[f"{h}x{f}x{m}"] = row
+        bound = max(by_bytes, by_ops)
+        for key, ms in (("k4", row["device_ms"]), ("library", row["library_ms"]),
+                        ("bound", bound)):
+            step[key] += ms * blocks * 8
+        print(f"[kernels] {name}: device {row['device_ms']:.4f} ms ("
+              + ", ".join(f"{k} {t:.4f}" for k, t in row["by_kernel"].items())
+              + f"); bound {by_bytes:.5f} ms (bytes), {by_ops:.5f} ms (operations); bound / "
+              f"device {bound / row['device_ms']:.1%}; plain device {row['plain_ms']:.4f} ms; "
+              f"LN-fc1-GELU-fc2-add chain device {row['library_ms']:.4f} ms (20 calls, warm L2; "
+              f"{card})")
+        del x, args
+        torch.cuda.empty_cache()
+    print(f"[kernels] Hiera-B+'s 24 MLPs a step (8 micro-batches of 8): K4 {step['k4']:.2f} ms, "
+          f"the chain {step['library']:.2f} ms, bound {step['bound']:.2f} ms ({card})")
+    return {"rows": rows, "step_ms": step}
+
+
 def phase_hiera_kernels(card: str) -> dict:
     """K5 without tables at SAM 2.1 Hiera-B+'s shapes (HIERA_K5_CASES) against
-    its plain versions, each timed beside its bound; then one
-    Sam2HieraBPlus forward at micro-batch 8 (1024 px, seeded random
-    weights, bf16, kernels on) must launch K5 19 times, 16 on the window
-    map. Returns the rows by shape and the forward's (K5, window map)
+    its plain versions, each timed beside its bound; K4 at its MLPs
+    (`phase_hiera_mlp`); then one Sam2HieraBPlus forward at micro-batch 8
+    (1024 px, seeded random weights, bf16, kernels on) must launch K5 19
+    times, 16 on the window map, and K4 24 times, all v3. Returns the rows
+    by shape, K4's, and the forward's (K5, window map, K4, K4 v3)
     launches."""
     from image_segmentation_tpu_torch.models import sam2
+    from image_segmentation_tpu_torch.ops.kernels import mlp as M
     from image_segmentation_tpu_torch.ops.kernels import relpos_attention as R
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -697,26 +773,30 @@ def phase_hiera_kernels(card: str) -> dict:
         print(f"[kernels] {name}: device {ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}); "
               f"bound / device {bound_ms / ms:.1%} (20 calls, warm L2; {card})")
         del q, k, v, args, got
+    mlp = phase_hiera_mlp(card)
     model = sam2.Sam2HieraBPlus(dtype=torch.bfloat16, use_kernels=True).init_weights(
         torch.Generator().manual_seed(0)).to("cuda").eval()
     images = torch.rand(8, 1024, 1024, 3, generator=g, device="cuda")
     clicks = torch.tensor([[[512.0, 512.0, 1.0]]], device="cuda").expand(8, 1, 3)
-    before = (R.LAUNCHES, R.WINDOW_MAP_LAUNCHES)
+    before = (R.LAUNCHES, R.WINDOW_MAP_LAUNCHES, M.LAUNCHES, M.MANY_TOKEN_LAUNCHES)
     with torch.no_grad():
         masks, iou = model(images, clicks)
     torch.cuda.synchronize()
-    launches = (R.LAUNCHES - before[0], R.WINDOW_MAP_LAUNCHES - before[1])
+    launches = (R.LAUNCHES - before[0], R.WINDOW_MAP_LAUNCHES - before[1],
+                M.LAUNCHES - before[2], M.MANY_TOKEN_LAUNCHES - before[3])
     fwd_ms = _device_ms(lambda: model(images, clicks), iters=3, warmup=1)
     print(f"[kernels] Sam2HieraBPlus forward at micro-batch 8: K5 {launches[0]} launches, "
           f"{launches[1]} of them on the window map (24 blocks: 16 windowed on K5, 3 global, "
-          f"2 small-window and 3 pooled on SDPA); device {fwd_ms:.2f} ms; masks "
-          f"{tuple(masks.shape)} finite {bool(torch.isfinite(masks).all())} ({card})")
-    if launches != (19, 16) or not torch.isfinite(masks).all():
-        raise AssertionError(f"Sam2HieraBPlus forward: K5 launches {launches}, want (19, 16), "
-                             f"or non-finite masks")
+          f"2 small-window and 3 pooled on SDPA); K4 {launches[2]}, {launches[3]} of them v3; "
+          f"device {fwd_ms:.2f} ms; masks {tuple(masks.shape)} finite "
+          f"{bool(torch.isfinite(masks).all())} ({card})")
+    if launches != (19, 16, 24, 24) or not torch.isfinite(masks).all():
+        raise AssertionError(f"Sam2HieraBPlus forward: K5, window map, K4, K4 v3 launches "
+                             f"{launches}, want (19, 16, 24, 24), or non-finite masks")
     del model, images, masks
     torch.cuda.empty_cache()
-    return {"rows": rows, "forward_launches": launches, "forward_device_ms": fwd_ms}
+    return {"rows": rows, "mlp": mlp, "forward_launches": launches,
+            "forward_device_ms": fwd_ms}
 
 
 # K4 v3 against v2 at H 768, F 3,072, both GELUs: the sweep behind the

@@ -65,6 +65,18 @@
 // products both slow, so fc1 with the erf epilogue (30 instructions an
 // element) is bound by the two sharing an SM, and fc2 by the products
 // and the loads together (PERF.md §6). Its outputs equal v2's bit for bit.
+// v3 also takes SAM 2 Hiera-B+'s four widths, H 112, 224, 448 and 896 with
+// F = 4H, which v2 does not build (mlp.py sends them to v3 at every token
+// count). Their edges are ragged against v3's tiles: fc1's K = H is not a
+// multiple of the 64-wide chunk at 112 and 224, so TMA fills the last
+// chunk's columns past H with zeros in both xn and W1; fc2's N = H is not a
+// multiple of the 128-wide tile at 112, 224 and 448 (nor fc1's N = F at
+// 448), so the epilogue reads no bias past N and the TMA store clips there.
+// At 112 a row is 14 sixteen-byte vectors, so the LayerNorm pass puts two
+// rows on a warp and loads a few row groups before it normalises any,
+// keeping as many bytes in flight as at 768. In stage 1 (65,536 tokens an
+// image at 112) the MLP is bound by its bytes, 14.7 MB of x an image against
+// 0.2 MB of weights, and fc1 by its erf epilogue (PERF.md §6).
 // The tensor-parallel entry (istpu_mlp_partial_bf16) runs the same two
 // stages on one model rank's F/T columns of fc1 and rows of fc2 and stops
 // at the f32 sum: fc2 writes its f32 partials (into the output itself when
@@ -120,11 +132,13 @@ __device__ __forceinline__ float gelu(float h) {
   return A == kErfGelu ? erf_gelu(h) : quick_gelu(h);
 }
 
-// LayerNorm of a row of H spread over a warp: lane l owns the 16-byte
-// vectors l + 32 u of the row (columns 8 (l + 32 u) .. +7).
-template <int H>
+// LayerNorm of a row of H spread over L lanes of a warp (the whole warp,
+// or 16 lanes where v3's LayerNorm pass puts two narrow rows side by side):
+// lane l of the row's group owns the 16-byte vectors l + L u of the row
+// (columns 8 (l + L u) .. +7).
+template <int H, int L = 32>
 __host__ __device__ constexpr int ln_per_lane() {
-  return (H / 8 + 31) / 32;
+  return (H / 8 + L - 1) / L;
 }
 
 // This lane's LayerNorm weights and biases (columns past the row clamped).
@@ -143,15 +157,17 @@ __device__ __forceinline__ void ln_params(const float* __restrict__ ln_w,
     }
 }
 
-// One row: v holds this lane's raw values (zeros past the row). Two-pass
-// f32 statistics over the row, then (x - mu) * rstd * ln_w + ln_b rounded
-// to bf16, vector u into out[u] (meaningless past the row).
-template <int H>
-__device__ __forceinline__ void ln_row(const float (&v)[ln_per_lane<H>()][8],
-                                       const float (&lw)[ln_per_lane<H>()][8],
-                                       const float (&lb)[ln_per_lane<H>()][8], float eps,
-                                       int lane, uint4 (&out)[ln_per_lane<H>()]) {
-  constexpr int kVecs = H / 8, kPerLane = ln_per_lane<H>();
+// One row over a group of L lanes, `lane` this lane's place in it: v holds
+// this lane's raw values (zeros past the row). Two-pass f32 statistics
+// over the row, then (x - mu) * rstd * ln_w + ln_b rounded to bf16,
+// vector u into out[u] (meaningless past the row). Every lane of the warp
+// calls it together (the sums shuffle across the whole warp).
+template <int H, int L = 32>
+__device__ __forceinline__ void ln_row(const float (&v)[ln_per_lane<H, L>()][8],
+                                       const float (&lw)[ln_per_lane<H, L>()][8],
+                                       const float (&lb)[ln_per_lane<H, L>()][8], float eps,
+                                       int lane, uint4 (&out)[ln_per_lane<H, L>()]) {
+  constexpr int kVecs = H / 8, kPerLane = ln_per_lane<H, L>();
   float part[kPerLane];
 #pragma unroll
   for (int u = 0; u < kPerLane; ++u)
@@ -160,19 +176,19 @@ __device__ __forceinline__ void ln_row(const float (&v)[ln_per_lane<H>()][8],
   float sum = 0.f;
 #pragma unroll
   for (int u = 0; u < kPerLane; ++u) sum += part[u];
-  const float mu = warp_sum(sum) / H;
+  const float mu = warp_sum<L>(sum) / H;
 #pragma unroll
   for (int u = 0; u < kPerLane; ++u) {
     float d[8];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) d[q] = lane + 32 * u < kVecs ? v[u][q] - mu : 0.f;
+    for (int q = 0; q < 8; ++q) d[q] = lane + L * u < kVecs ? v[u][q] - mu : 0.f;
     part[u] = ((d[0] * d[0] + d[1] * d[1]) + (d[2] * d[2] + d[3] * d[3])) +
               ((d[4] * d[4] + d[5] * d[5]) + (d[6] * d[6] + d[7] * d[7]));
   }
   float ss = 0.f;
 #pragma unroll
   for (int u = 0; u < kPerLane; ++u) ss += part[u];
-  const float rstd = rsqrtf(warp_sum(ss) / H + eps);
+  const float rstd = rsqrtf(warp_sum<L>(ss) / H + eps);
 #pragma unroll
   for (int u = 0; u < kPerLane; ++u) {
     uint32_t* pw = reinterpret_cast<uint32_t*>(&out[u]);
@@ -473,57 +489,85 @@ __global__ void mlp_reduce_raw_kernel(const float* __restrict__ partial, int spl
 
 // ---- v3: many tokens --------------------------------------------------------
 
-// x's LayerNorm written once, in bf16, for v3's fc1 to read by TMA: warp w
-// of a block normalises rows 8 blockIdx.x + w, then every 8 gridDim.x on;
-// the arithmetic is v2's (ln_row), so the bits are v2's A operand. The
-// LayerNorm parameters sit in shared memory and are read again for every
-// row, so a thread holds little besides its row and the SM keeps enough
-// warps to have the bytes of many rows in flight.
+// x's LayerNorm written once, in bf16, for v3's fc1 to read by TMA; the
+// arithmetic is v2's (ln_row), so the bits are v2's A operand. A row spans
+// ln_lanes<H>() lanes: the warp, or 16 lanes at H <= 128, so that Hiera's
+// 14-vector rows of 112 go two a warp. A warp loads ln_depth<H>() such row
+// groups before it normalises any, about 2 KB of rows in flight however
+// narrow they are (one row of 768; eight of 112), since the pass is bound by
+// HBM. Warp w of a block takes the ln_rows<H>() rows from
+// (8 blockIdx.x + w) ln_rows<H>(), then every 8 gridDim.x ln_rows<H>() on.
+// The LayerNorm parameters sit in shared memory and are read again for every
+// row group, so a thread holds little besides its rows and the SM keeps
+// enough warps to have the bytes of many rows in flight.
+template <int H>
+__host__ __device__ constexpr int ln_lanes() {
+  return H / 8 <= 16 ? 16 : 32;
+}
+template <int H>
+__host__ __device__ constexpr int ln_depth() {
+  return 1024 / (H * (32 / ln_lanes<H>())) > 1 ? 1024 / (H * (32 / ln_lanes<H>())) : 1;
+}
+template <int H>
+__host__ __device__ constexpr int ln_rows() {  // rows a warp holds at once
+  return (32 / ln_lanes<H>()) * ln_depth<H>();
+}
+
 template <int H>
 __global__ void __launch_bounds__(256)
 mlp_fc1_kernel_ln(const bf16* __restrict__ x, const float* __restrict__ ln_w,
                   const float* __restrict__ ln_b, bf16* __restrict__ xn, int M, float eps) {
-  constexpr int kVecs = H / 8, kPerLane = ln_per_lane<H>();
-  __shared__ __align__(16) float sw[kPerLane * 256], sb[kPerLane * 256];
+  constexpr int kLanes = ln_lanes<H>(), kSide = 32 / kLanes, kDepth = ln_depth<H>();
+  constexpr int kRows = ln_rows<H>();
+  constexpr int kVecs = H / 8, kPerLane = ln_per_lane<H, kLanes>();
+  __shared__ __align__(16) float sw[kPerLane * kLanes * 8], sb[kPerLane * kLanes * 8];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int c = threadIdx.x; c < kPerLane * 256; c += 256) {
+  const int gl = lane % kLanes, side = lane / kLanes;  // place in the row's group; which row
+  for (int c = threadIdx.x; c < kPerLane * kLanes * 8; c += 256) {
     sw[c] = ln_w[min(c, H - 1)];
     sb[c] = ln_b[min(c, H - 1)];
   }
   __syncthreads();
-  for (int r = blockIdx.x * 8 + warp; r < M; r += gridDim.x * 8) {
-    const uint4* src = reinterpret_cast<const uint4*>(x + static_cast<long long>(r) * H);
-    uint4* dst = reinterpret_cast<uint4*>(xn + static_cast<long long>(r) * H);
-    float v[kPerLane][8];
+  for (int r0 = (blockIdx.x * 8 + warp) * kRows; r0 < M; r0 += gridDim.x * 8 * kRows) {
+    float v[kDepth][kPerLane][8];
 #pragma unroll
-    for (int u = 0; u < kPerLane; ++u) {
-      const int vec = lane + 32 * u;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (vec < kVecs) raw = src[vec];
-      const bf16* e = reinterpret_cast<const bf16*>(&raw);
+    for (int d = 0; d < kDepth; ++d) {
+      const int r = r0 + kSide * d + side;
+      const uint4* src = reinterpret_cast<const uint4*>(x + static_cast<long long>(r) * H);
 #pragma unroll
-      for (int q = 0; q < 8; ++q) v[u][q] = __bfloat162float(e[q]);
+      for (int u = 0; u < kPerLane; ++u) {
+        const int vec = gl + kLanes * u;
+        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+        if (vec < kVecs && (kRows == 1 || r < M)) raw = src[vec];
+        const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) v[d][u][q] = __bfloat162float(e[q]);
+      }
     }
-    asm volatile("" ::: "memory");  // read the parameters anew for each row
+    asm volatile("" ::: "memory");  // read the parameters anew for each row group
     float lw[kPerLane][8], lb[kPerLane][8];
 #pragma unroll
     for (int u = 0; u < kPerLane; ++u)
 #pragma unroll
       for (int q = 0; q < 8; q += 4) {
         *reinterpret_cast<float4*>(&lw[u][q]) =
-            *reinterpret_cast<const float4*>(&sw[8 * (lane + 32 * u) + q]);
+            *reinterpret_cast<const float4*>(&sw[8 * (gl + kLanes * u) + q]);
         *reinterpret_cast<float4*>(&lb[u][q]) =
-            *reinterpret_cast<const float4*>(&sb[8 * (lane + 32 * u) + q]);
+            *reinterpret_cast<const float4*>(&sb[8 * (gl + kLanes * u) + q]);
       }
-    uint4 packed[kPerLane];
-    ln_row<H>(v, lw, lb, eps, lane, packed);
 #pragma unroll
-    for (int u = 0; u < kPerLane; ++u)
-      if (lane + 32 * u < kVecs) dst[u * 32 + lane] = packed[u];
+    for (int d = 0; d < kDepth; ++d) {
+      const int r = r0 + kSide * d + side;
+      uint4 packed[kPerLane];
+      ln_row<H, kLanes>(v[d], lw, lb, eps, gl, packed);
+      uint4* dst = reinterpret_cast<uint4*>(xn + static_cast<long long>(r) * H);
+#pragma unroll
+      for (int u = 0; u < kPerLane; ++u)
+        if (gl + kLanes * u < kVecs && (kRows == 1 || r < M)) dst[u * kLanes + gl] = packed[u];
+    }
   }
 }
 
-constexpr int kManyHidden = 768;   // v3's one width (mlp.py MANY_TOKEN_HIDDEN)
 constexpr int kBand = 128;         // v3: tokens per tile, two m64 halves
 constexpr int kV3Stages = 5;       // A and B chunks in flight
 constexpr int kV3Threads = 384;    // a producer warpgroup and two consumers
@@ -553,7 +597,12 @@ constexpr size_t many_smem_bytes() {
 //   fc2: bf16(x + bf16(acc + b2)), the x tile loaded by TMA into the
 //   staging buffer while the products run, into out.
 // Each output's K sum is one pass over K in chunk order on one warpgroup,
-// with v2's k16 steps: no split, no atomics.
+// with v2's k16 steps: no split, no atomics. Ragged edges (Hiera's widths):
+// K (fc1's H of 112 or 224) need not be a multiple of 64, nor N (fc2's H of
+// 112, 224 or 448, fc1's F of 448) of 128. TMA reads the columns past K of
+// both operands, and the rows past N of B, as zeros, so the last chunk adds
+// zeros; the epilogue reads no bias past N and the TMA store writes nothing
+// past N (a slab wholly past it is not stored, nor its residual loaded).
 template <bool kFc2, int A>
 __device__ __forceinline__ void many_gemm(const CUtensorMap* ta, const CUtensorMap* tb,
                                           const CUtensorMap* tout, const CUtensorMap* tres,
@@ -570,7 +619,7 @@ __device__ __forceinline__ void many_gemm(const CUtensorMap* ta, const CUtensorM
   const int tid = threadIdx.x, wg = tid >> 7;
   const int col_tiles = (N + kTN - 1) / kTN;
   const int tiles = ((M + kBand - 1) / kBand) * col_tiles;
-  const int chunks = K / kTK;
+  const int chunks = (K + kTK - 1) / kTK;
   if (tid == 0) {
     for (int st = 0; st < kV3Stages; ++st) {
       mbar_init(&full[st], 1);
@@ -613,9 +662,10 @@ __device__ __forceinline__ void many_gemm(const CUtensorMap* ta, const CUtensorM
     const int i0 = j * chunks;  // the ring's load index of this tile's first chunk
     if (kFc2 && ctid == 0) {
       bulk_wait_read();  // the previous tile's store has read the staging buffer
-      mbar_arrive_expect_tx(&res_full[w], kOutTileBytes);
+      const bool two = n0 + kTK < N;  // the second slab lies wholly past N 448's last tile
+      mbar_arrive_expect_tx(&res_full[w], two ? kOutTileBytes : kOutTileBytes / 2);
       tma_load_2d(Ob, tres, &res_full[w], n0, m0);
-      tma_load_2d(Ob + kOutTileBytes / 2, tres, &res_full[w], n0 + kTK, m0);
+      if (two) tma_load_2d(Ob + kOutTileBytes / 2, tres, &res_full[w], n0 + kTK, m0);
     }
     if (j > 0) mbar_wait(&turn[w], (turns++) & 1);
 
@@ -822,17 +872,27 @@ cudaError_t launch_fc1_many(const CUtensorMap& txn, const CUtensorMap& tw1, cons
   return cudaGetLastError();
 }
 
-// v3 (ops/kernels/mlp.py: mlp_plan picks it for many tokens): the
-// LayerNorm pass into xn, then fc1 into g and fc2 into out, each a
-// persistent grid of at most `sms` blocks.
+template <int H>
+cudaError_t launch_ln(const bf16* x, const float* ln_w, const float* ln_b, bf16* xn, int M,
+                      float eps, int sms, cudaStream_t s) {
+  constexpr int kBlockRows = 8 * ln_rows<H>();
+  const int blocks = std::min((M + kBlockRows - 1) / kBlockRows, 8 * sms);
+  mlp_fc1_kernel_ln<H><<<blocks, 256, 0, s>>>(x, ln_w, ln_b, xn, M, eps);
+  return cudaGetLastError();
+}
+
+// v3 (ops/kernels/mlp.py: mlp_plan picks it for many tokens, and at every
+// token count at a width v2 does not build): the LayerNorm pass into xn,
+// then fc1 into g and fc2 into out, each a persistent grid of at most `sms`
+// blocks. H is one of v3's widths: SAM ViT-B's 768 and Hiera-B+'s 112, 224,
+// 448 and 896 (mlp.py MANY_TOKEN_HIDDEN).
 cudaError_t run_mlp_many(const void* x, const void* ln_w, const void* ln_b, const void* w1,
                          const void* b1, const void* w2, const void* b2, void* xn, void* g,
                          void* out, int M, int H, int F, int sms, float eps, int act, int device,
                          void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (M <= 0 || F <= 0 || F % kTK != 0 || H != kManyHidden || sms <= 0 ||
-      (act != kQuickGelu && act != kErfGelu))
+  if (M <= 0 || F <= 0 || F % kTK != 0 || sms <= 0 || (act != kQuickGelu && act != kErfGelu))
     return cudaErrorInvalidValue;
   const auto* xp = static_cast<const bf16*>(x);
   const auto* lw = static_cast<const float*>(ln_w);
@@ -840,9 +900,21 @@ cudaError_t run_mlp_many(const void* x, const void* ln_w, const void* ln_b, cons
   auto* xnp = static_cast<bf16*>(xn);
   auto s = static_cast<cudaStream_t>(stream);
 
-  const int ln_blocks = std::min((M + 7) / 8, 8 * sms);
-  mlp_fc1_kernel_ln<kManyHidden><<<ln_blocks, 256, 0, s>>>(xp, lw, lb, xnp, M, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  switch (H) {
+#define ISTPU_LN_CASE(HH)                                 \
+  case HH:                                                \
+    err = launch_ln<HH>(xp, lw, lb, xnp, M, eps, sms, s); \
+    break;
+    ISTPU_LN_CASE(112)
+    ISTPU_LN_CASE(224)
+    ISTPU_LN_CASE(448)
+    ISTPU_LN_CASE(768)
+    ISTPU_LN_CASE(896)
+#undef ISTPU_LN_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
 
   CUtensorMap txn, tw1, tg, tw2, tout, tx;
   if ((err = matrix_map(&txn, xn, M, H, kBand)) != cudaSuccess) return err;
@@ -863,7 +935,7 @@ cudaError_t run_mlp_many(const void* x, const void* ln_w, const void* ln_b, cons
   err = cudaFuncSetAttribute(mlp_fc2_kernel_ws, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int blocks2 = std::min(sms, bands * (H / kTN));
+  const int blocks2 = std::min(sms, bands * ((H + kTN - 1) / kTN));
   mlp_fc2_kernel_ws<<<blocks2, kV3Threads, smem, s>>>(tg, tw2, tout, tx,
                                                       static_cast<const float*>(b2), M, H, F);
   return cudaGetLastError();
@@ -903,8 +975,8 @@ int istpu_mlp_partial_bf16(const void* x, const void* ln_w, const void* ln_b, co
                         chunks_per_split, eps, istpu::kQuickGelu, device, stream);
 }
 
-// v3, the many-token design: the arguments as istpu_mlp_bf16's, H 768, with
-// xn a bf16 (M, H) scratch for the LayerNormed x and `sms` the persistent
+// v3, the many-token design: the arguments as istpu_mlp_bf16's, H one of
+// 112, 224, 448, 768 and 896, with xn a bf16 (M, H) scratch for the LayerNormed x and `sms` the persistent
 // grid's size (the card's SM count); no partials.
 int istpu_mlp_many_bf16(const void* x, const void* ln_w, const void* ln_b, const void* w1,
                         const void* b1, const void* w2, const void* b2, void* xn, void* g,

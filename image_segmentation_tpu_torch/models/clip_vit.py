@@ -10,11 +10,11 @@ pre-norm blocks (quick-GELU MLP), and the list of hidden states:
 
 With `use_kernels`, each block's attention runs K3 (`fused_attention`)
 and its MLP half K4 (`fused_mlp`) at the widths K4 takes
-(`mlp.kernel_takes`: H in `HIDDEN_SIZES`, F a multiple of 64; the JAX
-package asks for multiples of 128, clip_vit.py:161, which puts every
-width this repo builds on the same side); otherwise the plain versions
-of the same functions run. On CPU tensors the wrappers run the plain
-versions themselves.
+(`mlp.kernel_takes`: H in `HIDDEN_SIZES` or `MANY_TOKEN_HIDDEN`, F a
+multiple of 64; the JAX package asks for multiples of 128,
+clip_vit.py:161, which puts every width this repo builds a ViT at on the
+same side); otherwise the plain versions of the same functions run. On
+CPU tensors the wrappers run the plain versions themselves.
 
 Parameters are float32; the compute dtype is the dtype of the pixels the
 ClipViT is given (the ClipUNet casts them).

@@ -43,9 +43,12 @@ unpartition or crop copies). Blocks whose windows hold at most
 SMALL_WINDOW_KEYS keys (Hiera-B+'s two windows of 4) and the three
 pooled-query blocks run torch's `scaled_dot_product_attention` on the
 partitioned windows, on either path. Without `use_kernels` the K5 blocks
-pad, partition and run K5's plain versions. The MLPs run cuBLAS through
-`clip_vit.linear` in the compute dtype: K4 takes none of Hiera's widths
-(`mlp.kernel_takes`).
+pad, partition and run K5's plain versions. Each block's second half,
+x + fc2(GELU(fc1(LN2(x)))), is one call of K4 with the exact GELU
+(`fused_mlp(..., activation="gelu")`, v3 at every width 112 to 896:
+`mlp.kernel_takes`) with `use_kernels`, and its plain version
+(`mlp_reference`, the kernel's cast points: LayerNorm affine and both
+biases in f32) without; norm1 stays torch's LayerNorm.
 
 Counts (`utils.profiling.count`), one per block call on either path:
 `sam.window_attention` (the K5 windowed blocks), `sam.global_attention`,
@@ -66,6 +69,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from image_segmentation_tpu_torch.models.clip_vit import linear
+from image_segmentation_tpu_torch.ops.kernels.mlp import fused_mlp, kernel_takes, mlp_reference
 from image_segmentation_tpu_torch.ops.kernels.relpos_attention import (
     attention_no_tables,
     attention_no_tables_reference,
@@ -229,6 +233,7 @@ class MultiScaleBlock(nn.Module):
         self.kind = ("pooled" if pool else "global" if not window
                      else "plain_window" if small else "window")
         self.use_kernels = use_kernels
+        self.k4_takes = kernel_takes(dim_out, hidden)
 
     def _attend(self, x: torch.Tensor) -> torch.Tensor:
         """The attention half on the LayerNorm'd map, shortcut not added."""
@@ -256,8 +261,10 @@ class MultiScaleBlock(nn.Module):
             shortcut = linear(y, self.proj)
             shortcut = _max_pool(shortcut, self.stride) if self.stride else shortcut
         x = shortcut + self._attend(y)
-        fc1, fc2 = self.mlp.layers
-        return x + linear(F.gelu(linear(layer_norm(x, self.norm2), fc1)), fc2)
+        ln, (fc1, fc2) = self.norm2, self.mlp.layers
+        run = fused_mlp if self.use_kernels and self.k4_takes else mlp_reference
+        return run(x, ln.weight, ln.bias, fc1.weight.to(x.dtype), fc1.bias,
+                   fc2.weight.to(x.dtype), fc2.bias, ln.eps, activation="gelu")
 
 
 class Hiera(nn.Module):

@@ -16,14 +16,18 @@ models/sam.py); the CUDA kernel compiles its fc1 epilogue once for each
 
 The kernel has two designs, picked by `mlp_plan` from what the call shows
 (its token count and width, never the model or the activation): v2 for
-few tokens (ClipUNet's requests and batches, and always the TP entry),
-and v3 from MANY_TOKENS tokens on at a width in MANY_TOKEN_HIDDEN (SAM's
-encoder at 32,768 tokens a micro-batch of 8): a LayerNorm pass, then fc1
-and fc2 as persistent warp-specialised GEMMs over bands of 128 tokens
-(csrc/mlp.cu's header says why and what bounds each). Each has its plan
-(`MlpPlan`, `ManyTokenPlan`) and its C entry point. The two give the
-same bits; `MANY_TOKEN_LAUNCHES` counts the calls that ran v3, which
-`LAUNCHES` counts too.
+few tokens (ClipUNet's requests and batches, and always the TP entry) at
+the widths in HIDDEN_SIZES, and v3 at the widths in MANY_TOKEN_HIDDEN: a
+LayerNorm pass, then fc1 and fc2 as persistent warp-specialised GEMMs
+over bands of 128 tokens (csrc/mlp.cu's header says why and what bounds
+each). v3 runs from MANY_TOKENS tokens on at a width both build (768:
+SAM's encoder at 32,768 tokens a micro-batch of 8), and at every token
+count at a width only v3 builds: SAM 2's Hiera-B+ at 112, 224, 448 and
+896 (models/hiera.py), whose K (fc1's H) need not be a multiple of
+K_CHUNK nor whose N (fc2's H, fc1's F) of OUT_TILE. Each design has its
+plan (`MlpPlan`, `ManyTokenPlan`) and its C entry point. At 768 the two
+give the same bits; `MANY_TOKEN_LAUNCHES` counts the calls that ran v3,
+which `LAUNCHES` counts too.
 
 Weights use the nn.Linear layout: w1 is (F, H), w2 is (H, F); the kernel
 takes the widths `kernel_takes` admits. `fused_mlp` routes as every
@@ -59,21 +63,24 @@ LAUNCHES = 0
 PARTIAL_LAUNCHES = 0
 MANY_TOKEN_LAUNCHES = 0
 
+# v2's widths (fc1's A tile resident, fc2's output in 128-wide tiles), the
+# TP entry's too
 HIDDEN_SIZES = (128, 256, 384, 512, 640, 768)
 # the GELUs of the fc1 epilogue, as csrc/mlp.cu numbers them (`Act`)
 ACTIVATIONS = {"quick_gelu": 0, "gelu": 1}
 TOKEN_TILE = 64  # tokens per tile, the M of wgmma (csrc/mlp.cu kTM)
 OUT_TILE = 128  # output columns per tile: fc1's F, fc2's H (kTN)
 K_CHUNK = 64  # reduction columns per pipeline stage (kTK)
-# v3 runs from MANY_TOKENS tokens on, at the widths in MANY_TOKEN_HIDDEN:
-# the smallest token count of a sweep on an H100 at H 768, F 3,072 with
-# both GELUs from which v3 is at least as fast as v2 both on the device and
-# from Python (PERF.md §6). Below it the callers are ClipUNet's serving
-# batches, where v3's extra launch and tensor maps cost more host time
-# than its kernels save. 768 is the one width the sweep measured, and the
-# one csrc/mlp.cu builds v3 for (kManyHidden).
+# v3's widths, as csrc/mlp.cu's run_mlp_many builds its LayerNorm pass:
+# SAM ViT-B's 768 and SAM 2 Hiera-B+'s four stages. At a width v2 builds
+# too (768), v3 runs from MANY_TOKENS tokens on: the smallest token count
+# of a sweep on an H100 at H 768, F 3,072 with both GELUs from which v3 is
+# at least as fast as v2 both on the device and from Python (PERF.md §6).
+# Below it the callers are ClipUNet's serving batches, where v3's extra
+# launch and tensor maps cost more host time than its kernels save. The
+# widths v2 does not build run v3 at every token count.
 MANY_TOKENS = 3152
-MANY_TOKEN_HIDDEN = (768,)
+MANY_TOKEN_HIDDEN = (112, 224, 448, 768, 896)
 
 
 def _gelu_stage(x, ln_w, ln_b, w1, b1, eps: float, activation: str = "quick_gelu"):
@@ -108,7 +115,7 @@ def kernel_takes(hdim: int, fdim: int) -> bool:
     """Whether the CUDA kernel takes an MLP of width H `hdim` and hidden
     width F `fdim` (fc1's outputs; a rank's share of them in the TP entry):
     the rule a model reads before it calls `fused_mlp` on a card."""
-    return hdim in HIDDEN_SIZES and fdim > 0 and fdim % K_CHUNK == 0
+    return hdim in HIDDEN_SIZES + MANY_TOKEN_HIDDEN and fdim > 0 and fdim % K_CHUNK == 0
 
 
 def _check_cuda_args(op: str, x, ln_w, ln_b, w1, b1, w2, b2=None) -> None:
@@ -116,8 +123,10 @@ def _check_cuda_args(op: str, x, ln_w, ln_b, w1, b1, w2, b2=None) -> None:
     fdim = w1.shape[0]
     if not kernel_takes(hdim, fdim):
         raise ValueError(
-            f"the CUDA kernel takes H in {HIDDEN_SIZES} and F a multiple of "
-            f"{K_CHUNK}, got H={hdim} F={fdim}")
+            f"the CUDA kernel takes H in {tuple(sorted(set(HIDDEN_SIZES + MANY_TOKEN_HIDDEN)))} "
+            f"and F a multiple of {K_CHUNK}, got H={hdim} F={fdim}")
+    if b2 is None and hdim not in HIDDEN_SIZES:  # the TP entry runs v2 alone
+        raise ValueError(f"the CUDA kernel's TP entry takes H in {HIDDEN_SIZES}, got H={hdim}")
     shapes = {"ln_w": (hdim,), "ln_b": (hdim,), "w1": (fdim, hdim),
               "b1": (fdim,), "w2": (hdim, fdim), "b2": (hdim,)}
     args = {"x": x, "ln_w": ln_w, "ln_b": ln_b, "w1": w1, "b1": b1, "w2": w2}
@@ -156,9 +165,10 @@ class ManyTokenPlan:
 
 def mlp_plan(tokens: int, hdim: int, fdim: int, sms: int, tp: bool = False):
     """The cut for `tokens` rows on a card with `sms` SMs: a ManyTokenPlan
-    (v3) at MANY_TOKENS tokens or more at a width in MANY_TOKEN_HIDDEN,
-    except for the tensor-parallel entry (`tp`), which always runs v2;
-    otherwise an MlpPlan (v2).
+    (v3) at a width in MANY_TOKEN_HIDDEN, from MANY_TOKENS tokens on where
+    v2 builds the width too and at every count where it does not, except
+    for the tensor-parallel entry (`tp`), which always runs v2; otherwise
+    an MlpPlan (v2).
 
     v2's fc1 blocks hold their LayerNorm tile resident (one block an SM):
     the run length is the one with the fewest waves x tiles per block, the
@@ -167,7 +177,8 @@ def mlp_plan(tokens: int, hdim: int, fdim: int, sms: int, tp: bool = False):
     blocks for every three SMs: more splits cost more in f32 partials and
     their reduction than they gain in parallel loads (a sweep of the
     split count on an H100 at 197 and 394 tokens)."""
-    if not tp and tokens >= MANY_TOKENS and hdim in MANY_TOKEN_HIDDEN:
+    if (not tp and hdim in MANY_TOKEN_HIDDEN
+            and (tokens >= MANY_TOKENS or hdim not in HIDDEN_SIZES)):
         return ManyTokenPlan((tokens, fdim), (tokens, hdim))
     tt = -(-tokens // TOKEN_TILE)
     f_tiles = -(-fdim // OUT_TILE)

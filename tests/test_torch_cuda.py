@@ -191,18 +191,41 @@ def test_mlp_many_token_kernel(cuda, m, activation, eps):
     assert torch.equal(got, K4.fused_mlp(x, lw, lb, w1, b1, w2, b2, eps, activation=activation))
 
 
-def test_mlp_many_token_kernel_keeps_v2s_bits(cuda, monkeypatch):
+@pytest.mark.parametrize("activation", ["gelu", "quick_gelu"])
+def test_mlp_many_token_kernel_keeps_v2s_bits(cuda, monkeypatch, activation):
     """v3 and v2 round at the same points and sum each output over K in the
-    same k16 order, so at SAM's 32,768 tokens with the exact GELU no output
+    same k16 order, so at SAM's 32,768 tokens with either GELU no output
     differs (0 of 25,165,824 on the card)."""
     x, lw, lb, w1, b1, w2, b2, _ = _mlp_args(32768, 768, 3072, cuda, seed=5)
-    v3 = K4.fused_mlp(x, lw, lb, w1, b1, w2, b2, 1e-6, activation="gelu")
+    v3 = K4.fused_mlp(x, lw, lb, w1, b1, w2, b2, 1e-6, activation=activation)
     monkeypatch.setattr(K4, "MANY_TOKENS", 10**9)
     before = K4.MANY_TOKEN_LAUNCHES
-    v2 = K4.fused_mlp(x, lw, lb, w1, b1, w2, b2, 1e-6, activation="gelu")
+    v2 = K4.fused_mlp(x, lw, lb, w1, b1, w2, b2, 1e-6, activation=activation)
     torch.cuda.synchronize()
     assert K4.MANY_TOKEN_LAUNCHES == before
     assert int((v3 != v2).sum()) == 0
+
+
+# K4 v3 at SAM 2 Hiera-B+'s four MLP widths (models/hiera.py), the exact
+# GELU at eps 1e-6: one request's ragged 197 tokens (v3 at every count at a
+# width v2 does not build) and each stage's tokens at micro-batch 8. K
+# (fc1's H) is ragged against the 64-wide chunk at 112 and 224, N (fc2's H)
+# against the 128-wide tile at 112, 224 and 448, fc1's F at 448.
+HIERA_MLPS = ((112, 448, 524288), (224, 896, 131072), (448, 1792, 32768), (896, 3584, 8192))
+
+
+@pytest.mark.parametrize("h,f,m", [(h, f, m) for h, f, real in HIERA_MLPS
+                                   for m in (197, real)])
+def test_mlp_kernel_at_hiera_widths(cuda, h, f, m):
+    x, lw, lb, w1, b1, w2, b2, _ = _mlp_args(m, h, f, cuda, seed=h + m)
+    assert K4.kernel_takes(h, f)
+    assert isinstance(K4.mlp_plan(m, h, f, 132), K4.ManyTokenPlan)
+    before = K4.LAUNCHES, K4.MANY_TOKEN_LAUNCHES
+    got = K4.fused_mlp(x, lw, lb, w1, b1, w2, b2, 1e-6, activation="gelu")
+    torch.cuda.synchronize()
+    assert (K4.LAUNCHES - before[0], K4.MANY_TOKEN_LAUNCHES - before[1]) == (1, 1)
+    _close(got, K4.mlp_reference(x, lw, lb, w1, b1, w2, b2, 1e-6, activation="gelu"))
+    assert torch.equal(got, K4.fused_mlp(x, lw, lb, w1, b1, w2, b2, 1e-6, activation="gelu"))
 
 
 # One ClipUNet request, a batch of 8 and the TP entry stay on v2 (the
@@ -427,8 +450,10 @@ def test_no_table_entries_refuse_other_shapes(cuda):
 def test_sam2_runs_k5_in_19_blocks(cuda):
     """A Sam2HieraBPlus forward (1024 px, bf16, kernels on, random qkv
     biases) runs K5 19 times, 16 on the window map, and SDPA in the other
-    five blocks; the kernel path's windowed and global blocks agree with
-    the plain path's (pad, partition, K5's plain version, crop)."""
+    five blocks, and K4 v3 once a block (24); the kernel path's blocks
+    (windowed, global, and pooled at a new width, each MLP on K4) agree
+    with the plain path's (pad, partition, K5's plain version, crop, and
+    K4's plain version)."""
     from image_segmentation_tpu_torch.models import sam2
     from image_segmentation_tpu_torch.utils import profiling
 
@@ -440,11 +465,12 @@ def test_sam2_runs_k5_in_19_blocks(cuda):
             block.attn.qkv.bias.copy_(0.1 * torch.randn(block.attn.qkv.bias.shape, generator=g))
     images = torch.rand(1, 1024, 1024, 3, generator=g).to(cuda)
     clicks = torch.tensor([[[512.0, 512.0, 1.0]]], device=cuda)
-    before = K5.LAUNCHES, K5.WINDOW_MAP_LAUNCHES
+    before = K5.LAUNCHES, K5.WINDOW_MAP_LAUNCHES, K4.LAUNCHES, K4.MANY_TOKEN_LAUNCHES
     with profiling.record_spans() as log, torch.no_grad():
         masks, iou = model(images, clicks)
     torch.cuda.synchronize()
     assert (K5.LAUNCHES - before[0], K5.WINDOW_MAP_LAUNCHES - before[1]) == (19, 16)
+    assert (K4.LAUNCHES - before[2], K4.MANY_TOKEN_LAUNCHES - before[3]) == (24, 24)
     assert masks.shape == (1, 3, 256, 256) and torch.isfinite(masks).all()
     assert ((iou > 0) & (iou < 1)).all()
     assert {k: log.counts[k] for k in ("sam.window_attention", "sam.global_attention",
@@ -452,7 +478,7 @@ def test_sam2_runs_k5_in_19_blocks(cuda):
         == {"sam.window_attention": 16, "sam.global_attention": 3,
             "sam.plain_window_attention": 2, "sam.pooled_attention": 3}
     blocks = model.image_encoder.trunk.blocks
-    for i, side in ((0, 256), (6, 64), (12, 64), (22, 32)):
+    for i, side in ((0, 256), (2, 256), (6, 64), (12, 64), (22, 32)):
         block = blocks[i]
         x = (0.5 * torch.randn(2, side, side, block.norm1.normalized_shape[0],
                                generator=g)).to(cuda).bfloat16()

@@ -105,6 +105,28 @@ def test_h1024_routes_to_plain_mlp_where_k4_takes_no_such_width(monkeypatch):
     assert not K4.kernel_takes(1024, 4096) and K4.kernel_takes(768, 3072)
 
 
+# SAM 2 Hiera-B+'s four MLPs (models/hiera.py): H and F = 4H.
+HIERA_MLPS = ((112, 448), (224, 896), (448, 1792), (896, 3584))
+
+
+@pytest.mark.parametrize("hdim,fdim", HIERA_MLPS)
+def test_kernel_takes_hieras_widths_but_not_in_the_tp_entry(hdim, fdim):
+    """Hiera's widths are v3's alone: `kernel_takes` admits them, and the
+    TP entry, which runs v2, refuses them when it checks its arguments;
+    v2's widths stay admitted for both, and H 1,024 for neither."""
+    assert K4.kernel_takes(hdim, fdim)
+    assert hdim in K4.MANY_TOKEN_HIDDEN and hdim not in K4.HIDDEN_SIZES
+    for h in K4.HIDDEN_SIZES:
+        assert K4.kernel_takes(h, 4 * h)
+    assert not K4.kernel_takes(1024, 4096)
+    assert not K4.kernel_takes(hdim, fdim + 32)
+    x, lw, lb, w1, b1, w2, b2 = _torch_args(_args(b=1, s=3, h=hdim, f=fdim))
+    args = (x.bfloat16(), lw, lb, w1.bfloat16(), b1, w2.bfloat16(), b2)
+    K4._check_cuda_args("fused_mlp", *args)
+    with pytest.raises(ValueError, match="TP entry takes H in"):
+        K4._check_cuda_args("fused_mlp_partial", *args[:6])
+
+
 def test_wrapper_rejects_other_devices():
     args = [t.to("meta") for t in _torch_args(_args(b=1, s=3))]
     with pytest.raises(ValueError, match="cpu or cuda"):
@@ -156,15 +178,22 @@ def test_mlp_plan_fc1_fits_one_wave_where_it_can():
 @pytest.mark.parametrize("tokens,hdim,fdim,tp,many", [
     (197, 768, 3072, False, False), (1576, 768, 3072, False, False),
     (6304, 128, 256, False, False), (32768, 768, 3072, True, False),
-    (32768, 768, 3072, False, True), (32700, 768, 3072, False, True)])
+    (32768, 768, 3072, False, True), (32700, 768, 3072, False, True),
+    (32768, 128, 512, False, False), (32768, 640, 2560, False, False),
+    (3151, 768, 3072, False, False), (3152, 768, 3072, False, True)]
+    + [(t, h, f, False, True) for h, f in HIERA_MLPS for t in (1, 197, 1024, 3151, 8 * 65536)])
 def test_mlp_plan_routes_many_tokens_to_v3(tokens, hdim, fdim, tp, many):
-    """v3 takes MANY_TOKENS tokens or more at a width of MANY_TOKEN_HIDDEN;
-    one request and a ClipUNet batch of 8, the ablations' narrow ViT and
-    the TP entry keep v2 (the same cut as before v3 existed). A v3 plan
-    holds v3's scratch alone: G and a LayerNorm scratch of x's shape."""
+    """v3 takes MANY_TOKENS tokens or more at 768, a width both designs
+    build, and every token count at a width only v3 builds (Hiera's: one
+    image's 1,024 tokens of stage 4 among them); one request and a ClipUNet
+    batch of 8, v2's other widths at any count, and the TP entry keep v2
+    (the same cut as before v3 existed). A v3 plan holds v3's scratch
+    alone: G and a LayerNorm scratch of x's shape."""
     plan = K4.mlp_plan(tokens, hdim, fdim, 132, tp=tp)
     assert isinstance(plan, K4.ManyTokenPlan) is many
-    assert (tokens >= K4.MANY_TOKENS and hdim in K4.MANY_TOKEN_HIDDEN and not tp) is many
+    v3_only = hdim not in K4.HIDDEN_SIZES
+    assert (hdim in K4.MANY_TOKEN_HIDDEN and (tokens >= K4.MANY_TOKENS or v3_only)
+            and not tp) is many
     if many:
         assert plan == K4.ManyTokenPlan(g_shape=(tokens, fdim), ln_shape=(tokens, hdim))
         assert [f.name for f in dataclasses.fields(plan)] == ["g_shape", "ln_shape"]
@@ -183,9 +212,10 @@ class _FakeLib:
         return lambda *args: self.calls.append((name, args)) or 0
 
 
-def _route(monkeypatch, tokens, activation, partial=False):
+def _route(monkeypatch, tokens, activation, partial=False, h=768, f=3072):
     """Runs `_launch` on the CPU against _FakeLib (no card: the tensors are
-    never touched); returns the entry point called and the counts moved."""
+    never touched) at width `h` and hidden width `f` (halved for the TP
+    entry); returns the entry point called and the counts moved."""
     lib = _FakeLib()
     monkeypatch.setattr(K4._build, "load", lambda: lib)
     monkeypatch.setattr(K4._build, "sm_count", lambda dev: 132)
@@ -193,7 +223,7 @@ def _route(monkeypatch, tokens, activation, partial=False):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: types.SimpleNamespace(cuda_stream=0))
     e = lambda *s, dt=torch.bfloat16: torch.empty(*s, dtype=dt)  # noqa: E731
-    h, f = 768, 3072 // (2 if partial else 1)
+    f //= 2 if partial else 1
     args = (e(1, tokens, h), e(h, dt=torch.float32), e(h, dt=torch.float32), e(f, h),
             e(f, dt=torch.float32), e(h, f), None if partial else e(h, dt=torch.float32))
     before = K4.LAUNCHES, K4.MANY_TOKEN_LAUNCHES, K4.PARTIAL_LAUNCHES
@@ -214,6 +244,24 @@ def test_launcher_runs_v3_at_sam_tokens_with_either_gelu(monkeypatch, activation
     assert name == "istpu_mlp_many_bf16" and moved == (1, 1, 0)
     assert cargs[15] == K4.ACTIVATIONS[activation]
     assert cargs[10:14] == (32768, 768, 3072, 132)
+
+
+@pytest.mark.parametrize("hdim,fdim", HIERA_MLPS)
+@pytest.mark.parametrize("tokens", [1024, 8 * 32 * 32])
+def test_launcher_runs_v3_at_hieras_widths(monkeypatch, hdim, fdim, tokens):
+    """A Hiera MLP (exact GELU, eps 1e-6) goes to the many-token entry at
+    one image's tokens of stage 4 and at a micro-batch of 8's, whatever the
+    width, and counts in LAUNCHES and MANY_TOKEN_LAUNCHES."""
+    name, cargs, moved = _route(monkeypatch, tokens, "gelu", h=hdim, f=fdim)
+    assert name == "istpu_mlp_many_bf16" and moved == (1, 1, 0)
+    assert cargs[10:14] == (tokens, hdim, fdim, 132) and cargs[15] == K4.ACTIVATIONS["gelu"]
+
+
+def test_tp_entry_refuses_hieras_widths(monkeypatch):
+    """The TP entry runs v2, which builds none of Hiera's widths: the
+    launcher refuses one before it calls the library."""
+    with pytest.raises(ValueError, match="TP entry takes H in"):
+        _route(monkeypatch, 1024, "quick_gelu", partial=True, h=448, f=3584)
 
 
 @pytest.mark.parametrize("tokens,activation,partial,entry", [

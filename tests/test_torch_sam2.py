@@ -197,6 +197,36 @@ def test_kernel_path_matches_the_plain_path(monkeypatch):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
+def test_kernel_path_runs_k4_once_a_block(monkeypatch):
+    """Each block's second half, x + fc2(GELU(fc1(LN2(x)))), is one
+    `fused_mlp` call on the kernel path (the exact GELU, Hiera's eps, a
+    contiguous map at the block's output width, weights in the compute
+    dtype, LayerNorm parameters and biases in f32), and none on the plain
+    path, which runs K4's plain version: both give the same masks."""
+    calls = []
+
+    def spy(x, ln_w, ln_b, w1, b1, w2, b2, eps, activation):
+        calls.append((x.shape[-1], w1.shape[0], x.is_contiguous(), eps, activation,
+                      w1.dtype, ln_w.dtype, b1.dtype))
+        return H.mlp_reference(x, ln_w, ln_b, w1, b1, w2, b2, eps, activation)
+
+    monkeypatch.setattr(H, "fused_mlp", spy)
+    plain, _ = _pair("stages_1232")
+    kernels = S2.Sam2HieraBPlus(_cfg("stages_1232"), use_kernels=True)
+    kernels.load_state_dict(plain.state_dict())
+    images, clicks, _ = _batch()
+    with torch.no_grad():
+        want = plain(images, clicks)
+        assert calls == []
+        got = kernels(images, clicks)
+    widths = [b.mlp.layers[1].out_features for b in kernels.image_encoder.trunk.blocks]
+    assert widths == [112, 224, 224, 448, 448, 448, 896, 896]
+    assert calls == [(h, 4 * h, True, 1e-6, "gelu", torch.float32, torch.float32,
+                      torch.float32) for h in widths]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_spans_and_counts_of_a_forward():
     port, _ = _pair("stages_1232")
     images, clicks, _ = _batch(n=3)

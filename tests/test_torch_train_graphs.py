@@ -333,6 +333,36 @@ def _keep_eager(state):
     return state
 
 
+def _check_first_adamw_update(state, before, lr, wd, eps=1e-8):
+    """The state's first AdamW step reached its parameters: each leaf that
+    has a .grad moved from `before` (its values before the step) as that
+    first step moves it, p (1 - lr wd) - lr g / (|g| + eps), to within a
+    hundredth of lr (a step moves an element by up to lr)."""
+    moved = 0
+    for n, p in state.model.named_parameters():
+        if p.grad is None:
+            continue
+        p0, g = before[n].float(), p.grad.float()
+        want = p0 * (1 - lr * wd) - lr * g / (g.abs() + eps)
+        err = (p.detach().float() - want).abs().max().item()
+        assert err <= 1e-2 * lr + 1e-6 * p0.abs().max().item(), (n, err)
+        moved += 1
+    assert moved
+
+
+def _math_attention():
+    """SDPA on its math path inside the block, its backends restored after.
+    cuDNN's attention, which SAM 2's decoder otherwise runs, has a backward
+    that is not bit for bit reproducible (`cudnn.deterministic` does not
+    reach it): a gradient that should be zero (an attention key bias)
+    differs by its rounding between two runs, and AdamW's first update,
+    which moves every element by about lr whatever its gradient's size,
+    carries that into a percent of a loss."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    return sdpa_kernel(SDPBackend.MATH)
+
+
 def _unet_twins(cuda):
     """A graphed and an eager UNet state (base 8, bf16) with the same weights."""
     return (_unet_state(cuda, base=8, dtype=torch.bfloat16),
@@ -569,11 +599,18 @@ def test_sam_is_graphed_and_replays_credit_the_window_map(cuda):
 @pytest.mark.cuda
 def test_sam2_replays_credit_152_k5_launches_a_step(cuda):
     """Sam2HieraBPlus at full size (1024 px, bf16, kernels on), 8 micro-batches
-    of one image a step, replays graphs: the micro-batch losses as the eager
-    twin's, and K5 credited as eager counts it, 19 calls a micro-batch (152
-    a step), 16 of them on the window map (128 a step)."""
+    of one image a step, replays graphs: over two steps the micro-batch
+    losses as the eager twin's, each trained leaf's .grad after step 1, and
+    each twin's first AdamW update as AdamW's formula gives it from that
+    .grad; step 2's losses moved from step 1's (the replay reads the
+    updated parameters in place). Attention takes SDPA's math path
+    (`_math_attention`), so the decoder's backward is reproducible and the
+    twins take their updates apart. K5 credited as eager counts it, 19 calls a micro-batch
+    (152 a step), 16 of them on the window map (128 a step); K4 too, one v3
+    call a block (24 a micro-batch, 192 a step)."""
     from image_segmentation_tpu_torch.losses import SamLoss
     from image_segmentation_tpu_torch.models import sam2
+    from image_segmentation_tpu_torch.ops.kernels import mlp as K4
     from image_segmentation_tpu_torch.ops.kernels import relpos_attention as K5
     from image_segmentation_tpu_torch.train.state import freeze_, trainable_parameters
 
@@ -587,17 +624,32 @@ def test_sam2_replays_credit_152_k5_launches_a_step(cuda):
     g, e = state(), _keep_eager(state())
     x, y = _rows(8, side=1024, device=cuda)
     clicks = torch.tensor([[[300.0, 700.0, 1.0]]], device=cuda).expand(8, 1, 3).contiguous()
-    for s in range(2):
-        launched = []
-        for st, want in ((g, ((1 if s == 0 else 0), 8, 0)), (e, (0, 0, 8))):
-            before = K5.LAUNCHES, K5.WINDOW_MAP_LAUNCHES
-            losses, counts = _stepper(st, SamLoss(), 8)((x, clicks), y)
-            assert counts == want
-            launched.append((K5.LAUNCHES - before[0], K5.WINDOW_MAP_LAUNCHES - before[1]))
-            if st is g:
-                lg = losses
-        assert launched == [(152, 128)] * 2
-        torch.testing.assert_close(lg, losses, rtol=REL, atol=0)
+    start = [{n: p.detach().clone() for n, p in st.model.named_parameters()} for st in (g, e)]
+    with _math_attention():
+        for s in range(2):
+            if s:
+                gg, ge = ({n: p.grad for n, p in st.model.named_parameters()
+                           if p.grad is not None} for st in (g, e))
+                assert gg
+                _close_dicts(gg, ge)
+                for st, p0 in zip((g, e), start):
+                    _check_first_adamw_update(st, p0, 8e-4, 0.1)
+                first = lg
+            launched = []
+            for st, want in ((g, ((1 if s == 0 else 0), 8, 0)), (e, (0, 0, 8))):
+                before = (K5.LAUNCHES, K5.WINDOW_MAP_LAUNCHES, K4.LAUNCHES,
+                          K4.MANY_TOKEN_LAUNCHES)
+                losses, counts = _stepper(st, SamLoss(), 8)((x, clicks), y)
+                assert counts == want
+                launched.append((K5.LAUNCHES - before[0], K5.WINDOW_MAP_LAUNCHES - before[1],
+                                 K4.LAUNCHES - before[2], K4.MANY_TOKEN_LAUNCHES - before[3]))
+                if st is g:
+                    lg = losses
+            assert launched == [(152, 128, 192, 192)] * 2
+            torch.testing.assert_close(lg, losses, rtol=REL, atol=0)
+    # the replays of step 2 read the updated weights: their losses moved by
+    # more than the tolerance that compares them with the eager twin's
+    assert (lg - first).norm() > 4 * REL * first.norm(), (first, lg)
 
 
 from torch_spawn import spawn  # noqa: E402
